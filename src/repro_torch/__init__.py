@@ -1,0 +1,24 @@
+"""PyTorch/CUDA port of the AccMPEG reproduction (``repro``).
+
+The package mirrors ``repro``'s module names and public layouts (NHWC
+frames, ``(T, H, W, C)`` chunks, ``(mb_h, mb_w)`` QP maps). Entry points
+take an explicit ``device`` (default ``"cuda"``) and raise when CUDA is
+missing unless the caller asks for ``device="cpu"``; the camera codec's
+``pallas`` / ``fused`` / ``fused_exact`` backends launch the hand-written
+kernels of :mod:`repro_torch.kernels.mbcodec` on CUDA tensors and their
+plain PyTorch versions on CPU tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a :class:`torch.device`; refuses CUDA where there is
+    none instead of running somewhere else."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' requested but torch.cuda.is_available() is "
+            "false; pass device='cpu' to run the plain PyTorch path")
+    return dev

@@ -1,0 +1,109 @@
+"""ctypes wrappers of the CUDA kernels in ``csrc/mbcodec.cu``.
+
+``mbcodec_chunk_cuda`` launches ``mbcodec_chunk_kernel<clip_refs>``
+(replaces ``repro/kernels/mbcodec/kernel.py::mbcodec_chunk_pallas``) and
+``mbcodec_frame_cuda`` launches ``mbcodec_frame_kernel`` (replaces
+``mbcodec_pallas``). Both take CUDA float32 contiguous tensors, allocate
+their outputs, launch on the current stream without synchronising, and
+raise on any CUDA error the launch reports. :data:`LAUNCHES` counts the
+launches of each kernel, so a run can show that it went through them.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.codec.dct import MB, dct_tensor, weight_tensor
+from repro_torch.kernels import build
+
+#: launches per kernel: "mbcodec_frame", "mbcodec_chunk[clip=False]",
+#: "mbcodec_chunk[clip=True]"
+LAUNCHES: collections.Counter = collections.Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def chunk_kernel_name(clip_refs: bool) -> str:
+    return f"mbcodec_chunk[clip={bool(clip_refs)}]"
+
+
+@functools.lru_cache()
+def _lib():
+    lib = build.load("mbcodec")
+    lib.mbcodec_chunk.argtypes = [_P] * 7 + [_I, _I, _I, _P]
+    lib.mbcodec_chunk.restype = _I
+    lib.mbcodec_frame.argtypes = [_P] * 7 + [_I, _P]
+    lib.mbcodec_frame.restype = _I
+    return lib
+
+
+def _check(name, t, shape):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _raise_on(err: int, kernel: str):
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed with cudaError_t {err}")
+
+
+def mbcodec_chunk_cuda(blocks: torch.Tensor, qp: torch.Tensor,
+                       clip_refs: bool = False, want_q: bool = False):
+    """blocks (T, N, 16, 16), qp (T, N) -> (rec (T, N, 16, 16), bits (T, N)),
+    plus the quantized coefficients (T, N, 16, 16) when ``want_q``."""
+    T, N = blocks.shape[:2]
+    _check("blocks", blocks, (T, N, MB, MB))
+    _check("qp", qp, (T, N))
+    if T < 1 or N < 1:
+        raise ValueError(f"empty chunk: T={T}, N={N}")
+    if qp.device != blocks.device:
+        raise ValueError("blocks and qp lie on different devices")
+    with torch.cuda.device(blocks.device):
+        d, w = dct_tensor(blocks.device), weight_tensor(blocks.device)
+        rec = torch.empty_like(blocks)
+        bits = torch.empty((T, N), dtype=torch.float32, device=blocks.device)
+        q = torch.empty_like(blocks) if want_q else None
+        err = _lib().mbcodec_chunk(
+            blocks.data_ptr(), qp.data_ptr(), d.data_ptr(), w.data_ptr(),
+            rec.data_ptr(), bits.data_ptr(), q.data_ptr() if want_q else None,
+            T, N, int(bool(clip_refs)),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, chunk_kernel_name(clip_refs))
+    LAUNCHES[chunk_kernel_name(clip_refs)] += 1
+    return (rec, bits, q) if want_q else (rec, bits)
+
+
+def mbcodec_frame_cuda(blocks: torch.Tensor, qp: torch.Tensor,
+                       want_q: bool = False):
+    """blocks (N, 16, 16), qp (N,) -> (rec (N, 16, 16), bits (N,)), plus q
+    (N, 16, 16) when ``want_q``."""
+    N = blocks.shape[0]
+    _check("blocks", blocks, (N, MB, MB))
+    _check("qp", qp, (N,))
+    if N < 1:
+        raise ValueError("empty frame")
+    if qp.device != blocks.device:
+        raise ValueError("blocks and qp lie on different devices")
+    with torch.cuda.device(blocks.device):
+        d, w = dct_tensor(blocks.device), weight_tensor(blocks.device)
+        rec = torch.empty_like(blocks)
+        bits = torch.empty((N,), dtype=torch.float32, device=blocks.device)
+        q = torch.empty_like(blocks) if want_q else None
+        err = _lib().mbcodec_frame(
+            blocks.data_ptr(), qp.data_ptr(), d.data_ptr(), w.data_ptr(),
+            rec.data_ptr(), bits.data_ptr(), q.data_ptr() if want_q else None,
+            N, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "mbcodec_frame")
+    LAUNCHES["mbcodec_frame"] += 1
+    return (rec, bits, q) if want_q else (rec, bits)

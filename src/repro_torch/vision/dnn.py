@@ -1,0 +1,242 @@
+"""Server-side final DNNs (port of ``repro.vision.dnn``): the detector,
+segmenter and keypoint net, treated as black boxes by the AccMPEG core.
+
+Public functions keep the reference's layouts: frames in NHWC, outputs as
+dicts of NHWC maps at stride 8. Inside, convolutions run in NCHW with
+TensorFlow-style SAME padding written out, because PyTorch's symmetric
+``padding=1`` is one pixel off for stride-2 convolutions on even inputs
+(XLA pads (0, 1) there). Accuracy is scored on the host in numpy against
+D(H), the DNN's output on the high-quality frames, as in the reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch import resolve_device
+
+STRIDE = 8  # output stride of every head
+TASK_HEADS = {"detection": {"heat": 1, "wh": 2, "off": 2},
+              "segmentation": {"seg": 2}, "keypoint": {"kp": 5}}
+
+
+# ---------------------------------------------------------------------------
+# conv substrate
+# ---------------------------------------------------------------------------
+def same_pad(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """Pad NCHW ``x`` as XLA's ``padding="SAME"`` does: the total
+    ``max((ceil(n/s) - 1) * s + k - n, 0)`` split low = total // 2."""
+    pads = []
+    for n in (x.shape[-1], x.shape[-2]):  # F.pad order: last dim first
+        total = max((-(-n // stride) - 1) * stride + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads) if any(pads) else x
+
+
+class Conv(nn.Module):
+    """k x k convolution with SAME padding. The reference's HWIO weight
+    ``(k, k, ci/groups, co)`` is stored as OIHW ``(co, ci/groups, k, k)``;
+    initialised like ``repro.vision.dnn.conv_init``: N(0, 1/fan_in), zero
+    bias."""
+
+    def __init__(self, k: int, ci: int, co: int, stride: int = 1,
+                 groups: int = 1, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.k, self.stride, self.groups = k, stride, groups
+        fan_in = k * k * (ci // groups)
+        self.weight = nn.Parameter(
+            torch.randn((co, ci // groups, k, k), generator=generator)
+            / math.sqrt(fan_in))
+        self.bias = nn.Parameter(torch.zeros(co))
+
+    def forward(self, x):
+        return F.conv2d(same_pad(x, self.k, self.stride), self.weight,
+                        self.bias, self.stride, groups=self.groups)
+
+
+class DwSep(nn.Module):
+    """Depthwise 3x3 (groups=ci) + ReLU, pointwise 1x1 + ReLU."""
+
+    def __init__(self, ci: int, co: int, stride: int = 1, generator=None):
+        super().__init__()
+        self.dw = Conv(3, ci, ci, stride, groups=ci, generator=generator)
+        self.pw = Conv(1, ci, co, generator=generator)
+
+    def forward(self, x):
+        return F.relu(self.pw(F.relu(self.dw(x))))
+
+
+class Backbone(nn.Module):
+    """(B, 3, H, W) -> (B, 3*width, H/8, W/8)."""
+
+    def __init__(self, width: int = 32, generator=None):
+        super().__init__()
+        g, w = generator, width
+        self.stem = Conv(3, 3, w // 2, stride=2, generator=g)
+        self.b1 = DwSep(w // 2, w, 2, g)
+        self.b2 = DwSep(w, w * 2, 2, g)
+        self.b3 = DwSep(w * 2, w * 3, 1, g)
+        self.b4 = DwSep(w * 3, w * 3, 1, g)
+
+    def forward(self, x):
+        x = F.relu(self.stem(x))
+        return self.b4(self.b3(self.b2(self.b1(x))))
+
+
+class Head(nn.Module):
+    def __init__(self, ci: int, cout: int, generator=None):
+        super().__init__()
+        self.c1 = Conv(3, ci, 64, generator=generator)
+        self.c2 = Conv(1, 64, cout, generator=generator)
+
+    def forward(self, x):
+        return self.c2(F.relu(self.c1(x)))
+
+
+def to_nchw(frames: torch.Tensor) -> torch.Tensor:
+    return frames.permute(0, 3, 1, 2)
+
+
+def to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# decoding + accuracy metrics (host-side, vs D(H))
+# ---------------------------------------------------------------------------
+def detection_keep_heat(out) -> torch.Tensor:
+    """Sigmoid + 3x3 max-pool NMS with the reference's 1e-6 slack ->
+    suppressed heat (B, hs, ws)."""
+    heat = torch.sigmoid(out["heat"][..., 0])
+    pooled = F.max_pool2d(heat[:, None], 3, stride=1, padding=1)[:, 0]
+    return torch.where(heat >= pooled - 1e-6, heat, 0.0)
+
+
+def decode_detections(out, thresh=0.3, topk=50):
+    """-> per-frame list of (x0, y0, x1, y1, score)."""
+    keep = out["keep"] if "keep" in out else detection_keep_heat(out)
+    keep_np = keep.detach().cpu().numpy()
+    wh = out["wh"].detach().cpu().numpy()
+    results = []
+    for b in range(keep_np.shape[0]):
+        ys, xs = np.where(keep_np[b] >= thresh)
+        scores = keep_np[b][ys, xs]
+        order = np.argsort(-scores)[:topk]
+        dets = []
+        for i in order:
+            y, x = ys[i], xs[i]
+            w, h = np.maximum(wh[b, y, x], 0.5)
+            cx, cy = (x + 0.5) * STRIDE, (y + 0.5) * STRIDE
+            dets.append((cx - w * STRIDE / 2, cy - h * STRIDE / 2,
+                         cx + w * STRIDE / 2, cy + h * STRIDE / 2,
+                         float(scores[i])))
+        results.append(dets)
+    return results
+
+
+def _iou(a, b):
+    ix0, iy0 = max(a[0], b[0]), max(a[1], b[1])
+    ix1, iy1 = min(a[2], b[2]), min(a[3], b[3])
+    iw, ih = max(0.0, ix1 - ix0), max(0.0, iy1 - iy0)
+    inter = iw * ih
+    ua = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
+    return inter / ua if ua > 0 else 0.0
+
+
+def detection_f1(dets, refs, iou_thresh=0.5):
+    """Mean F1 across frames, greedy IoU matching vs D(H) detections."""
+    f1s = []
+    for d, r in zip(dets, refs):
+        if not r and not d:
+            f1s.append(1.0)
+            continue
+        matched = set()
+        tp = 0
+        for box in sorted(d, key=lambda x: -x[4]):
+            best, bi = 0.0, -1
+            for j, rb in enumerate(r):
+                if j in matched:
+                    continue
+                i = _iou(box, rb)
+                if i > best:
+                    best, bi = i, j
+            if best >= iou_thresh:
+                matched.add(bi)
+                tp += 1
+        prec = tp / max(len(d), 1)
+        rec = tp / max(len(r), 1)
+        f1s.append(2 * prec * rec / max(prec + rec, 1e-9))
+    return float(np.mean(f1s)) if f1s else 1.0
+
+
+def segmentation_iou(out, ref_out):
+    a = out["seg"].argmax(-1).cpu().numpy()
+    b = ref_out["seg"].argmax(-1).cpu().numpy()
+    ious = []
+    for cls in (0, 1):
+        inter = np.logical_and(a == cls, b == cls).sum()
+        union = np.logical_or(a == cls, b == cls).sum()
+        if union > 0:
+            ious.append(inter / union)
+    return float(np.mean(ious)) if ious else 1.0
+
+
+def keypoint_accuracy(out, ref_out, radius=2.0):
+    """Fraction of keypoints within ``radius`` head-units of the reference
+    prediction."""
+    def peaks(o):
+        h = torch.sigmoid(o["kp"]).cpu().numpy()
+        B, hs, ws, K = h.shape
+        flat = h.reshape(B, hs * ws, K).argmax(axis=1)
+        return np.stack([flat // ws, flat % ws], axis=-1)  # (B, K, 2)
+
+    pa, pb = peaks(out), peaks(ref_out)
+    d = np.sqrt(((pa - pb) ** 2).sum(-1))
+    return float((d <= radius).mean())
+
+
+# ---------------------------------------------------------------------------
+# the black-box wrapper used by AccMPEG
+# ---------------------------------------------------------------------------
+class FinalDNN(nn.Module):
+    """Task net: a backbone and one head per output, named as the
+    reference's parameter tree (``backbone``, ``heat``/``wh``/``off``,
+    ``seg`` or ``kp``). ``forward`` is the reference's ``apply_net``:
+    frames (B, H, W, 3) -> dict of NHWC outputs at stride 8. Weights are
+    drawn from ``generator`` (see ``repro_torch.weights`` to carry the
+    reference's weights across instead)."""
+
+    def __init__(self, task: str, width: int = 32,
+                 generator: Optional[torch.Generator] = None,
+                 device="cuda", name: str = "final-dnn"):
+        super().__init__()
+        if task not in TASK_HEADS:
+            raise ValueError(task)
+        self.task, self.width, self.name = task, width, name
+        self.device = resolve_device(device)
+        self.backbone = Backbone(width, generator)
+        for head, cout in TASK_HEADS[task].items():
+            self.add_module(head, Head(width * 3, cout, generator))
+        self.to(self.device)
+
+    def forward(self, frames):
+        f = self.backbone(to_nchw(frames))
+        return {head: to_nhwc(getattr(self, head)(f))
+                for head in TASK_HEADS[self.task]}
+
+    @torch.no_grad()
+    def predict(self, frames):
+        return self(torch.as_tensor(frames, device=self.device))
+
+    def accuracy(self, out, ref_out) -> float:
+        if self.task == "detection":
+            return detection_f1(decode_detections(out),
+                                decode_detections(ref_out))
+        if self.task == "segmentation":
+            return segmentation_iou(out, ref_out)
+        return keypoint_accuracy(out, ref_out)

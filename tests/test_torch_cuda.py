@@ -1,0 +1,106 @@
+"""The port's CUDA kernels on a card, against their plain versions.
+
+This file imports no JAX, so it runs on a CUDA host without it:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
+
+Elsewhere every test skips. Tolerances: decoded atol 1e-5 and bits rtol
+1e-4 in blocks where no quantized coefficient flips; round-half flips
+between the kernel's and cuBLAS's float orders at most 1e-4 of the
+coefficients; through the codec backends, where a flip moves its
+macroblock for the rest of the chunk, at most 2 of 60 macroblocks off by
+more than 1e-5; bytes per frame rtol 1e-3.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.codec import codec as tc
+from repro_torch.kernels.mbcodec import kernel as tk
+from repro_torch.kernels.mbcodec import ops as tops
+from repro_torch.kernels.mbcodec.ref import mbcodec_chunk_ref, mbcodec_ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _frames(T=10, H=96, W=160, seed=3):
+    rng = np.random.RandomState(seed)
+    base = rng.rand(H, W, 3)
+    return np.stack([np.clip(base + 0.02 * t + 0.04 * rng.randn(H, W, 3),
+                             0, 1) for t in range(T)]).astype(np.float32)
+
+
+def _blocks_qp(cuda):
+    frames = torch.from_numpy(_frames()).to(cuda)
+    blocks, _, _ = tops._chunk_blocks(frames)
+    qp = np.random.RandomState(0).uniform(20, 45, blocks.shape[:2])
+    return blocks, torch.from_numpy(qp.astype(np.float32)).to(cuda)
+
+
+@pytest.mark.parametrize("variant", ["frame", "chunk", "chunk_clip"])
+def test_kernel_matches_plain_version(cuda, variant):
+    blocks, qp = _blocks_qp(cuda)
+    if variant == "frame":
+        got = tk.mbcodec_frame_cuda(blocks[0].contiguous(),
+                                    qp[0].contiguous(), want_q=True)
+        want = mbcodec_ref(blocks[0], qp[0], want_q=True)
+        got, want = ([t[None] for t in out] for out in (got, want))
+    else:
+        clip = variant == "chunk_clip"
+        got = tk.mbcodec_chunk_cuda(blocks, qp, clip, want_q=True)
+        want = mbcodec_chunk_ref(blocks, qp, clip, want_q=True)
+    torch.cuda.synchronize()
+    flips = got[2] != want[2]
+    assert flips.sum().item() <= 1e-4 * flips.numel()
+    clean = ~flips.flatten(2).any(-1).any(0)  # blocks never flipped
+    np.testing.assert_allclose(got[0][:, clean].cpu().numpy(),
+                               want[0][:, clean].cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(got[1][:, clean].cpu().numpy(),
+                               want[1][:, clean].cpu().numpy(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("impl,oracle", [("pallas", "exact"),
+                                         ("fused", "fast"),
+                                         ("fused_exact", "exact")])
+def test_kernel_backends_match_their_semantics(cuda, impl, oracle):
+    """Each kernel backend against the plain backend with its semantics,
+    all on the card; the launch counter moves for the kernel only. A
+    round-half flip moves its macroblock for the rest of the chunk, so
+    decoded pixels agree within 1e-5 in all but at most 2 of the 60
+    macroblocks; bytes per frame within rtol 1e-3."""
+    T, H, W = 10, 96, 160
+    frames = torch.from_numpy(_frames(T, H, W)).to(cuda)
+    qmap = torch.from_numpy(np.random.RandomState(1).uniform(
+        24, 44, (1, H // 16, W // 16)).astype(np.float32)).to(cuda)
+    d_o, b_o = tc.CHUNK_ENCODERS[oracle](frames, qmap)
+    before = sum(tk.LAUNCHES.values())
+    d_k, b_k = tc.CHUNK_ENCODERS[impl](frames, qmap)
+    torch.cuda.synchronize()
+    assert sum(tk.LAUNCHES.values()) - before == (T if impl == "pallas"
+                                                  else 1)
+    assert d_k.shape == frames.shape and torch.isfinite(d_k).all()
+    per_mb = (d_k - d_o).abs().reshape(T, H // 16, 16, W // 16, 16, 3)
+    per_mb = per_mb.amax(dim=(0, 2, 4, 5))
+    assert int((per_mb > 1e-5).sum()) <= 2
+    np.testing.assert_allclose(b_k.cpu().numpy(), b_o.cpu().numpy(),
+                               rtol=1e-3)
+
+
+def test_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    blocks, qp = _blocks_qp(cuda)
+    with pytest.raises(ValueError, match="float32"):
+        tk.mbcodec_chunk_cuda(blocks.double(), qp)
+    with pytest.raises(ValueError, match="shape"):
+        tk.mbcodec_chunk_cuda(blocks, qp[:, :-1].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.mbcodec_chunk_cuda(blocks.transpose(2, 3), qp)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tk.mbcodec_frame_cuda(blocks[0].contiguous(), qp[0].cpu())

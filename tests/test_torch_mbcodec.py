@@ -1,0 +1,180 @@
+"""The port's mbcodec kernels: plain versions against the reference's
+Pallas kernels (interpret mode on the CPU) and the dispatch rules of the
+wrappers. The kernels themselves are checked on a CUDA card by
+``tests/test_torch_cuda.py``.
+
+Tolerances are those of ``tests/test_kernels.py``: decoded atol 1e-5
+(atol 1e-3 at QP 5, where a float-order difference can flip one round()
+boundary of a ~3e-3 step), bits rtol 1e-4 per block and bytes rtol 1e-3
+per frame.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.codec import codec as jc
+from repro.kernels.mbcodec import kernel as jk
+from repro.kernels.mbcodec import ops as jops
+from repro_torch.codec import codec as tc
+from repro_torch.kernels import build
+from repro_torch.kernels.mbcodec import kernel as tk
+from repro_torch.kernels.mbcodec import ops as tops
+from repro_torch.kernels.mbcodec.ref import mbcodec_chunk_ref, mbcodec_ref
+
+
+def _chunk(T=4, H=32, W=48, seed=3, lo=0.0, hi=1.0, drift=0.04):
+    """Drifting scene in [lo, hi] (as ``tests/test_kernels.py::_chunk``)."""
+    rng = np.random.RandomState(seed)
+    base = lo + (hi - lo) * rng.rand(H, W, 3)
+    frames = np.stack([
+        np.clip(base + 0.02 * t + drift * rng.randn(H, W, 3), lo, hi)
+        for t in range(T)])
+    return frames.astype(np.float32)
+
+
+def _blocks_qp(shape, seed):
+    rng = np.random.RandomState(seed)
+    blocks = rng.rand(*shape, 16, 16).astype(np.float32)
+    qp = rng.uniform(10, 50, shape).astype(np.float32)
+    return blocks, qp
+
+
+@pytest.mark.parametrize("n", [64, 65, 200, 1])
+def test_mbcodec_ref_matches_pallas(n):
+    blocks, qp = _blocks_qp((n,), n)
+    r_pl, b_pl = jops.mbcodec(jnp.asarray(blocks), jnp.asarray(qp),
+                              impl="interpret")
+    r_t, b_t = mbcodec_ref(torch.from_numpy(blocks), torch.from_numpy(qp))
+    np.testing.assert_allclose(r_t.numpy(), np.asarray(r_pl), atol=1e-5)
+    np.testing.assert_allclose(b_t.numpy(), np.asarray(b_pl), rtol=1e-4)
+
+
+@pytest.mark.parametrize("clip_refs", [False, True])
+def test_mbcodec_chunk_ref_matches_pallas_kernel(clip_refs):
+    """The block-space scan against ``mbcodec_chunk_pallas`` itself, on
+    one 64-block tile: frame t codes blocks[t] - ref and carries ref."""
+    blocks, qp = _blocks_qp((5, 64), 11)
+    blocks = np.clip(blocks + 0.3 * np.arange(5)[:, None, None, None]
+                     - 0.6, 0, 1).astype(np.float32)
+    r_pl, b_pl = jk.mbcodec_chunk_pallas(
+        jnp.asarray(blocks), jnp.asarray(qp), clip_refs=clip_refs,
+        interpret=True)
+    r_t, b_t = mbcodec_chunk_ref(torch.from_numpy(blocks),
+                                 torch.from_numpy(qp), clip_refs)
+    np.testing.assert_allclose(r_t.numpy(), np.asarray(r_pl), atol=1e-5)
+    np.testing.assert_allclose(b_t.numpy(), np.asarray(b_pl), rtol=1e-4)
+
+
+@pytest.mark.parametrize("clip_refs", [False, True])
+@pytest.mark.parametrize("qp", [5.0, 30.0, 50.0])
+def test_encode_chunk_fused_matches_pallas(qp, clip_refs):
+    """Port ``encode_chunk_fused`` (plain version on CPU) against the
+    reference's through its Pallas chunk kernel in interpret mode."""
+    frames = _chunk()
+    qmap = np.full((1, 2, 3), qp, np.float32)
+    d_j, b_j = jops.encode_chunk_fused(jnp.asarray(frames), jnp.asarray(qmap),
+                                       clip_refs=clip_refs, impl="interpret")
+    d_t, b_t = tops.encode_chunk_fused(torch.from_numpy(frames),
+                                       torch.from_numpy(qmap), clip_refs)
+    atol = 1e-3 if qp <= 5.0 else 1e-5
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), atol=atol)
+    np.testing.assert_allclose(b_t.numpy(), np.asarray(b_j), rtol=1e-3)
+
+
+def test_encode_chunk_fused_per_frame_maps_match_pallas():
+    """A QP that changes every frame exercises the carried reference."""
+    frames = _chunk(T=5)
+    qmaps = np.stack([np.full((2, 3), q, np.float32)
+                      for q in (30.0, 42.0, 26.0, 50.0, 34.0)])
+    for clip_refs in (False, True):
+        d_j, b_j = jops.encode_chunk_fused(
+            jnp.asarray(frames), jnp.asarray(qmaps), clip_refs=clip_refs,
+            impl="interpret")
+        d_t, b_t = tops.encode_chunk_fused(
+            torch.from_numpy(frames), torch.from_numpy(qmaps), clip_refs)
+        np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), atol=1e-5)
+        np.testing.assert_allclose(b_t.numpy(), np.asarray(b_j), rtol=1e-3)
+
+
+@pytest.mark.parametrize("pframe", [False, True])
+def test_encode_frame_fused_matches_pallas(pframe):
+    H, W = 64, 96
+    frames = _chunk(T=2, H=H, W=W)
+    qmap = np.random.RandomState(1).uniform(20, 45, (H // 16, W // 16))
+    qmap = qmap.astype(np.float32)
+    ref = None
+    if pframe:
+        ref = np.asarray(jc.encode_frame(jnp.asarray(frames[0]),
+                                         jnp.asarray(qmap))[0])
+    d_j, b_j = jops.encode_frame_fused(
+        jnp.asarray(frames[1]), jnp.asarray(qmap), impl="interpret",
+        reference=None if ref is None else jnp.asarray(ref))
+    d_t, b_t = tops.encode_frame_fused(
+        torch.from_numpy(frames[1]), torch.from_numpy(qmap),
+        reference=None if ref is None else torch.tensor(ref))
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), atol=1e-5)
+    np.testing.assert_allclose(b_t.numpy(), np.asarray(b_j), rtol=1e-3)
+
+
+@pytest.mark.parametrize("maps", ["shared", "per_frame"])
+def test_fused_exact_matches_reference_exact_in_gamut(maps):
+    """``fused_exact`` carries the exact encoder's semantics: on an
+    in-gamut scene it matches the reference's ``exact`` backend."""
+    T, H, W = 6, 48, 64
+    frames = _chunk(T, H, W, lo=0.1, hi=0.9)
+    rng = np.random.RandomState(2)
+    qmaps = rng.uniform(24, 44, (1 if maps == "shared" else T, 3, 4))
+    qmaps = qmaps.astype(np.float32)
+    d_e, b_e = jc.encode_chunk(jnp.asarray(frames), jnp.asarray(qmaps))
+    d_t, b_t = tc.CHUNK_ENCODERS["fused_exact"](torch.from_numpy(frames),
+                                                torch.from_numpy(qmaps))
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_e), atol=1e-5)
+    np.testing.assert_allclose(b_t.numpy(), np.asarray(b_e), rtol=1e-3)
+
+
+def test_cpu_tensors_take_the_plain_version_without_launching():
+    frames = torch.from_numpy(_chunk())
+    qmap = torch.full((1, 2, 3), 30.0)
+    before = dict(tk.LAUNCHES)
+    for impl in ("pallas", "fused", "fused_exact"):
+        tc.CHUNK_ENCODERS[impl](frames, qmap)
+    assert dict(tk.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("want_q", [False, True])
+def test_plain_versions_return_q_consistent_with_bits(want_q):
+    blocks, qp = _blocks_qp((3, 8), 5)
+    out = mbcodec_chunk_ref(torch.from_numpy(blocks), torch.from_numpy(qp),
+                            want_q=want_q)
+    assert len(out) == (3 if want_q else 2)
+    if want_q:
+        q = out[2]
+        assert torch.equal(q, q.round())
+        np.testing.assert_allclose(out[1].numpy(),
+                                   tc.block_bits(q[:, :, None]).numpy(),
+                                   rtol=1e-5)
+
+
+def test_wrappers_reject_cpu_tensors():
+    """A wrapper refuses a tensor it cannot launch on, before building."""
+    blocks, qp = _blocks_qp((2, 4), 0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tk.mbcodec_chunk_cuda(torch.from_numpy(blocks), torch.from_numpy(qp))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tk.mbcodec_frame_cuda(torch.from_numpy(blocks[0]),
+                              torch.from_numpy(qp[0]))
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build(["mbcodec"])
+
+
+def test_library_path_tracks_the_source():
+    path = build.library_path("mbcodec")
+    assert path.parent == build.BUILD_DIR
+    assert path.name.startswith("libmbcodec-") and path.suffix == ".so"
+    assert (build.KERNELS_DIR / build.SOURCES["mbcodec"]).exists()

@@ -1,0 +1,106 @@
+"""Rules of the port as a package: it imports neither ``jax`` nor
+anything of the reference package, and its entry points refuse to run on
+the CPU unless asked (``device="cpu"``)."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core.accmodel import AccModel
+from repro_torch.engine import StreamingEngine
+from repro_torch.vision.dnn import FinalDNN
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_files_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for module in ("codec/dct.py", "codec/codec.py", "kernels/build.py",
+                   "kernels/mbcodec/ref.py", "kernels/mbcodec/kernel.py",
+                   "kernels/mbcodec/ops.py", "vision/dnn.py",
+                   "core/quality.py", "core/accmodel.py", "core/pipeline.py",
+                   "engine/engine.py", "engine/policies.py", "data/video.py",
+                   "weights.py"):
+        assert f"src/repro_torch/{module}" in names
+    assert "chip_smoke.py" in names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_port_imports_no_jax_and_no_reference(path):
+    bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_import_checker_catches_forbidden_imports(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import jax.numpy as jnp\nfrom repro.data import video\n"
+                   "from . import sibling\nimport repro_torch\n")
+    assert [m for m in _imported_roots(src) if m in FORBIDDEN] == \
+        ["jax", "repro"]
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the default device is valid here")
+
+
+def test_entry_points_default_to_cuda_and_refuse_without_it():
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FinalDNN("detection", 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AccModel(8)
+    dnn = FinalDNN("detection", 8, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingEngine(dnn)
+    assert StreamingEngine(dnn, device="cpu").device.type == "cpu"
+
+
+def test_engine_rejects_unported_modes_and_unknown_backends():
+    dnn = FinalDNN("detection", 8, device="cpu")
+    with pytest.raises(NotImplementedError):
+        StreamingEngine(dnn, device="cpu", trace=object())
+    with pytest.raises(ValueError, match="unknown chunk encoder"):
+        StreamingEngine(dnn, device="cpu", impl="nope")
+
+
+def _run_smoke(cwd: Path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_chip_smoke_fails_without_cuda():
+    _no_cuda()
+    proc = _run_smoke(ROOT)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """Without the rest of the repository the script fails and prints no
+    result."""
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run_smoke(tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
