@@ -6,18 +6,26 @@ check it end to end.
 1. Prints the card's name and power limit, and builds the CUDA kernels
    from ``src/repro_torch/kernels`` with nvcc into ``build/kernels/``.
 2. Kernel phase: each kernel (``mbcodec_frame``, ``mbcodec_chunk`` with
-   and without the reference clip) runs at the main path's shapes
-   (T=10 frames, N=2880 blocks) against its plain PyTorch version on the
-   same inputs; it must agree (see ``check_kernel``) and both are timed
-   with CUDA events.
-3. Main path: the single-stream AccMPEG loop,
+   and without the reference clip, and ``mbcodec_chunk_scores`` with and
+   without it) runs at its path's shapes (T=10 frames, N=2880 blocks; 8
+   streams for the scores kernel) against its plain PyTorch version on
+   the same inputs; it must agree (see ``check_kernel``) and both are
+   timed with CUDA events. The scores kernel is also held against the
+   explicit-array chunk kernel fed the QP map its threshold implies.
+3. Single-stream path: the AccMPEG loop,
    ``StreamingEngine.run(AccMPEGPolicy)``, at full size (dashcam scene,
    30 frames of 384x640, detection FinalDNN width 32, AccModel width 16,
    weights drawn from a seeded ``torch.Generator``) under the codec
    backends exact, pallas, fused and fused_exact. Each run's kernel
    launches are counted, every op is checked to run on the card, and the
    kernel backends' bytes are held against exact's.
-4. Prints one JSON line with each kernel's launches, error and times, the
+4. Fleet path: ``MultiStreamEngine.run`` over 8 dashcam streams of 30
+   frames of 384x640 with the same models, under exact, fused and
+   fused_exact overlapped and fused serialized, with the same launch and
+   device checks; fused_exact's bytes are held against exact's, the
+   fused fleet against 8 single-stream runs, and the overlapped against
+   the serialized loop.
+5. Prints one JSON line with each kernel's launches, error and times, the
    line ``kernels: ...``, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; nothing is caught. Without CUDA,
@@ -48,15 +56,23 @@ ELEMENTWISE_FLOP = 13
 CHUNK_FRAMES, SCENE_FRAMES, HEIGHT, WIDTH_PX = 10, 30, 384, 640
 KERNEL_SOURCE = "src/repro_torch/kernels/mbcodec/csrc/mbcodec.cu"
 REPLACES = {"mbcodec_frame": "src/repro/kernels/mbcodec/kernel.py:208",
-            "mbcodec_chunk": "src/repro/kernels/mbcodec/kernel.py:133"}
+            "mbcodec_chunk": "src/repro/kernels/mbcodec/kernel.py:133",
+            "mbcodec_chunk_scores": "src/repro/kernels/mbcodec/kernel.py:170"}
 BACKENDS = ("exact", "pallas", "fused", "fused_exact")
+FLEET_SEEDS = range(300, 308)  # as benchmarks/multistream.py
+FLEET_RUNS = (("exact", True), ("fused", True), ("fused_exact", True),
+              ("fused", False))
+FLEET_ACC_GAP = 0.05  # fleet vs sequential, per stream-chunk (see below)
 # an array on the host may appear only where data crosses to or from the
-# card: the copy itself, numpy input wrapped before its copy (lift_fresh)
-# and the detach that .numpy() does on the host copy. 0-dim host tensors
+# card: the copy itself, numpy input wrapped before its copy (lift_fresh),
+# the detach that .numpy() does on the host copy, and the pinning of the
+# host staging buffer the fleet engine copies from. 0-dim host tensors
 # are wrapped Python scalars, which PyTorch passes along with CUDA
 # operands.
 TRANSFER_OPS = {"aten._to_copy.default", "aten.copy_.default",
-                "aten.lift_fresh.default", "aten.detach.default"}
+                "aten.lift_fresh.default", "aten.detach.default",
+                "aten._pin_memory.default", "aten.pin_memory.default",
+                "aten.is_pinned.default"}
 
 
 def log(*args):
@@ -95,13 +111,14 @@ def time_ms(fn, iters=20, reps=10):
     return device, _event_median(fn, iters)
 
 
-def bound_ms(T, N):
-    """Least time for one call on T frames of N blocks: each input read
-    once and each output written once at the memory rate, or the fp32
+def bound_ms(T, N, qp_bytes):
+    """Least time for one call on T frames of N blocks (all streams' frames
+    counted in T) whose QP inputs take ``qp_bytes``: each input read once
+    and each output written once at the memory rate, or the fp32
     operations at the CUDA-core rate, whichever is larger."""
     coefs = T * N * 256
-    # blocks and rec, qp and bits, D and w; 4 bytes each
-    moved = 4 * (2 * coefs + 2 * T * N + 2 * 256)
+    # blocks and rec, bits, D and w; 4 bytes each
+    moved = 4 * (2 * coefs + T * N + 2 * 256) + qp_bytes
     flop = T * N * 4 * 2 * 16 ** 3 + coefs * ELEMENTWISE_FLOP
     t_bytes, t_ops = moved / H100_BYTES_PER_S, flop / H100_FP32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -164,15 +181,78 @@ def kernel_phase(frames):
         if frames_in == 1:
             got, want = ([t[None] for t in x] for x in (got, want))
         max_err = check_kernel(name, got, want)
-        (ms, eager), (plain_ms, plain_eager) = time_ms(kern), time_ms(plain)
-        b_ms, b_by = bound_ms(frames_in, N)
-        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}); called eagerly: kernel "
-            f"{eager:.4f} ms, plain {plain_eager:.4f} ms")
-        rows[name] = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                      "replaces": REPLACES[name.split("[")[0]],
-                      "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        rows[name] = timed_row(name, kern, plain, max_err,
+                               bound_ms(frames_in, N, 4 * frames_in * N))
+    return rows
+
+
+def timed_row(name, kern, plain, max_err, bound):
+    """The kernels-line row of ``name``, both versions timed here."""
+    (ms, eager), (plain_ms, plain_eager) = time_ms(kern), time_ms(plain)
+    b_ms, b_by = bound
+    log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}); called eagerly: kernel "
+        f"{eager:.4f} ms, plain {plain_eager:.4f} ms")
+    return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": REPLACES[name.split("[")[0]],
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def scores_kernel_phase(fleet_chunk):
+    """The stream-batched scores kernel at the fleet path's shapes (8
+    streams, T=10, N=2880) against its plain version, and against the
+    explicit-array chunk kernel fed the QP map its threshold implies (one
+    ``encode_block`` body: expected bit-identical)."""
+    from repro_torch.kernels.mbcodec import kernel as K
+    from repro_torch.kernels.mbcodec.ops import _chunk_blocks
+    from repro_torch.kernels.mbcodec.ref import (mbcodec_chunk_scores_ref,
+                                                 scores_qp)
+
+    blocks, n_mb, C = _chunk_blocks(fleet_chunk)
+    S, T, N = blocks.shape[:3]
+    rng = np.random.default_rng(1)
+    pooled = rng.random((S, n_mb), dtype=np.float32)
+    pooled[:, 0] = 0.5  # alpha exactly on a score: >= takes qp_hi
+    pooled = torch.from_numpy(pooled).cuda()
+    knobs = torch.tensor([0.5, 30.0, 40.0]).cuda()
+    log(f"scores kernel phase: S={S} streams, T={T}, N={N} blocks "
+        f"({S * N} thread blocks per launch)")
+
+    def fold(x):  # (S, T, N, ...) -> (T, S*N, ...) for check_kernel
+        return x.transpose(0, 1).reshape((T, S * N) + tuple(x.shape[3:]))
+
+    rows = {}
+    for clip in (False, True):
+        name = K.scores_kernel_name(clip)
+
+        def kern(q=False, c=clip):
+            return K.mbcodec_chunk_scores_cuda(blocks, pooled, knobs, C, c,
+                                               want_q=q)
+
+        def plain(q=False, c=clip):
+            return mbcodec_chunk_scores_ref(blocks, pooled, knobs, C, c,
+                                            want_q=q)
+
+        got, want = kern(True), plain(True)
+        torch.cuda.synchronize()
+        max_err = check_kernel(name, [fold(t) for t in got],
+                               [fold(t) for t in want])
+        qp = scores_qp(pooled, knobs, C)
+        explicit = [K.mbcodec_chunk_cuda(
+            blocks[s], qp[s].expand(T, N).contiguous(), clip, want_q=True)
+            for s in range(S)]
+        explicit = [torch.stack(t) for t in zip(*explicit)]
+        torch.cuda.synchronize()
+        differ = [int((a != b).sum()) for a, b in zip(got, explicit)]
+        log(f"  {name} vs mbcodec_chunk on the implied QP map: elements "
+            f"differing in rec, bits, q: {differ}"
+            + (" (bit-identical)" if not any(differ) else ""))
+        if any(differ):
+            check_kernel(f"{name} vs mbcodec_chunk", [fold(t) for t in got],
+                         [fold(t) for t in explicit])
+        rows[name] = timed_row(name, kern, plain, max_err,
+                               bound_ms(S * T, N, 4 * S * n_mb + 12))
     return rows
 
 
@@ -194,49 +274,69 @@ class DeviceAudit(TorchDispatchMode):
         return out
 
 
-def main_path_phase(scene_frames, rows):
+def models():
     from repro_torch.core.accmodel import AccModel
-    from repro_torch.core.pipeline import make_reference
-    from repro_torch.core.quality import QualityConfig, dilate_scores
-    from repro_torch.engine import AccMPEGPolicy, StreamingEngine
-    from repro_torch.kernels.mbcodec.kernel import LAUNCHES, chunk_kernel_name
     from repro_torch.vision.dnn import FinalDNN
 
     g = torch.Generator().manual_seed(0)
-    dnn = FinalDNN("detection", width=32, generator=g, device="cuda")
-    am = AccModel(width=16, generator=g, device="cuda")
+    return (FinalDNN("detection", width=32, generator=g, device="cuda"),
+            AccModel(width=16, generator=g, device="cuda"))
+
+
+def median_alpha(am, first_frame):
+    """Untrained scores are nearly uniform, and dilation would spread any
+    raw-score threshold over almost every block; since dilate(s >= a) is
+    dilate_scores(s) >= a, the median of the first frame's dilated scores
+    as alpha puts about half the blocks at each QP level."""
+    from repro_torch.core.quality import dilate_scores
+
+    return float(dilate_scores(am.scores(first_frame), 2).median())
+
+
+def audited(run):
+    """``run()`` under the device audit and the launch counters -> (its
+    result, the launches it made, the ops it ran off the card)."""
+    from repro_torch.kernels.mbcodec.kernel import LAUNCHES
+
+    before = dict(LAUNCHES)
+    audit = DeviceAudit()
+    with audit:
+        out = run()
+    torch.cuda.synchronize()
+    moved = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+             if v != before.get(k, 0)}
+    return out, moved, audit.off_card
+
+
+def main_path_phase(scene_frames, rows, dnn, am):
+    from repro_torch.core.pipeline import make_reference
+    from repro_torch.core.quality import QualityConfig
+    from repro_torch.engine import AccMPEGPolicy, StreamingEngine
+    from repro_torch.kernels.mbcodec.kernel import LAUNCHES, chunk_kernel_name
+
     refs = make_reference(scene_frames, dnn, qp_hi=30)
-    # untrained scores are nearly uniform, and dilation would spread any
-    # raw-score threshold over almost every block; since dilate(s >= a) is
-    # dilate_scores(s) >= a, the median of chunk 0's dilated scores as
-    # alpha puts about half the blocks at each QP level
-    alpha = float(dilate_scores(am.scores(scene_frames[:1]), 2).median())
+    alpha = median_alpha(am, scene_frames[:1])
     qcfg = QualityConfig(alpha=alpha, gamma=2)
-    log(f"main path: {scene_frames.shape[0]} frames of "
+    log(f"single-stream path: {scene_frames.shape[0]} frames of "
         f"{scene_frames.shape[1]}x{scene_frames.shape[2]}, detection "
         f"FinalDNN width 32, AccModel width 16, alpha {alpha:.6f}, gamma 2")
 
     uses = {"exact": None, "pallas": "mbcodec_frame",
             "fused": chunk_kernel_name(False),
             "fused_exact": chunk_kernel_name(True)}
-    LAUNCHES.clear()  # every count to 0 just before the main path
+    LAUNCHES.clear()  # every count to 0 just before the path
     results, off_card = {}, set()
     for impl in BACKENDS:
-        before = dict(LAUNCHES)
-        audit = DeviceAudit()
-        with audit:
-            results[impl] = StreamingEngine(dnn, impl=impl).run(
-                AccMPEGPolicy(am, qcfg), scene_frames, refs=refs)
-        torch.cuda.synchronize()
-        moved = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
-                 if v != before.get(k, 0)}
+        results[impl], moved, off = audited(
+            lambda: StreamingEngine(dnn, impl=impl).run(
+                AccMPEGPolicy(am, qcfg), scene_frames, refs=refs))
         log(f"  {impl}: launches {moved}")
-        off_card |= audit.off_card
+        off_card |= off
         expect = uses[impl]
         if set(moved) != ({expect} if expect else set()):
             raise AssertionError(f"{impl} launched {moved}, expected "
                                  f"only {expect}")
-    launches = dict(LAUNCHES)  # read just after the main path
+    launches = dict(LAUNCHES)  # read just after the path
     if off_card:
         raise AssertionError(f"ops off the card: {sorted(off_card)}")
     log("  every op of the four runs ran on cuda (transfers aside)")
@@ -265,10 +365,133 @@ def main_path_phase(scene_frames, rows):
         hi = float(torch.cat(policy.masks).float().mean())
         log(f"  {impl} summary: {json.dumps(summary)} high-QP share "
             f"{hi:.4f}")
-    for name, row in rows.items():
-        row["launches"] = launches.get(name, 0)
-        if row["launches"] < 1:
-            raise AssertionError(f"{name} never launched on the main path")
+    for name in ("mbcodec_frame", chunk_kernel_name(False),
+                 chunk_kernel_name(True)):
+        rows[name]["launches"] = launches.get(name, 0)
+        if rows[name]["launches"] < 1:
+            raise AssertionError(f"{name} never launched on its path")
+
+
+def fleet_phase(fleet_frames, rows, dnn, am):
+    """``MultiStreamEngine.run`` over the 8-stream fleet at full size."""
+    from repro_torch.core.pipeline import NetworkConfig, make_reference
+    from repro_torch.core.quality import QualityConfig
+    from repro_torch.engine import (AccMPEGPolicy, EngineConfig,
+                                    MultiStreamEngine, StreamingEngine)
+    from repro_torch.kernels.mbcodec.kernel import (LAUNCHES,
+                                                    scores_kernel_name)
+
+    N, T = fleet_frames.shape[:2]
+    n_chunks = T // CHUNK_FRAMES
+    refs = [make_reference(f, dnn, qp_hi=30) for f in fleet_frames]
+    alpha = median_alpha(am, fleet_frames[0, :1])
+    qcfg = QualityConfig(alpha=alpha, gamma=2)
+    log(f"fleet path: {N} dashcam streams (seeds {FLEET_SEEDS.start}-"
+        f"{FLEET_SEEDS.stop - 1}) of {T} frames of "
+        f"{fleet_frames.shape[2]}x{fleet_frames.shape[3]}, same models, "
+        f"alpha {alpha:.6f} (stream 0's median rule), gamma 2")
+
+    LAUNCHES.clear()  # every count to 0 just before the path
+    results, off_card = {}, set()
+    for impl, overlap in FLEET_RUNS:
+        results[impl, overlap], moved, off = audited(
+            lambda: MultiStreamEngine(dnn, am, config=EngineConfig(
+                qcfg=qcfg, impl=impl, overlap=overlap)).run(
+                fleet_frames, refs=refs))
+        off_card |= off
+        # each chunk, plus the warm-up: one step, and one timed hot step
+        # when overlapped
+        expect = {} if impl == "exact" else {
+            scores_kernel_name(impl == "fused_exact"):
+                n_chunks + (2 if overlap else 1)}
+        log(f"  {impl} overlap={overlap}: launches {moved}")
+        if moved != expect:
+            raise AssertionError(f"{impl} overlap={overlap} launched "
+                                 f"{moved}, expected {expect}")
+    launches = dict(LAUNCHES)  # read just after the path
+    if off_card:
+        raise AssertionError(f"ops off the card: {sorted(off_card)}")
+    log("  every op of the four fleet runs ran on cuda (transfers aside)")
+
+    for (impl, overlap), r in results.items():
+        acc = [c.accuracy for s in r.streams for c in s.chunks]
+        nbytes = [c.bytes for s in r.streams for c in s.chunks]
+        if r.n_streams != N or len(acc) != N * n_chunks or not all(
+                np.isfinite(acc + nbytes)) or not all(
+                0.0 <= a <= 1.0 for a in acc) or min(nbytes) <= 0:
+            raise AssertionError(f"{impl}: malformed fleet result")
+
+    def per_chunk(r, field):
+        return np.array([[getattr(c, field) for c in s.chunks]
+                         for s in r.streams])
+
+    # a second run of each, outside the audit (whose Python hook on every
+    # op would dominate the host clock), gives the timings
+    for impl, overlap in FLEET_RUNS:
+        r = MultiStreamEngine(dnn, am, config=EngineConfig(
+            qcfg=qcfg, impl=impl, overlap=overlap)).run(fleet_frames,
+                                                        refs=refs)
+        for field in ("accuracy", "bytes"):
+            if not np.array_equal(per_chunk(r, field),
+                                  per_chunk(results[impl, overlap], field)):
+                raise AssertionError(f"{impl} overlap={overlap}: a second "
+                                     f"run differs in {field}")
+        t = r.timing
+        busy = (sum(t.camera_s) + sum(t.server_s)) / t.wall_s
+        log(f"  {impl} overlap={overlap} summary: {json.dumps(r.summary())}"
+            f" stages: {json.dumps(t.summary())} device-stage share of "
+            f"wall {busy:.4f}")
+
+    exact_b = per_chunk(results["exact", True], "bytes")
+    rel = np.abs(per_chunk(results["fused_exact", True], "bytes")
+                 - exact_b) / exact_b
+    log(f"  fused_exact fleet bytes within {rel.max():.3e} of exact per "
+        f"stream and chunk")
+    if rel.max() > 1e-3:
+        raise AssertionError("fused_exact fleet bytes differ from exact")
+
+    fused, serial = results["fused", True], results["fused", False]
+    for field in ("accuracy", "bytes"):
+        if not np.array_equal(per_chunk(fused, field),
+                              per_chunk(serial, field)):
+            raise AssertionError(f"overlapped and serialized fused fleets "
+                                 f"differ in {field}")
+    log("  overlapped and serialized fused fleets: identical accuracy and "
+        "bytes")
+
+    # 8 single-stream runs of the same backend. Their AccModel sees one
+    # frame per call where the fleet's sees 8, and their server DNN 10
+    # frames where the fleet's sees 80; cuDNN may pick other algorithms,
+    # so a score at alpha or a detection at a threshold can move.
+    net = NetworkConfig.shared(2.5e6, N)
+    seq = [StreamingEngine(dnn, net=net, impl="fused").run(
+        AccMPEGPolicy(am, qcfg), fleet_frames[i], refs=refs[i])
+        for i in range(N)]
+    seq_acc = np.array([[c.accuracy for c in r.chunks] for r in seq])
+    seq_b = np.array([[c.bytes for c in r.chunks] for r in seq])
+    heads = torch.from_numpy(fleet_frames[:, ::CHUNK_FRAMES]).cuda()
+    batched = torch.stack([am.scores(heads[:, ci])
+                           for ci in range(n_chunks)])
+    single = torch.stack([torch.cat([am.scores(heads[i, ci][None])
+                                     for i in range(N)])
+                          for ci in range(n_chunks)])
+    log(f"  AccModel scores, one frame per call vs {N} per call: max abs "
+        f"difference {float((batched - single).abs().max()):.3e}")
+    gap = np.abs(per_chunk(fused, "accuracy") - seq_acc)
+    rel = np.abs(per_chunk(fused, "bytes") - seq_b) / seq_b
+    log(f"  fused fleet vs {N} single-stream fused runs: bytes within "
+        f"{rel.max():.3e} per stream and chunk; accuracy gap max "
+        f"{gap.max():.3e}, mean {gap.mean():.3e} (bound {FLEET_ACC_GAP})")
+    if rel.max() > 1e-3:
+        raise AssertionError("fleet bytes differ from single-stream runs")
+    if gap.max() > FLEET_ACC_GAP:
+        raise AssertionError("fleet accuracy differs from single-stream "
+                             "runs")
+    for clip in (False, True):
+        name = scores_kernel_name(clip)
+        rows[name]["launches"] = launches.get(name, 0)
+        if rows[name]["launches"] < 1:
+            raise AssertionError(f"{name} never launched on its path")
 
 
 def main():
@@ -305,10 +528,24 @@ def main():
     frames = torch.from_numpy(scene.frames).cuda()
     log(f"scene: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    fleet = np.stack([make_scene("dashcam", seed=s, T=SCENE_FRAMES,
+                                 H=HEIGHT, W=WIDTH_PX).frames
+                      for s in FLEET_SEEDS])
+    log(f"fleet scenes: {time.perf_counter() - t0:.2f} s")
+
     rows = kernel_phase(frames[:CHUNK_FRAMES])
-    main_path_phase(frames, rows)
+    rows.update(scores_kernel_phase(
+        torch.from_numpy(fleet[:, :CHUNK_FRAMES]).cuda()))
+    dnn, am = models()
+    t0 = time.perf_counter()
+    main_path_phase(frames, rows, dnn, am)
+    log(f"single-stream path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    fleet_phase(fleet, rows, dnn, am)
+    log(f"fleet path: {time.perf_counter() - t0:.2f} s")
     log(json.dumps({"kernels": list(rows.values())}))
-    log("kernels: mbcodec_frame, mbcodec_chunk")
+    log("kernels: mbcodec_frame, mbcodec_chunk, mbcodec_chunk_scores")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -212,3 +212,31 @@ def encode_chunk_fused_exact_backend(frames: torch.Tensor,
     from repro_torch.kernels.mbcodec.ops import encode_chunk_fused
 
     return encode_chunk_fused(frames, qp_maps, clip_refs=True)
+
+
+# ---------------------------------------------------------------------------
+# batched leading-axis entry points (N independent streams)
+# ---------------------------------------------------------------------------
+def encode_chunk_batched(frames: torch.Tensor, qp_maps: torch.Tensor,
+                         impl: str = "exact"):
+    """frames (N, T, H, W, C); qp_maps (N, T or 1, H/16, W/16) ->
+    (decoded (N, T, H, W, C), bytes (N, T)).
+
+    The counterpart of the reference's ``jax.vmap`` over streams:
+    ``CHUNK_ENCODERS[impl]`` codes each stream's chunk in turn, so every
+    stream gets exactly its single-stream result. (The fleet's ``fused``
+    backends do not come here: they take one stream-batched kernel
+    launch, ``kernels.mbcodec.ops.encode_chunk_fused_scores_batched``.)"""
+    enc = CHUNK_ENCODERS.resolve(impl)
+    outs = [enc(f, q) for f, q in zip(frames, qp_maps)]
+    return (torch.stack([d for d, _ in outs]),
+            torch.stack([b for _, b in outs]))
+
+
+def encode_chunk_uniform_batched(frames: torch.Tensor, qp: int,
+                                 impl: str = "exact"):
+    """Uniform-QP variant of :func:`encode_chunk_batched`."""
+    N, _, H, W, _ = frames.shape
+    qmaps = torch.full((N, 1, H // MB, W // MB), float(qp),
+                       device=frames.device)
+    return encode_chunk_batched(frames, qmaps, impl)

