@@ -25,7 +25,23 @@ check it end to end.
    device checks; fused_exact's bytes are held against exact's, the
    fused fleet against 8 single-stream runs, and the overlapped against
    the serialized loop.
-5. Prints one JSON line with each kernel's launches, error and times, the
+5. AccGrad kernel: ``accgrad_reduce`` at the label batch's shape (4
+   frames of 384x640x3) against its plain version, relative error at most
+   1e-5 of each macroblock's sum. Both are timed as above and, since the
+   35 MB of inputs fit in the L2 cache, also with L2 flushed before each
+   call; the flushed times go into the kernels line.
+6. Training path at full size: 16 dashcam frames of 384x640 and the same
+   detection FinalDNN. ``make_labels`` (batch 4) must make exactly 4
+   ``accgrad_reduce`` launches with every op on the card, and its labels
+   may differ from labels built from the same gradients through the plain
+   reduction only where the normalised AccGrad lies within 1e-5 of the
+   threshold. ``train_accmodel`` (15 epochs, width 16) must end below its
+   first epoch's loss; ``train_accmodel_e2e`` runs the same, and both
+   trainers' label and train times are printed (Table 2), after one
+   untimed epoch of each on one batch has warmed the kernels. Last,
+   ``train_final_dnn`` (detection, 400 steps, width 32, no cache) must
+   lower the detection loss on a held batch.
+7. Prints one JSON line with each kernel's launches, error and times, the
    line ``kernels: ...``, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; nothing is caught. Without CUDA,
@@ -53,16 +69,26 @@ H100_FP32_FLOP_PER_S = 67e12  # fp32 without tensor cores, same sheet
 # cost's multiply-add (2), nonzero test, bit sum, dequantize, add to the
 # reference
 ELEMENTWISE_FLOP = 13
+L2_FLUSH_BYTES = 128 << 20  # read between timed calls: 2.5x the L2 cache
 CHUNK_FRAMES, SCENE_FRAMES, HEIGHT, WIDTH_PX = 10, 30, 384, 640
 KERNEL_SOURCE = "src/repro_torch/kernels/mbcodec/csrc/mbcodec.cu"
-REPLACES = {"mbcodec_frame": "src/repro/kernels/mbcodec/kernel.py:208",
-            "mbcodec_chunk": "src/repro/kernels/mbcodec/kernel.py:133",
-            "mbcodec_chunk_scores": "src/repro/kernels/mbcodec/kernel.py:170"}
+ACCGRAD_SOURCE = ("src/repro_torch/kernels/accgrad_reduce/csrc/"
+                  "accgrad_reduce.cu")
+# the pl.pallas_call line of each TPU kernel
+REPLACES = {"mbcodec_frame": "src/repro/kernels/mbcodec/kernel.py:216",
+            "mbcodec_chunk": "src/repro/kernels/mbcodec/kernel.py:147",
+            "mbcodec_chunk_scores": "src/repro/kernels/mbcodec/kernel.py:184",
+            "accgrad_reduce": "src/repro/kernels/accgrad_reduce/kernel.py:34"}
 BACKENDS = ("exact", "pallas", "fused", "fused_exact")
 FLEET_SEEDS = range(300, 308)  # as benchmarks/multistream.py
 FLEET_RUNS = (("exact", True), ("fused", True), ("fused_exact", True),
               ("fused", False))
 FLEET_ACC_GAP = 0.05  # fleet vs sequential, per stream-chunk (see below)
+# training: 2 dashcam scenes of 8 frames, labelled 4 frames per batch with
+# the reference trainer's defaults (qp 30 / 40, label_alpha 0.1)
+TRAIN_SEED, TRAIN_SCENES, TRAIN_SCENE_FRAMES, HELD_SEED = 200, 2, 8, 210
+LABEL_BATCH, LABEL_ALPHA, TRAIN_EPOCHS, DNN_STEPS = 4, 0.1, 15, 400
+ACCGRAD_RTOL = 1e-5  # per macroblock sum: summation order only
 # an array on the host may appear only where data crosses to or from the
 # card: the copy itself, numpy input wrapped before its copy (lift_fresh),
 # the detach that .numpy() does on the host copy, and the pinning of the
@@ -111,18 +137,42 @@ def time_ms(fn, iters=20, reps=10):
     return device, _event_median(fn, iters)
 
 
+def roofline_ms(moved, flop):
+    """Least time for a call that moves ``moved`` bytes and does ``flop``
+    fp32 operations: the bytes at the memory rate or the operations at the
+    CUDA-core rate, whichever is larger, and which it is."""
+    t_bytes, t_ops = moved / H100_BYTES_PER_S, flop / H100_FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_cold_ms(fn, iters=20, reps=10):
+    """Device ms per call of ``fn`` with its inputs in device memory rather
+    than in the 50 MB L2 cache: each call follows a read of 128 MB, and
+    those reads alone, timed the same way, are subtracted. A kernel whose
+    inputs fit in L2 is otherwise timed on inputs the previous call left
+    there, which can beat a bound set by the memory rate."""
+    scratch = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
+
+    def flush():
+        return scratch.sum()
+
+    def both():
+        flush()
+        fn()
+
+    return time_ms(both, iters, reps)[0] - time_ms(flush, iters, reps)[0]
+
+
 def bound_ms(T, N, qp_bytes):
-    """Least time for one call on T frames of N blocks (all streams' frames
-    counted in T) whose QP inputs take ``qp_bytes``: each input read once
-    and each output written once at the memory rate, or the fp32
-    operations at the CUDA-core rate, whichever is larger."""
+    """Least time for one codec call on T frames of N blocks (all streams'
+    frames counted in T) whose QP inputs take ``qp_bytes``, each input
+    read once and each output written once."""
     coefs = T * N * 256
     # blocks and rec, bits, D and w; 4 bytes each
     moved = 4 * (2 * coefs + T * N + 2 * 256) + qp_bytes
     flop = T * N * 4 * 2 * 16 ** 3 + coefs * ELEMENTWISE_FLOP
-    t_bytes, t_ops = moved / H100_BYTES_PER_S, flop / H100_FP32_FLOP_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return roofline_ms(moved, flop)
 
 
 def check_kernel(name, got, want):
@@ -186,14 +236,21 @@ def kernel_phase(frames):
     return rows
 
 
-def timed_row(name, kern, plain, max_err, bound):
-    """The kernels-line row of ``name``, both versions timed here."""
+def timed_row(name, kern, plain, max_err, bound, source=KERNEL_SOURCE,
+              cold=False):
+    """The kernels-line row of ``name``, both versions timed here; with
+    ``cold``, the row's times are :func:`time_cold_ms`'s and the times on
+    inputs left in L2 by the previous call are logged beside them."""
     (ms, eager), (plain_ms, plain_eager) = time_ms(kern), time_ms(plain)
     b_ms, b_by = bound
     log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}); called eagerly: kernel "
         f"{eager:.4f} ms, plain {plain_eager:.4f} ms")
-    return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+    if cold:
+        ms, plain_ms = time_cold_ms(kern), time_cold_ms(plain)
+        log(f"  {name}, inputs in device memory (L2 flushed before each "
+            f"call): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {"name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name.split("[")[0]],
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -293,17 +350,23 @@ def median_alpha(am, first_frame):
     return float(dilate_scores(am.scores(first_frame), 2).median())
 
 
+def launch_counts():
+    """Every kernel's launch count so far, both kernel packages."""
+    from repro_torch.kernels.accgrad_reduce import kernel as accgrad
+    from repro_torch.kernels.mbcodec import kernel as mbcodec
+
+    return {**mbcodec.LAUNCHES, **accgrad.LAUNCHES}
+
+
 def audited(run):
     """``run()`` under the device audit and the launch counters -> (its
     result, the launches it made, the ops it ran off the card)."""
-    from repro_torch.kernels.mbcodec.kernel import LAUNCHES
-
-    before = dict(LAUNCHES)
+    before = launch_counts()
     audit = DeviceAudit()
     with audit:
         out = run()
     torch.cuda.synchronize()
-    moved = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+    moved = {k: v - before.get(k, 0) for k, v in launch_counts().items()
              if v != before.get(k, 0)}
     return out, moved, audit.off_card
 
@@ -494,6 +557,175 @@ def fleet_phase(fleet_frames, rows, dnn, am):
             raise AssertionError(f"{name} never launched on its path")
 
 
+def accgrad_kernel_phase():
+    """``accgrad_reduce`` at the label batch's shape (B=4, 384x640x3)
+    against its plain version on seeded inputs."""
+    from repro_torch.kernels.accgrad_reduce.kernel import accgrad_reduce_cuda
+    from repro_torch.kernels.accgrad_reduce.ref import accgrad_reduce_ref
+
+    shape = (LABEL_BATCH, HEIGHT, WIDTH_PX, 3)
+    rng = np.random.default_rng(2)
+    g = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    hq, lq = (torch.from_numpy(rng.random(shape, dtype=np.float32))
+              for _ in range(2))
+    g, hq, lq = g.cuda(), hq.cuda(), lq.cuda()
+    log(f"accgrad kernel phase: (B, H, W, C) = {shape}")
+
+    def kern():
+        return accgrad_reduce_cuda(g, hq, lq)
+
+    def plain():
+        return accgrad_reduce_ref(g, hq, lq)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    max_err = float((got - want).abs().max())
+    rel = float(((got - want).abs() / want).max())  # every sum is > 0 here
+    log(f"  accgrad_reduce: {got.numel()} macroblock sums, max abs "
+        f"{max_err:.3e}, max rel {rel:.3e} (bound {ACCGRAD_RTOL})")
+    if got.shape != want.shape or rel > ACCGRAD_RTOL:
+        raise AssertionError("accgrad_reduce disagrees with its plain "
+                             "version")
+    # three inputs read once, the sums written once; per input element
+    # abs, subtract, abs and two adds, per pixel the product and its add
+    moved = 4 * (3 * g.numel() + got.numel())
+    flop = 5 * g.numel() + 2 * g.numel() // g.shape[-1]
+    return {"accgrad_reduce": timed_row(
+        "accgrad_reduce", kern, plain, max_err, roofline_ms(moved, flop),
+        ACCGRAD_SOURCE, cold=True)}
+
+
+def check_labels(labels, reductions):
+    """``make_labels``' labels against labels built from the same gradients
+    (``reductions``: the (g, hq, lq, kernel sums) of each batch) through
+    the plain reduction. A label may differ only where the plain
+    normalised AccGrad lies within ``ACCGRAD_RTOL`` of the threshold."""
+    from repro_torch.kernels.accgrad_reduce.ref import accgrad_reduce_ref
+
+    def normalised(grid):
+        return grid / grid.amax(dim=(-2, -1), keepdim=True).clamp_min(1e-12)
+
+    kern = torch.cat([out for *_, out in reductions])
+    plain = torch.cat([accgrad_reduce_ref(g, hq, lq)
+                       for g, hq, lq, _ in reductions])
+    rel = float(((kern - plain).abs() / plain.clamp_min(1e-30)).max())
+    plain_ag = normalised(plain)
+    flips = (plain_ag >= LABEL_ALPHA) != labels
+    near = (plain_ag - LABEL_ALPHA).abs() <= ACCGRAD_RTOL
+    log(f"  labels {tuple(labels.shape)}, positive share "
+        f"{float(labels.float().mean()):.4f}; kernel sums vs plain on the "
+        f"path's gradients: max rel {rel:.3e}; label flips against the "
+        f"plain reduction {int(flips.sum())}, all within {ACCGRAD_RTOL} of "
+        f"alpha: {int(near.sum())} such blocks")
+    if rel > ACCGRAD_RTOL:
+        raise AssertionError("accgrad_reduce disagrees with its plain "
+                             "version on the path's gradients")
+    if bool((flips & ~near).any()):
+        raise AssertionError("labels flip away from the threshold")
+
+
+def training_phase(rows, dnn):
+    """The offline training path at full size: AccGrad labels through the
+    kernel, both AccModel trainers, and the final DNN's trainer."""
+    from repro_torch.core import accgrad
+    from repro_torch.core.training import (make_labels, train_accmodel,
+                                           train_accmodel_e2e)
+    from repro_torch.data.video import make_dataset
+    from repro_torch.kernels.accgrad_reduce.kernel import LAUNCHES
+    from repro_torch.vision import dnn as V
+    from repro_torch.vision.train import train_final_dnn
+
+    scenes = make_dataset("dashcam", n_scenes=TRAIN_SCENES,
+                          frames_per_scene=TRAIN_SCENE_FRAMES,
+                          seed=TRAIN_SEED, H=HEIGHT, W=WIDTH_PX)
+    frames = np.concatenate([s.frames for s in scenes])
+    n = frames.shape[0]
+    log(f"training path: {n} dashcam frames of {HEIGHT}x{WIDTH_PX} (seeds "
+        f"{TRAIN_SEED}-{TRAIN_SEED + TRAIN_SCENES - 1}), detection FinalDNN "
+        f"width 32, label batch {LABEL_BATCH}, alpha {LABEL_ALPHA}")
+
+    # the first backward of each convolution shape loads and plans its
+    # kernels; one epoch of each trainer on one batch takes that cost out
+    # of the timed runs below, so that neither pays it for the other
+    for trainer in (train_accmodel, train_accmodel_e2e):
+        trainer(dnn, frames[:LABEL_BATCH], epochs=1, width=16)
+    torch.cuda.synchronize()
+
+    # record each reduction's inputs and sums, so that the labels can be
+    # rebuilt from the same gradients through the plain version
+    reduce, reductions = accgrad.accgrad_reduce, []
+
+    def recorded(g, hq, lq):
+        out = reduce(g, hq, lq)
+        reductions.append((g, hq, lq, out))
+        return out
+
+    accgrad.accgrad_reduce = recorded
+    LAUNCHES.clear()  # every count to 0 just before the path
+    t0 = time.perf_counter()
+    (hq, labels), moved, off = audited(
+        lambda: make_labels(dnn, frames, 30, 40, batch=LABEL_BATCH,
+                            label_alpha=LABEL_ALPHA))
+    label_s = time.perf_counter() - t0
+    accgrad.accgrad_reduce = reduce
+    log(f"  make_labels: launches {moved}, {label_s:.3f} s under the audit")
+    if moved != {"accgrad_reduce": n // LABEL_BATCH}:
+        raise AssertionError(f"make_labels launched {moved}, expected "
+                             f"{n // LABEL_BATCH} accgrad_reduce")
+    if off:
+        raise AssertionError(f"ops off the card: {sorted(off)}")
+    log("  every op of make_labels ran on cuda (transfers aside)")
+    if hq.shape != frames.shape or not bool(torch.isfinite(hq).all()) or \
+            labels.dtype != torch.bool or \
+            labels.shape != (n, HEIGHT // 16, WIDTH_PX // 16):
+        raise AssertionError("malformed labels")
+    check_labels(labels, reductions)
+
+    reports = {}
+    for trainer in (train_accmodel, train_accmodel_e2e):
+        rep = trainer(dnn, frames, epochs=TRAIN_EPOCHS, width=16)
+        reports[trainer.__name__] = rep
+        log(f"  {trainer.__name__}: label_time_s {rep.label_time_s:.4f}, "
+            f"train_time_s {rep.train_time_s:.4f}, per image and epoch "
+            f"{rep.train_time_s / (n * TRAIN_EPOCHS) * 1e3:.4f} ms, losses "
+            f"{rep.losses[0]:.6f} -> {rep.losses[-1]:.6f}")
+        if not np.isfinite(rep.losses).all():
+            raise AssertionError(f"{trainer.__name__}: non-finite loss")
+    dec, e2e = reports["train_accmodel"], reports["train_accmodel_e2e"]
+    if not dec.losses[-1] < dec.losses[0]:
+        raise AssertionError(f"train_accmodel did not learn: {dec.losses}")
+    log(f"  Table 2 direction, e2e / decoupled: train time per image "
+        f"{e2e.train_time_s / dec.train_time_s:.3f}x, total per image "
+        f"{e2e.total_time_s / dec.total_time_s:.3f}x")
+
+    held = make_dataset("dashcam", n_scenes=1, frames_per_scene=4,
+                        seed=HELD_SEED, H=HEIGHT, W=WIDTH_PX)[0]
+    held_frames = torch.from_numpy(held.frames).cuda()
+    targets = V.render_detection_targets(held.boxes, HEIGHT, WIDTH_PX)
+
+    def held_loss(net):
+        with torch.no_grad():
+            return float(V.detection_train_loss(net, held_frames, targets))
+
+    before = held_loss(V.init_net("detection", 0, 32))  # the trainer's start
+    t0 = time.perf_counter()
+    net = train_final_dnn("detection", "dashcam", steps=DNN_STEPS,
+                          H=HEIGHT, W=WIDTH_PX, width=32, cache=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    after = held_loss(net)
+    log(f"  train_final_dnn: {DNN_STEPS} steps in {secs:.3f} s (data "
+        f"included); held-batch detection loss {before:.6f} -> {after:.6f}")
+    if not after < before:
+        raise AssertionError("train_final_dnn did not lower the held loss")
+    # read just after the path: make_labels' and train_accmodel's labels
+    rows["accgrad_reduce"]["launches"] = LAUNCHES["accgrad_reduce"]
+    if rows["accgrad_reduce"]["launches"] != 2 * (n // LABEL_BATCH):
+        raise AssertionError(f"accgrad_reduce launched "
+                             f"{rows['accgrad_reduce']['launches']} times "
+                             f"on the training path")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -537,6 +769,7 @@ def main():
     rows = kernel_phase(frames[:CHUNK_FRAMES])
     rows.update(scores_kernel_phase(
         torch.from_numpy(fleet[:, :CHUNK_FRAMES]).cuda()))
+    rows.update(accgrad_kernel_phase())
     dnn, am = models()
     t0 = time.perf_counter()
     main_path_phase(frames, rows, dnn, am)
@@ -544,8 +777,12 @@ def main():
     t0 = time.perf_counter()
     fleet_phase(fleet, rows, dnn, am)
     log(f"fleet path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    training_phase(rows, dnn)
+    log(f"training path: {time.perf_counter() - t0:.2f} s")
     log(json.dumps({"kernels": list(rows.values())}))
-    log("kernels: mbcodec_frame, mbcodec_chunk, mbcodec_chunk_scores")
+    log("kernels: mbcodec_frame, mbcodec_chunk, mbcodec_chunk_scores, "
+        "accgrad_reduce")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

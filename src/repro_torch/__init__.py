@@ -22,3 +22,10 @@ def resolve_device(device) -> torch.device:
             "device='cuda' requested but torch.cuda.is_available() is "
             "false; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def synchronize(device: torch.device):
+    """Wait for ``device``'s queued work (a no-op on the CPU), so that a
+    host clock read after it measures the work and not its enqueue."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -18,7 +18,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, synchronize
 from repro_torch.codec.codec import CHUNK_ENCODERS, encode_chunk_uniform
 from repro_torch.core.pipeline import (ChunkResult, NetworkConfig, RunResult,
                                        chunk_accuracy, stream_delay)
@@ -29,11 +29,6 @@ def jit_encode(impl: str = "exact"):
     runs eagerly, so this is a registry lookup; the name is kept from the
     reference, whose version compiled the encoder."""
     return CHUNK_ENCODERS.resolve(impl)
-
-
-def synchronize(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 class ChunkContext:

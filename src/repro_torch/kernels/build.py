@@ -24,7 +24,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 #: library name -> its CUDA source, relative to this directory
-SOURCES = {"mbcodec": "mbcodec/csrc/mbcodec.cu"}
+SOURCES = {"mbcodec": "mbcodec/csrc/mbcodec.cu",
+           "accgrad_reduce": "accgrad_reduce/csrc/accgrad_reduce.cu"}
 
 
 def _nvcc() -> str:

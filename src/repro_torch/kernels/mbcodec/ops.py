@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.codec.codec import BLOCK_OVERHEAD
 from repro_torch.codec.dct import MB, blockify, unblockify
+from repro_torch.kernels import on_cuda
 from repro_torch.kernels.mbcodec.kernel import (mbcodec_chunk_cuda,
                                                 mbcodec_chunk_scores_cuda,
                                                 mbcodec_frame_cuda)
@@ -21,11 +22,7 @@ from repro_torch.kernels.mbcodec.ref import (mbcodec_chunk_ref,
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"mbcodec runs on CUDA or CPU tensors, got {t.device}")
+    return on_cuda(t, "mbcodec")
 
 
 def mbcodec(blocks: torch.Tensor, qp: torch.Tensor):

@@ -8,7 +8,10 @@ TensorFlow-style SAME padding written out, because PyTorch's symmetric
 (XLA pads (0, 1) there). Accuracy is scored on the host in numpy against
 D(H), the DNN's output on the high-quality frames, as in the reference;
 the scorers take tensors or numpy arrays, and the ``_batched`` ones score
-every lane of a fleet's (N, T, ...) outputs in one pass.
+every lane of a fleet's (N, T, ...) outputs in one pass. The target
+renderers and training losses train D itself (``vision/train.py``);
+``FinalDNN.proxy_loss`` is the differentiable accuracy proxy AccGrad
+differentiates.
 """
 from __future__ import annotations
 
@@ -106,6 +109,79 @@ def to_nchw(frames: torch.Tensor) -> torch.Tensor:
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# ground-truth target rendering and training losses (to train D itself on
+# synthetic scenes); targets are rendered in numpy on the host
+# ---------------------------------------------------------------------------
+def render_detection_targets(boxes_per_frame, H, W, device="cuda"):
+    """-> (heat (B, hs, ws, 1), wh (B, hs, ws, 2), mask (B, hs, ws, 1))
+    float32 tensors on ``device``: a Gaussian per box at its centre, its
+    size in head units and a 1 at its centre cell."""
+    hs, ws = H // STRIDE, W // STRIDE
+    B = len(boxes_per_frame)
+    heat = np.zeros((B, hs, ws, 1), np.float32)
+    wh = np.zeros((B, hs, ws, 2), np.float32)
+    mask = np.zeros((B, hs, ws, 1), np.float32)
+    yy, xx = np.mgrid[0:hs, 0:ws]
+    for b, boxes in enumerate(boxes_per_frame):
+        for (x0, y0, x1, y1) in boxes:
+            cx, cy = (x0 + x1) / 2 / STRIDE, (y0 + y1) / 2 / STRIDE
+            w, h = (x1 - x0) / STRIDE, (y1 - y0) / STRIDE
+            if w < 0.5 or h < 0.5:
+                continue
+            sig = max(0.8, 0.15 * np.sqrt(w * h))
+            g = np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * sig ** 2))
+            heat[b, :, :, 0] = np.maximum(heat[b, :, :, 0], g)
+            ci, cj = int(np.clip(cy, 0, hs - 1)), int(np.clip(cx, 0, ws - 1))
+            wh[b, ci, cj] = (w, h)
+            mask[b, ci, cj] = 1.0
+    dev = resolve_device(device)
+    return tuple(torch.from_numpy(a).to(dev) for a in (heat, wh, mask))
+
+
+def render_kp_targets(kps_per_frame, H, W, K=5, device="cuda"):
+    """-> keypoint heat (B, hs, ws, K) float32 on ``device``."""
+    hs, ws = H // STRIDE, W // STRIDE
+    B = len(kps_per_frame)
+    heat = np.zeros((B, hs, ws, K), np.float32)
+    yy, xx = np.mgrid[0:hs, 0:ws]
+    for b, persons in enumerate(kps_per_frame):
+        for kps in persons:
+            for k in range(min(K, len(kps))):
+                cx, cy = kps[k][0] / STRIDE, kps[k][1] / STRIDE
+                g = np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * 1.5 ** 2))
+                heat[b, :, :, k] = np.maximum(heat[b, :, :, k], g)
+    return torch.from_numpy(heat).to(resolve_device(device))
+
+
+def detection_train_loss(net, frames, targets):
+    """Penalty-reduced focal loss on the heat (CenterNet) plus 0.1 x the L1
+    size loss at object centres; ``targets`` from
+    :func:`render_detection_targets`."""
+    out = net(frames)
+    heat_t, wh_t, mask = targets
+    p = torch.sigmoid(out["heat"])
+    pos = (heat_t > 0.95).to(torch.float32)
+    lp = -pos * ((1 - p) ** 2) * torch.log(p + 1e-6)
+    ln = -(1 - pos) * ((1 - heat_t) ** 4) * (p ** 2) * torch.log(1 - p + 1e-6)
+    n_pos = pos.sum().clamp_min(1.0)
+    l_heat = (lp + ln).sum() / n_pos
+    l_wh = ((out["wh"] - wh_t).abs() * mask).sum() / mask.sum().clamp_min(1.0)
+    return l_heat + 0.1 * l_wh
+
+
+def segmentation_train_loss(net, frames, seg_t):
+    """Two-class cross-entropy against integer labels (B, hs, ws)."""
+    logp = F.log_softmax(net(frames)["seg"], dim=-1)
+    onehot = F.one_hot(seg_t.long(), 2).to(logp.dtype)
+    return -(onehot * logp).mean() * 2.0
+
+
+def keypoint_train_loss(net, frames, kp_heat_t):
+    out = net(frames)["kp"]
+    return torch.mean((torch.sigmoid(out) - kp_heat_t) ** 2) * 100.0
 
 
 # ---------------------------------------------------------------------------
@@ -346,6 +422,25 @@ class FinalDNN(nn.Module):
     def predict(self, frames):
         return self(torch.as_tensor(frames, device=self.device))
 
+    def proxy_loss(self, frames, ref_out):
+        """Differentiable proxy of Acc(D(frames); D(H)) (the paper's fn.
+        15): output consistency with ``ref_out`` = D(H), which is held
+        constant."""
+        out = self(frames)
+        if self.task == "detection":
+            ph = torch.sigmoid(ref_out["heat"].detach())
+            p = torch.sigmoid(out["heat"])
+            loss = torch.mean((p - ph) ** 2) * 100.0
+            mask = (ph > 0.3).to(torch.float32)
+            return loss + ((out["wh"] - ref_out["wh"].detach()).abs()
+                           * mask).sum() / mask.sum().clamp_min(1.0) * 0.1
+        if self.task == "segmentation":
+            ref = torch.softmax(ref_out["seg"].detach(), dim=-1)
+            logp = F.log_softmax(out["seg"], dim=-1)
+            return -(ref * logp).mean() * 10.0
+        ref = torch.sigmoid(ref_out["kp"].detach())
+        return torch.mean((torch.sigmoid(out["kp"]) - ref) ** 2) * 100.0
+
     def accuracy(self, out, ref_out) -> float:
         if self.task == "detection":
             return detection_f1(decode_detections(out),
@@ -369,3 +464,11 @@ class FinalDNN(nn.Module):
         windowed serving mode of a later slice (detection cannot: greedy
         box matching stays on the host)."""
         return self.task in ("segmentation", "keypoint")
+
+
+def init_net(task: str, seed: int, width: int = 32,
+             device="cuda") -> FinalDNN:
+    """A fresh ``task`` net with weights drawn from a ``torch.Generator``
+    seeded with ``seed`` (the trainer's initial weights)."""
+    return FinalDNN(task, width, torch.Generator().manual_seed(seed),
+                    device=device)

@@ -1,4 +1,5 @@
-"""Carry the reference package's weights into the port's modules.
+"""Carry the reference package's weights into the port's modules, and
+back.
 
 The reference keeps parameters as nested dicts ``{"backbone": {"b1":
 {"dw": {"w": HWIO, "b": (co,)}}}}``, saved flat as ``"backbone/b1/dw/w"``
@@ -6,7 +7,10 @@ The reference keeps parameters as nested dicts ``{"backbone": {"b1":
 here: HWIO weights become OIHW (a depthwise ``(3, 3, 1, ci)`` becomes
 ``(ci, 1, 3, 3)``), and the module names match the tree's keys. The two
 packages draw different random numbers from a seed, so shared weights
-come across this way rather than by re-initialising.
+come across this way rather than by re-initialising. The inverse
+(:func:`final_dnn_to_numpy`, :func:`accmodel_to_numpy`) gives the flat form
+back, OIHW turned into HWIO, so that the port's trained weights compare
+with the reference's and save as its npz.
 """
 from __future__ import annotations
 
@@ -60,3 +64,30 @@ def accmodel_from_numpy(params, device="cuda",
     model = AccModel(sd["stem.weight"].shape[0], device=device, name=name)
     model.load_state_dict(sd)
     return model
+
+
+def flat_numpy(named) -> dict:
+    """The flat ``"a/b/w"`` form of PyTorch-named tensors (a state dict,
+    or parameter gradients under their parameters' names): OIHW weights
+    as HWIO, biases as they are."""
+    flat = {}
+    for key, t in named.items():
+        *path, leaf = key.split(".")
+        v = t.detach().cpu().numpy()
+        if leaf == "weight":
+            flat["/".join(path + ["w"])] = v.transpose(2, 3, 1, 0).copy()
+        elif leaf == "bias":
+            flat["/".join(path + ["b"])] = v.copy()
+        else:
+            raise ValueError(f"unexpected parameter {key!r}")
+    return flat
+
+
+def final_dnn_to_numpy(net: FinalDNN) -> dict:
+    """``net``'s weights in the reference's flat npz form."""
+    return flat_numpy(net.state_dict())
+
+
+def accmodel_to_numpy(model: AccModel) -> dict:
+    """``model``'s weights in the reference's flat npz form."""
+    return flat_numpy(model.state_dict())

@@ -11,7 +11,11 @@ coefficients; through the codec backends, where a flip moves its
 macroblock for the rest of the chunk, at most 2 of 60 macroblocks off by
 more than 1e-5; bytes per frame rtol 1e-3. The scores kernel against the
 explicit-array kernel fed the implied QP map: bit-equal (one
-``encode_block`` body).
+``encode_block`` body). ``accgrad_reduce`` against its plain version:
+rtol 1e-5 per macroblock sum (summation order only); batched against per
+frame: bit-equal (each macroblock is summed alike). ``accgrad_frames`` on
+the card against the CPU's plain path: atol 1e-4 on grids normalised to
+[0, 1], since cuDNN's convolutions sum in other orders than the CPU's.
 """
 import numpy as np
 import pytest
@@ -183,3 +187,87 @@ def test_fleet_engine_overlaps_on_the_card(cuda):
         assert [c.accuracy for c in a.chunks] == [c.accuracy
                                                   for c in b.chunks]
         assert [c.bytes for c in a.chunks] == [c.bytes for c in b.chunks]
+
+
+@pytest.fixture
+def exact_convs(cuda):
+    """cuDNN without TF32 for the duration of a test."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cudnn.allow_tf32 = before
+
+
+def _accgrad_inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("shape", [(4, 384, 640, 3), (2, 32, 32, 1),
+                                   (3, 64, 16, 3), (1, 16, 160, 3),
+                                   (2, 48, 80, 5)])
+def test_accgrad_reduce_matches_plain_version(cuda, shape):
+    from repro_torch.kernels.accgrad_reduce import kernel as ak
+    from repro_torch.kernels.accgrad_reduce.ops import accgrad_reduce
+    from repro_torch.kernels.accgrad_reduce.ref import accgrad_reduce_ref
+
+    g, hq, lq = (t.to(cuda) for t in _accgrad_inputs(shape, shape[1]))
+    before = ak.LAUNCHES["accgrad_reduce"]
+    got = accgrad_reduce(g, hq, lq)
+    assert ak.LAUNCHES["accgrad_reduce"] == before + 1  # one per batch
+    want = accgrad_reduce_ref(g, hq, lq)
+    torch.cuda.synchronize()
+    assert got.shape == (shape[0], shape[1] // 16, shape[2] // 16)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5)
+    for b in range(shape[0]):
+        one = accgrad_reduce(g[b], hq[b], lq[b])  # (H, W, C): one frame
+        assert torch.equal(one, got[b])
+
+
+def test_accgrad_reduce_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.accgrad_reduce.kernel import accgrad_reduce_cuda
+
+    g, hq, lq = (t.to(cuda) for t in _accgrad_inputs((2, 32, 48, 3), 1))
+    with pytest.raises(ValueError, match="float32"):
+        accgrad_reduce_cuda(g.double(), hq, lq)
+    with pytest.raises(ValueError, match="shape"):
+        accgrad_reduce_cuda(g, hq[:, :16].contiguous(), lq)
+    with pytest.raises(ValueError, match="contiguous"):
+        accgrad_reduce_cuda(g, hq.transpose(1, 2).contiguous().transpose(
+            1, 2), lq)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        accgrad_reduce_cuda(g, hq, lq.cpu())
+    with pytest.raises(ValueError, match="macroblocks"):
+        accgrad_reduce_cuda(*(t[:, :24].contiguous() for t in (g, hq, lq)))
+    with pytest.raises(ValueError, match=r"\(B, H, W, C\)"):
+        accgrad_reduce_cuda(g[0], hq[0], lq[0])
+
+
+def test_accgrad_frames_on_the_card_matches_the_cpu(exact_convs):
+    """One kernel launch per batch on the card, the same AccGrad grids as
+    the plain path on the CPU, and no parameter gathers a gradient."""
+    from repro_torch.core.accgrad import accgrad_frames
+    from repro_torch.kernels.accgrad_reduce import kernel as ak
+    from repro_torch.vision.dnn import FinalDNN
+
+    g = torch.Generator().manual_seed(4)
+    cpu_net = FinalDNN("detection", 8, generator=g, device="cpu")
+    with torch.no_grad():  # spread the heads' logits (see the CPU tests)
+        for head in ("heat", "wh", "off"):
+            getattr(cpu_net, head).c2.weight.mul_(100.0)
+    card_net = FinalDNN("detection", 8, device="cuda")
+    card_net.load_state_dict(cpu_net.state_dict())
+    frames = _frames(T=4, H=96, W=160, seed=6)
+    hq = torch.from_numpy(frames)
+    lq = (hq + 0.05 * torch.from_numpy(_frames(T=4, H=96, W=160, seed=7))
+          ).clamp(0, 1)
+    want = accgrad_frames(cpu_net, hq, lq)
+    before = ak.LAUNCHES["accgrad_reduce"]
+    got = accgrad_frames(card_net, hq.to(exact_convs), lq.to(exact_convs))
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES["accgrad_reduce"] == before + 1
+    assert got.shape == (4, 6, 10) and got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
+    assert all(p.grad is None for p in card_net.parameters())

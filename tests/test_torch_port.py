@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from repro_torch.core.accmodel import AccModel
+from repro_torch.core.training import accmodel_init
 from repro_torch.engine import StreamingEngine
-from repro_torch.vision.dnn import FinalDNN
+from repro_torch.vision.dnn import FinalDNN, render_detection_targets
+from repro_torch.vision.train import train_final_dnn
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -39,9 +41,16 @@ def test_port_files_exist():
                    "core/quality.py", "core/accmodel.py", "core/pipeline.py",
                    "engine/engine.py", "engine/policies.py", "data/video.py",
                    "weights.py", "serve/__init__.py", "serve/steps.py",
-                   "engine/config.py", "engine/multistream.py"):
+                   "engine/config.py", "engine/multistream.py",
+                   "kernels/accgrad_reduce/ref.py",
+                   "kernels/accgrad_reduce/kernel.py",
+                   "kernels/accgrad_reduce/ops.py", "core/accgrad.py",
+                   "core/training.py", "vision/train.py"):
         assert f"src/repro_torch/{module}" in names
     assert "chip_smoke.py" in names
+    for source in ("mbcodec/csrc/mbcodec.cu",
+                   "accgrad_reduce/csrc/accgrad_reduce.cu"):
+        assert (ROOT / "src/repro_torch/kernels" / source).is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -74,6 +83,13 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         StreamingEngine(dnn)
     assert StreamingEngine(dnn, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_final_dnn("detection", "dashcam", steps=1, H=32, W=32,
+                        width=8, cache=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        accmodel_init(0, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        render_detection_targets([[]], 32, 32)
 
 
 def test_engine_rejects_unported_modes_and_unknown_backends():
