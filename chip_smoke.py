@@ -41,7 +41,26 @@ check it end to end.
    untimed epoch of each on one batch has warmed the kernels. Last,
    ``train_final_dnn`` (detection, 400 steps, width 32, no cache) must
    lower the detection loss on a held batch.
-7. Prints one JSON line with each kernel's launches, error and times, the
+7. LM kernels: ``decode_attn`` at the smollm decode path's shape (B=16,
+   a 2048-token cache, KV=5, G=3, hd=64, pos=1087; bf16 and fp32) and at
+   one smollm layer of the reference's decode_32k cell (B=128, S=32768,
+   bf16) against its plain version (atol 1e-5, rtol 1e-4), with
+   ``scaled_dot_product_attention`` on the same inputs timed as the
+   library call; ``wkv6`` at the rwkv6 path's prefill (B=16, S=1024,
+   H=32) and decode (S=1) shapes against the reference model's chunked
+   form, and on a ragged slice with log-decays down to -8 and s0 != 0
+   against the sequential oracle (atol 2e-4, rtol 1e-3, all finite).
+8. LM serving at full width, random bf16 weights from a seeded generator:
+   smollm-360m and rwkv6-1.6b each prefill 16 prompts of 1024 tokens
+   (``make_prefill_step`` with room for 2048) and take 64 greedy
+   ``make_decode_step`` steps. The audited run must make exactly
+   32 x 64 ``decode_attn`` and 24 x (1 + 64) ``wkv6`` launches with every
+   op on the card and finite logits; a second run gives prefill tokens/s
+   and decode ms per step, and ``torch.profiler`` the card's busy share
+   of a prefill and of 8 decode steps. Then, in fp32, the decode logits
+   after a 256-token prefill must match the full forward pass within
+   2e-3 of its largest logit for 16 steps (the reference's property).
+9. Prints one JSON line with each kernel's launches, error and times, the
    line ``kernels: ...``, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; nothing is caught. Without CUDA,
@@ -78,7 +97,21 @@ ACCGRAD_SOURCE = ("src/repro_torch/kernels/accgrad_reduce/csrc/"
 REPLACES = {"mbcodec_frame": "src/repro/kernels/mbcodec/kernel.py:216",
             "mbcodec_chunk": "src/repro/kernels/mbcodec/kernel.py:147",
             "mbcodec_chunk_scores": "src/repro/kernels/mbcodec/kernel.py:184",
-            "accgrad_reduce": "src/repro/kernels/accgrad_reduce/kernel.py:34"}
+            "accgrad_reduce": "src/repro/kernels/accgrad_reduce/kernel.py:34",
+            "decode_attn": "src/repro/kernels/decode_attn/kernel.py:59",
+            "wkv6": "src/repro/kernels/wkv6/kernel.py:71"}
+DECODE_ATTN_SOURCE = "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu"
+WKV6_SOURCE = "src/repro_torch/kernels/wkv6/csrc/wkv6.cu"
+# LM serving: batch 16, prompts of 1024 tokens, cache room for 2048, 64
+# greedy steps; decode against forward in fp32 after a 256-token prefill
+LM_ARCHS = ("smollm-360m", "rwkv6-1.6b")
+LM_BATCH, LM_PROMPT, LM_MAX_SEQ, LM_STEPS = 16, 1024, 2048, 64
+LM_CHECK_BATCH, LM_CHECK_PREFILL, LM_CHECK_STEPS = 4, 256, 16
+LM_DECODE_REL = 2e-3  # tests/test_models.py's bound
+DECODE_32K = (128, 32768)  # the reference's decode_32k cell: batch, length
+ATTN_TOL = (1e-5, 1e-4)  # atol, rtol: the reference's kernel bounds
+WKV_TOL = (2e-4, 1e-3)
+CARD = ""  # nvidia-smi's name and power limit, set once by main()
 BACKENDS = ("exact", "pallas", "fused", "fused_exact")
 FLEET_SEEDS = range(300, 308)  # as benchmarks/multistream.py
 FLEET_RUNS = (("exact", True), ("fused", True), ("fused_exact", True),
@@ -237,15 +270,20 @@ def kernel_phase(frames):
 
 
 def timed_row(name, kern, plain, max_err, bound, source=KERNEL_SOURCE,
-              cold=False):
-    """The kernels-line row of ``name``, both versions timed here; with
-    ``cold``, the row's times are :func:`time_cold_ms`'s and the times on
-    inputs left in L2 by the previous call are logged beside them."""
-    (ms, eager), (plain_ms, plain_eager) = time_ms(kern), time_ms(plain)
+              cold=False, library=None, iters=20, reps=10):
+    """The kernels-line row of ``name``, both versions timed here (and
+    ``library``, one PyTorch call computing the same function, where there
+    is one); with ``cold``, the row's times are :func:`time_cold_ms`'s and
+    the times on inputs left in L2 by the previous call are logged beside
+    them."""
+    (ms, eager), (plain_ms, plain_eager) = (time_ms(kern, iters, reps),
+                                            time_ms(plain, iters, reps))
+    lib_ms = time_ms(library, iters, reps)[0] if library else None
     b_ms, b_by = bound
     log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}); called eagerly: kernel "
-        f"{eager:.4f} ms, plain {plain_eager:.4f} ms")
+        + (f"library {lib_ms:.4f} ms, " if library else "")
+        + f"bound {b_ms:.4f} ms ({b_by}); called eagerly: kernel "
+        f"{eager:.4f} ms, plain {plain_eager:.4f} ms ({CARD})")
     if cold:
         ms, plain_ms = time_cold_ms(kern), time_cold_ms(plain)
         log(f"  {name}, inputs in device memory (L2 flushed before each "
@@ -253,7 +291,7 @@ def timed_row(name, kern, plain, max_err, bound, source=KERNEL_SOURCE,
     return {"name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name.split("[")[0]],
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
 def scores_kernel_phase(fleet_chunk):
@@ -351,11 +389,14 @@ def median_alpha(am, first_frame):
 
 
 def launch_counts():
-    """Every kernel's launch count so far, both kernel packages."""
+    """Every kernel's launch count so far, all kernel packages."""
     from repro_torch.kernels.accgrad_reduce import kernel as accgrad
+    from repro_torch.kernels.decode_attn import kernel as decode_attn
     from repro_torch.kernels.mbcodec import kernel as mbcodec
+    from repro_torch.kernels.wkv6 import kernel as wkv6
 
-    return {**mbcodec.LAUNCHES, **accgrad.LAUNCHES}
+    return {**mbcodec.LAUNCHES, **accgrad.LAUNCHES, **decode_attn.LAUNCHES,
+            **wkv6.LAUNCHES}
 
 
 def audited(run):
@@ -726,6 +767,334 @@ def training_phase(rows, dnn):
                              f"on the training path")
 
 
+def _check_close(name, got, want, tol):
+    """Max abs error of ``got`` against ``want`` (fp32); fails outside
+    atol + rtol * |want| or on a non-finite output."""
+    atol, rtol = tol
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    worst = float((err - rtol * want.abs()).max())
+    log(f"  {name}: max abs err {float(err.max()):.3e}, worst excess over "
+        f"atol {atol} + rtol {rtol} * |plain| {worst - atol:.3e}")
+    if not bool(torch.isfinite(got).all()) or worst > atol:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return float(err.max())
+
+
+def decode_attn_kernel_phase():
+    """``decode_attn`` against its plain version at the smollm decode
+    path's shape (bf16 and fp32) and at one smollm layer of the
+    reference's decode_32k cell (bf16), with ``scaled_dot_product_attention``
+    on the same inputs timed as the library call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    cfg_kv, cfg_g, hd = 5, 3, 64  # smollm-360m: 15 heads over 5 KV heads
+    cases = (("path,bf16", LM_BATCH, LM_MAX_SEQ, LM_PROMPT + 63,
+              torch.bfloat16),
+             ("path,fp32", LM_BATCH, LM_MAX_SEQ, LM_PROMPT + 63,
+              torch.float32),
+             ("decode_32k,bf16", *DECODE_32K, DECODE_32K[1] - 1,
+              torch.bfloat16))
+    rows = {}
+    for tag, B, S, pos, dtype in cases:
+        gen = torch.Generator(device="cuda").manual_seed(S + pos)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for shape in ((B, cfg_kv, cfg_g, hd), (B, S, cfg_kv, hd),
+                                 (B, S, cfg_kv, hd)))
+        name = f"decode_attn[{tag}]"
+        log(f"decode_attn kernel phase {tag}: B={B}, S={S}, KV={cfg_kv}, "
+            f"G={cfg_g}, hd={hd}, pos={pos}, {dtype}")
+
+        def kern():
+            return decode_attn_cuda(q, k, v, pos)
+
+        def plain():
+            return decode_attn_ref(q, k, v, pos)
+
+        qh = q.reshape(B, cfg_kv * cfg_g, 1, hd)
+        kh, vh = (t[:, :pos + 1].transpose(1, 2) for t in (k, v))
+
+        def library():  # GQA over the valid positions, never on the path
+            return F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True)
+
+        want = plain()
+        max_err = _check_close(name, kern(), want, ATTN_TOL)
+        lib_err = float((library().float().reshape(q.shape)
+                         - want).abs().max())
+        log(f"  {name}: library call vs plain, max abs {lib_err:.3e}")
+        # each valid K and V row read once, q read and the output written;
+        # per position and query row a dot and a weighted add of hd
+        # (4 hd operations) and an exponential
+        moved = (2 * B * (pos + 1) * cfg_kv * hd * k.element_size()
+                 + q.numel() * q.element_size() + 4 * q.numel())
+        flop = B * cfg_kv * cfg_g * (pos + 1) * (4 * hd + 2)
+        big = S > LM_MAX_SEQ  # the plain version's fp32 copies: 21 GB
+        rows[name] = timed_row(name, kern, plain, max_err,
+                               roofline_ms(moved, flop), DECODE_ATTN_SOURCE,
+                               library=library, reps=1 if big else 10)
+        del q, k, v, qh, kh, vh, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _wkv_inputs(B, S, H, hd, seed, ld_low=None):
+    """r, k, v (x0.5), log-decay (-exp(N(-1, 0.5)), or uniform in
+    [ld_low, -1e-4]), u (x0.3), s0 (x0.2): the reference tests' scales."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def n(*shape, scale):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    r, k, v = (n(B, S, H, hd, scale=0.5) for _ in range(3))
+    if ld_low is None:
+        ld = -torch.exp(n(B, S, H, hd, scale=0.5) - 1.0)
+    else:
+        ld = ld_low + (-1e-4 - ld_low) * torch.rand(
+            (B, S, H, hd), generator=gen, device="cuda")
+    return r, k, v, ld, n(H, hd, scale=0.3), n(B, H, hd, hd, scale=0.2)
+
+
+def wkv6_kernel_phase():
+    """``wkv6`` against the reference model's chunked form at the rwkv6
+    path's prefill (B=16, S=1024, H=32, hd=64) and decode (S=1) shapes,
+    and against the sequential oracle on a ragged, fast-decay slice (S=1000,
+    log-decays down to -8, s0 != 0), where every output must be finite."""
+    from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+    from repro_torch.kernels.wkv6.ref import wkv6_ref, wkv_chunked
+
+    cases = (("prefill", LM_BATCH, LM_PROMPT, 32, None),
+             ("decode", LM_BATCH, 1, 32, None),
+             ("ragged", 2, 1000, 4, -8.0))
+    rows = {}
+    for tag, B, S, H, ld_low in cases:
+        hd = 64
+        xs = _wkv_inputs(B, S, H, hd, seed=S, ld_low=ld_low)
+        name = f"wkv6[{tag}]"
+        log(f"wkv6 kernel phase {tag}: B={B}, S={S}, H={H}, hd={hd}, fp32"
+            + (f", log-decay in [{ld_low}, -1e-4]" if ld_low else ""))
+
+        def kern():
+            return wkv6_cuda(*xs)
+
+        plain = (lambda: wkv6_ref(*xs)) if ld_low else (
+            lambda: wkv_chunked(*xs))
+        got, want = kern(), plain()
+        max_err = max(_check_close(f"{name} {part}", g, w, WKV_TOL)
+                      for part, g, w in zip(("o", "state"), got, want))
+        # r, k, v, log-decay and o per token, u, s0 and the final state;
+        # per token and head the read-out (2 hd^2), the decay and the
+        # outer-product update (3 hd^2) and the bonus and exp (~6 hd)
+        moved = 4 * (5 * B * S * H * hd + H * hd + 2 * B * H * hd * hd)
+        flop = B * S * H * (5 * hd * hd + 6 * hd)
+        rows[name] = timed_row(name, kern, plain, max_err,
+                               roofline_ms(moved, flop), WKV6_SOURCE,
+                               iters=3 if ld_low else 20,
+                               reps=1 if ld_low else 10)
+    return rows
+
+
+def _param_bytes(model):
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def _serve(model, prompt, max_seq, steps):
+    """Prefill ``prompt`` with room for ``max_seq`` tokens, then ``steps``
+    greedy decode steps -> (generated tokens (B, steps + 1), whether every
+    logit was finite, prefill seconds, decode seconds per step); each
+    clock ends in a synchronize."""
+    from repro_torch.serve.steps import make_decode_step, make_prefill_step
+
+    prefill = make_prefill_step(model, model.cfg, max_seq=max_seq)
+    decode = make_decode_step(model, model.cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, last = prefill({"tokens": prompt})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    finite = torch.isfinite(last).all()
+    tok = torch.argmax(last[:, -1], dim=-1).to(torch.int32)
+    out = [tok]
+    for i in range(steps):
+        cache, tok, logits = decode(cache, tok[:, None], prompt.shape[1] + i)
+        finite &= torch.isfinite(logits).all()
+        out.append(tok)
+    torch.cuda.synchronize()
+    return (torch.stack(out, dim=1), bool(finite), t1 - t0,
+            (time.perf_counter() - t1) / max(steps, 1))
+
+
+def _profiled(label, run, per):
+    """``run()`` under ``torch.profiler``: the card's busy share of the
+    window (the kernels' summed device time, one stream, over the host
+    clock), the kernels that fill it and the host's costliest ops, each
+    per ``per`` (steps or calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    # the kernels themselves: an op's own row would count its kernels again
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    launches = sum(e.count for e in kernels)
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:5]
+    host = sorted((e for e in rows if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:5]
+    log(f"  profiled {label} ({CARD}), per {per[0]}: host clock "
+        f"{wall * 1e3 / per[1]:.4f} ms under the profiler, device busy "
+        f"{busy * 1e3 / per[1]:.4f} ms (share {busy / wall:.4f}), "
+        f"{launches / per[1]:.1f} kernel launches; top kernels (ms): "
+        + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / per[1]:.4f}"
+                    f" x{e.count / per[1]:g}" for e in top)
+        + "; top host ops by self time (ms): "
+        + "; ".join(f"{e.key} {e.self_cpu_time_total / 1e3 / per[1]:.4f}"
+                    f" x{e.count / per[1]:g}" for e in host))
+
+
+def _profile_serving(model, prompt, steps=8):
+    """One prefill and ``steps`` decode steps after it, each profiled."""
+    from repro_torch.serve.steps import make_decode_step
+
+    decode = make_decode_step(model, model.cfg)
+    out = {}
+
+    def prefill():
+        out["cache"], out["last"] = model.prefill(prompt, max_seq=LM_MAX_SEQ)
+
+    _profiled("prefill", prefill, ("call", 1))
+    tok = torch.argmax(out["last"][:, -1], dim=-1).to(torch.int32)
+    S = prompt.shape[1]
+    out["cache"], tok, _ = decode(out["cache"], tok[:, None], S)  # warm
+
+    def decode_steps():
+        nonlocal tok
+        for i in range(steps):
+            out["cache"], tok, _ = decode(out["cache"], tok[:, None],
+                                          S + 1 + i)
+
+    _profiled(f"{steps} decode steps", decode_steps, ("step", steps))
+
+
+def _decode_matches_forward(arch):
+    """fp32 at full width: decode logits after a prefill of
+    LM_CHECK_PREFILL tokens against ``hidden`` + ``logits`` over the whole
+    sequence, relative to its largest |logit| (the reference's property)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+
+    cfg = get_config(arch)
+    model = DecoderLM(cfg, torch.float32, torch.float32, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(1))
+    S = LM_CHECK_PREFILL + LM_CHECK_STEPS
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (LM_CHECK_BATCH, S))).cuda()
+    full = model.logits(model.hidden(tokens)[0])
+    cache, last = model.prefill(tokens[:, :LM_CHECK_PREFILL], max_seq=S)
+    errs = [(last[:, 0] - full[:, LM_CHECK_PREFILL - 1]).abs().max()]
+    for t in range(LM_CHECK_PREFILL, S):
+        cache, lg = model.decode(cache, tokens[:, t:t + 1], t)
+        errs.append((lg[:, 0] - full[:, t]).abs().max())
+    rel = float(torch.stack(errs).max() / full.abs().max())
+    log(f"  {arch} fp32 decode vs forward (batch {LM_CHECK_BATCH}, prefill "
+        f"{LM_CHECK_PREFILL}, {LM_CHECK_STEPS} steps): max error "
+        f"{rel:.3e} of max |logit| (bound {LM_DECODE_REL})")
+    if not rel < LM_DECODE_REL:
+        raise AssertionError(f"{arch}: decode disagrees with the forward "
+                             f"pass")
+
+
+def lm_serving_phase(rows):
+    """Both LM configurations at full width, bf16 weights and compute,
+    random weights from a seeded generator: batch 16, 1024-token prompts,
+    prefill with room for 2048, then 64 greedy decode steps. The first run
+    is audited (launches, ops off the card); a second, outside the audit,
+    gives prefill tokens/s and decode ms per step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import kernel as dk
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.models import DecoderLM
+
+    expect = {"smollm-360m": ("decode_attn", lambda cfg: cfg.n_layers
+                              * LM_STEPS),
+              "rwkv6-1.6b": ("wkv6", lambda cfg: cfg.n_layers
+                             * (1 + LM_STEPS))}
+    for arch in LM_ARCHS:
+        cfg = get_config(arch)
+        model = DecoderLM(cfg, torch.bfloat16, torch.bfloat16, device="cuda",
+                          generator=torch.Generator(
+                              device="cuda").manual_seed(0))
+        prompt = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(torch.int32).cuda()
+        weights = _param_bytes(model)
+        log(f"LM serving {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
+            f"vocab {cfg.vocab_size}, {weights / 1e9:.3f} GB of bf16 "
+            f"weights; batch {LM_BATCH}, prompt {LM_PROMPT}, cache room "
+            f"{LM_MAX_SEQ}, {LM_STEPS} greedy steps")
+        _serve(model, prompt[:, :8], 16, 2)  # loads cuBLAS and the kernels
+
+        kernel, count = expect[arch]
+        dk.LAUNCHES.clear()  # every count to 0 just before the path
+        wk.LAUNCHES.clear()
+        (tokens, finite, _, _), moved, off = audited(
+            lambda: _serve(model, prompt, LM_MAX_SEQ, LM_STEPS))
+        log(f"  launches {moved}")
+        if moved != {kernel: count(cfg)}:
+            raise AssertionError(f"{arch} launched {moved}, expected "
+                                 f"{ {kernel: count(cfg)} }")
+        if off:
+            raise AssertionError(f"ops off the card: {sorted(off)}")
+        log("  every op of the serving run ran on cuda (transfers aside)")
+        if not finite or tokens.shape != (LM_BATCH, LM_STEPS + 1):
+            raise AssertionError(f"{arch}: non-finite logits or malformed "
+                                 f"tokens {tuple(tokens.shape)}")
+        for name in rows:
+            if name.startswith(kernel + "["):
+                rows[name]["launches"] = count(cfg)
+
+        # the timed run, outside the audit (whose hook on every op would
+        # dominate the host clock)
+        again, _, t_prefill, t_decode = _serve(model, prompt, LM_MAX_SEQ,
+                                               LM_STEPS)
+        same = bool((again == tokens).all())
+        # a decode step reads every weight but the untied embedding's
+        # table (only its B rows), and the cache up to the step's position
+        # or each layer's state (read and written)
+        step_bytes = weights - (0 if cfg.tie_embeddings else
+                                model.embed.emb.numel() * 2)
+        last_pos = LM_PROMPT + LM_STEPS - 1
+        if cfg.attn_free:
+            H, hd = cfg.rwkv_n_heads, cfg.rwkv_head_size
+            state = cfg.n_layers * LM_BATCH * (H * hd * hd * 4
+                                               + 2 * cfg.d_model * 2)
+            step_bytes += 2 * state
+        else:
+            step_bytes += cfg.n_layers * 2 * LM_BATCH * (last_pos + 1) \
+                * cfg.n_kv_heads * cfg.hd * 2
+        log(f"  {arch} ({CARD}): prefill {LM_BATCH}x{LM_PROMPT} tokens in "
+            f"{t_prefill:.4f} s, {LM_BATCH * LM_PROMPT / t_prefill:.1f} "
+            f"tokens/s; decode {t_decode * 1e3:.4f} ms per step (batch "
+            f"{LM_BATCH}), "
+            f"{LM_BATCH / t_decode:.1f} tokens/s; a step moves at least "
+            f"{step_bytes / 1e9:.4f} GB (weights and cache or state at "
+            f"position {last_pos}): {step_bytes / H100_BYTES_PER_S * 1e3:.4f}"
+            f" ms at 3.35 TB/s; second run's tokens identical: {same}")
+        _profile_serving(model, prompt)
+        del model
+        torch.cuda.empty_cache()
+        _decode_matches_forward(arch)
+        torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -737,10 +1106,12 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    log(subprocess.run(
+    global CARD
+    CARD = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip())
+        check=True, timeout=60).stdout.strip()
+    log(CARD)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}; TF32 off for matmul and cuDNN, "
         f"float32 matmul precision 'highest'")
@@ -780,9 +1151,18 @@ def main():
     t0 = time.perf_counter()
     training_phase(rows, dnn)
     log(f"training path: {time.perf_counter() - t0:.2f} s")
+    del dnn, am
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows.update(decode_attn_kernel_phase())
+    rows.update(wkv6_kernel_phase())
+    log(f"LM kernel phases: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    lm_serving_phase(rows)
+    log(f"LM serving path: {time.perf_counter() - t0:.2f} s")
     log(json.dumps({"kernels": list(rows.values())}))
     log("kernels: mbcodec_frame, mbcodec_chunk, mbcodec_chunk_scores, "
-        "accgrad_reduce")
+        "accgrad_reduce, decode_attn, wkv6")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

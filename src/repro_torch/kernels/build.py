@@ -25,7 +25,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: library name -> its CUDA source, relative to this directory
 SOURCES = {"mbcodec": "mbcodec/csrc/mbcodec.cu",
-           "accgrad_reduce": "accgrad_reduce/csrc/accgrad_reduce.cu"}
+           "accgrad_reduce": "accgrad_reduce/csrc/accgrad_reduce.cu",
+           "decode_attn": "decode_attn/csrc/decode_attn.cu",
+           "wkv6": "wkv6/csrc/wkv6.cu"}
 
 
 def _nvcc() -> str:

@@ -1,2 +1,3 @@
-"""Fleet serving steps of the port: the N-stream camera step and the
-batched server step (port of ``repro.serve.steps``)."""
+"""Serving steps of the port (port of ``repro.serve.steps``): the fleet's
+N-stream camera step and batched server step, and the LM's prefill,
+greedy decode step and greedy loop."""

@@ -9,6 +9,10 @@ decides when the host waits. The ``fused`` backends' camera step is one
 AccModel call, one dilation and one ``mbcodec_chunk_scores`` kernel
 launch for the whole fleet. Only the single-device form exists (``mesh``
 must be None); the stream mesh comes with the multi-GPU slice.
+
+The LM's steps (``make_prefill_step``, ``make_decode_step``,
+``greedy_generate``) wrap ``models.DecoderLM`` the same way: eager calls
+on the model's device, the parameters held by the model.
 """
 from __future__ import annotations
 
@@ -18,7 +22,6 @@ from repro_torch.codec.codec import CHUNK_ENCODERS, encode_chunk_batched
 from repro_torch.core.quality import (dilate_scores,
                                       qp_maps_from_knobs_batched,
                                       qp_maps_from_scores_batched)
-from repro_torch.engine.policies import soft_drop_previous
 from repro_torch.kernels.mbcodec.ops import encode_chunk_fused_scores_batched
 from repro_torch.vision.dnn import detection_keep_heat
 
@@ -56,6 +59,9 @@ def make_camera_fleet_step(accmodel, qcfg, impl: str = "fast", mesh=None,
     fixed. ``mask=True`` builds ``step(chunks, active[, knob_array])``
     with an ``(N,)`` lane mask: padded lanes run like the others, but
     their bytes are zeroed on the device."""
+    # imported here: the engine package imports this module
+    from repro_torch.engine.policies import soft_drop_previous
+
     _no_mesh(mesh, "make_camera_fleet_step")
     CHUNK_ENCODERS.resolve(impl)  # fail on a bad name before a run
     fused_scores = impl in ("fused", "fused_exact")
@@ -112,3 +118,53 @@ def make_server_fleet_step(final_dnn, mesh=None):
                 for k, v in out.items()}
 
     return server
+
+
+# ---------------------------------------------------------------------------
+# LM serving: prefill, one greedy decode step, and the greedy loop
+# ---------------------------------------------------------------------------
+
+
+def make_prefill_step(model, cfg, max_seq=None):
+    """``step(batch) -> (cache, last_logits)`` for ``batch["tokens"]`` (B,
+    S). The reference's step prefills without ``max_seq``, which leaves no
+    room in the K/V cache (its writes then clamp onto the last token); a
+    decoder that follows passes the length to serve up to."""
+    def prefill(batch):
+        if "context" in batch or "frames" in batch:
+            raise NotImplementedError("cross-attention and enc-dec inputs "
+                                      "are not ported (ROADMAP, module 9)")
+        return model.prefill(batch["tokens"], max_seq=max_seq)
+
+    return prefill
+
+
+def make_decode_step(model, cfg):
+    """``step(cache, token (B, 1), pos) -> (cache, next_token (B,) int32,
+    logits (B, 1, V))``: one greedy step."""
+    def decode(cache, token, pos):
+        cache, logits = model.decode(cache, token, pos)
+        next_token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        return cache, next_token, logits
+
+    return decode
+
+
+def greedy_generate(model, prompt, steps: int, cache=None):
+    """The reference's autoregressive loop (examples and equivalence
+    tests): the prompt goes in token by token through ``decode``, then
+    ``steps`` greedy tokens come out (B, steps)."""
+    B, S = prompt.shape
+    if cache is None:
+        cache = model.init_cache(B, S + steps)
+    tok = prompt[:, :1]
+    outs = []
+    for t in range(S + steps - 1):
+        cache, logits = model.decode(cache, tok, t)
+        nxt = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(prompt.dtype)
+        if t + 1 < S:
+            tok = prompt[:, t + 1:t + 2]
+        else:
+            tok = nxt
+            outs.append(nxt)
+    return torch.cat(outs, dim=1) if outs else prompt[:, :0]

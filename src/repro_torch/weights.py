@@ -11,6 +11,12 @@ come across this way rather than by re-initialising. The inverse
 (:func:`final_dnn_to_numpy`, :func:`accmodel_to_numpy`) gives the flat form
 back, OIHW turned into HWIO, so that the port's trained weights compare
 with the reference's and save as its npz.
+
+The LM's tree (``embed``, ``blocks``, ``final_norm``, ``lm_head``) maps
+key for key onto :class:`DecoderLM`'s modules, Linear weights staying in
+the reference's (d_in, d_out) layout; ``blocks`` carries a leading
+n_blocks axis, which is split across the port's per-block modules
+(:func:`lm_from_numpy`) and stacked back (:func:`lm_to_numpy`).
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.accmodel import AccModel
+from repro_torch.models.transformer import DecoderLM
 from repro_torch.vision.dnn import FinalDNN
 
 
@@ -91,3 +98,43 @@ def final_dnn_to_numpy(net: FinalDNN) -> dict:
 def accmodel_to_numpy(model: AccModel) -> dict:
     """``model``'s weights in the reference's flat npz form."""
     return flat_numpy(model.state_dict())
+
+
+def lm_from_numpy(cfg, params, device="cuda",
+                  dtype=torch.float32) -> DecoderLM:
+    """A :class:`DecoderLM` for ``cfg`` holding the reference's ``params``
+    (nested or flat ``"a/b"`` keys, numpy), with weights and compute in
+    ``dtype`` (the parameters the reference keeps in fp32 stay fp32)."""
+    model = DecoderLM(cfg, compute_dtype=dtype, param_dtype=dtype,
+                      device=device)
+    sd = {}
+    for key, v in _flat(params).items():
+        head, _, rest = key.partition("/")
+        if head != "blocks":
+            sd[key.replace("/", ".")] = torch.from_numpy(v.copy())
+            continue
+        if v.shape[0] != cfg.n_blocks:
+            raise ValueError(f"{key}: leading axis {v.shape[0]}, expected "
+                             f"{cfg.n_blocks} blocks")
+        for b in range(cfg.n_blocks):
+            sd[f"stack.blocks.{b}.{rest.replace('/', '.')}"] = \
+                torch.from_numpy(v[b].copy())
+    model.load_state_dict(sd)
+    return model
+
+
+def lm_to_numpy(model: DecoderLM) -> dict:
+    """``model``'s parameters in the reference's flat form, fp32, the
+    blocks stacked on a leading axis."""
+    flat, blocks = {}, {}
+    for key, t in model.state_dict().items():
+        v = t.detach().float().cpu().numpy()
+        if key.startswith("stack.blocks."):
+            _, _, b, rest = key.split(".", 3)
+            blocks.setdefault(rest, {})[int(b)] = v
+        else:
+            flat[key.replace(".", "/")] = v
+    for rest, per_block in blocks.items():
+        flat["blocks/" + rest.replace(".", "/")] = np.stack(
+            [per_block[b] for b in range(len(per_block))])
+    return flat

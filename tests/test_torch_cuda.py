@@ -271,3 +271,152 @@ def test_accgrad_frames_on_the_card_matches_the_cpu(exact_convs):
     assert got.shape == (4, 6, 10) and got.device.type == "cuda"
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
     assert all(p.grad is None for p in card_net.parameters())
+
+
+# decode_attn against its plain version: fp32 sums in another order over
+# O(1) values, atol 1e-5 and rtol 1e-4 (the reference's kernel bound);
+# for bf16 caches the same, since both read the same bf16 values.
+@pytest.mark.parametrize("dims", [
+    (2, 2048, 5, 3, 64, 1087),  # the smollm path's shape, G=3
+    (3, 1000, 2, 3, 64, 0),     # S no block divides, only position 0
+    (1, 777, 1, 8, 32, 300),    # pos inside a tile, G=8, hd 32
+    (2, 300, 4, 1, 64, 299),    # G=1, the whole cache
+    (16, 4500, 5, 3, 64, 4321)])  # several splits of a long cache
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_matches_plain_version(cuda, dims, dtype):
+    from repro_torch.kernels.decode_attn import kernel as dk
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    B, S, KV, G, hd, pos = dims
+    rng = np.random.default_rng(S)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(cuda, dtype)
+               for shape in ((B, KV, G, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    before = dk.LAUNCHES["decode_attn"]
+    got = decode_attn(q, k, v, pos)
+    assert dk.LAUNCHES["decode_attn"] == before + 1
+    want = decode_attn_ref(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (B, KV, G, hd)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-5, rtol=1e-4)
+
+
+def test_decode_attn_ignores_what_lies_past_pos(cuda):
+    """Garbage (inf, NaN) after pos changes nothing: masked positions are
+    never read."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(cuda, torch.bfloat16)
+               for shape in ((2, 5, 3, 64), (2, 1500, 5, 64),
+                             (2, 1500, 5, 64)))
+    clean = decode_attn_cuda(q, k, v, 700)
+    k[:, 701:], v[:, 701:] = float("inf"), float("nan")
+    assert torch.equal(decode_attn_cuda(q, k, v, 700), clean)
+
+
+def test_decode_attn_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+
+    q = torch.zeros((2, 5, 3, 64), device=cuda)
+    k = torch.zeros((2, 100, 5, 64), device=cuda)
+    with pytest.raises(ValueError, match="pos"):
+        decode_attn_cuda(q, k, k, 100)
+    with pytest.raises(ValueError, match="bfloat16"):
+        decode_attn_cuda(q, k.bfloat16(), k, 5)
+    with pytest.raises(ValueError, match="match"):
+        decode_attn_cuda(q, k[:, :, :4].contiguous(), k, 5)
+    with pytest.raises(ValueError, match="group"):
+        decode_attn_cuda(torch.zeros((2, 1, 9, 64), device=cuda),
+                         k[:, :, :1].contiguous(), k[:, :, :1].contiguous(),
+                         5)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attn_cuda(q, k.transpose(0, 1).contiguous().transpose(0, 1),
+                         k, 5)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        decode_attn_cuda(q, k.cpu(), k, 5)
+
+
+def _wkv_inputs(B, S, H, hd, seed, ld_low=None, s0_scale=0.2):
+    """Seeded r, k, v (x0.5), log-decays (-exp(N(-1, 0.5)) as the
+    reference's tests, or uniform in [ld_low, -1e-4]), u and s0."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (0.5 * rng.standard_normal((B, S, H, hd)) for _ in range(3))
+    if ld_low is None:
+        ld = -np.exp(0.5 * rng.standard_normal((B, S, H, hd)) - 1.0)
+    else:
+        ld = rng.uniform(ld_low, -1e-4, (B, S, H, hd))
+    u = 0.3 * rng.standard_normal((H, hd))
+    s0 = s0_scale * rng.standard_normal((B, H, hd, hd))
+    return [torch.from_numpy(x.astype(np.float32))
+            for x in (r, k, v, ld, u, s0)]
+
+
+# wkv6 against the sequential oracle: atol 2e-4, rtol 1e-3, the
+# reference's kernel bound (tests/test_kernels.py); every output finite.
+@pytest.mark.parametrize("dims", [
+    (16, 1, 32, 64, None),     # a decode step: one token, no padding
+    (2, 1000, 3, 64, -8.0),    # ragged last chunk, fast decays
+    (1, 77, 2, 32, None),      # hd 32, ragged
+    (3, 64, 4, 64, -3.0)])     # where the reference kernel gives NaN
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_matches_sequential_oracle(cuda, dims, dtype):
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+    B, S, H, hd, ld_low = dims
+    r, k, v, ld, u, s0 = (t.to(cuda) for t in _wkv_inputs(B, S, H, hd, S,
+                                                          ld_low))
+    r, k, v = (t.to(dtype) for t in (r, k, v))
+    before = wk.LAUNCHES["wkv6"]
+    o, s = wkv6(r, k, v, ld, u, s0)
+    assert wk.LAUNCHES["wkv6"] == before + 1
+    o_ref, s_ref = wkv6_ref(r, k, v, ld, u, s0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(s).all())
+    np.testing.assert_allclose(o.cpu().numpy(), o_ref.cpu().numpy(),
+                               atol=2e-4, rtol=1e-3)
+    np.testing.assert_allclose(s.cpu().numpy(), s_ref.cpu().numpy(),
+                               atol=2e-4, rtol=1e-3)
+
+
+def test_wkv6_chained_steps_equal_one_call(cuda):
+    """Prefill then token-by-token steps carry the state as one call
+    over the whole sequence does (the serving path's use)."""
+    from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+
+    r, k, v, ld, u, s0 = (t.to(cuda) for t in _wkv_inputs(2, 40, 2, 64, 3))
+    o_all, s_all = wkv6_cuda(r, k, v, ld, u, s0)
+    o_pre, s = wkv6_cuda(*(t[:, :37].contiguous() for t in (r, k, v, ld)),
+                         u, s0)
+    outs = [o_pre]
+    for t in range(37, 40):
+        o_t, s = wkv6_cuda(*(x[:, t:t + 1].contiguous()
+                             for x in (r, k, v, ld)), u, s)
+        outs.append(o_t)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(torch.cat(outs, 1).cpu().numpy(),
+                               o_all.cpu().numpy(), atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(s.cpu().numpy(), s_all.cpu().numpy(),
+                               atol=2e-5, rtol=1e-4)
+
+
+def test_wkv6_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+
+    r, k, v, ld, u, s0 = (t.to(cuda) for t in _wkv_inputs(1, 8, 2, 64, 0))
+    with pytest.raises(ValueError, match="float32"):
+        wkv6_cuda(r, k, v, ld.bfloat16(), u, s0)
+    with pytest.raises(ValueError, match="but v"):
+        wkv6_cuda(r, k, v.bfloat16(), ld, u, s0)
+    with pytest.raises(ValueError, match="shape"):
+        wkv6_cuda(r, k, v, ld, u, s0[:, :1].contiguous())
+    with pytest.raises(ValueError, match="head size"):
+        wkv6_cuda(*(t[..., :16].contiguous() for t in (r, k, v, ld, u)),
+                  s0[..., :16, :16].contiguous())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        wkv6_cuda(r, k, v, ld, u.cpu(), s0)

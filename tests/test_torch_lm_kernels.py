@@ -1,0 +1,122 @@
+"""The port's plain versions of the LM kernels against the reference.
+
+``decode_attn`` and ``wkv6`` serve CPU tensors through their plain
+versions (the CUDA kernels are held against these on the card, in
+``tests/test_torch_cuda.py``). Here each plain version meets, on the same
+numpy inputs, the reference's oracle, its Pallas kernel in interpret mode
+and, for WKV, the reference model's chunked form. Tolerances are the
+reference's own kernel bounds (``tests/test_kernels.py``): decode_attn
+atol 1e-5, rtol 1e-4, bf16 inputs included, since both sides widen the
+same bf16 values; wkv6 atol 2e-4, rtol 1e-3.
+"""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attn.ops import decode_attn as ref_decode_attn
+from repro.kernels.decode_attn.ref import decode_attn_ref as ref_oracle
+from repro.kernels.wkv6.ops import wkv6 as ref_wkv6
+from repro.kernels.wkv6.ref import wkv6_ref as ref_wkv6_oracle
+from repro.models.rwkv6 import wkv_chunked as ref_wkv_chunked
+from repro_torch.kernels.decode_attn.ops import decode_attn
+from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+from repro_torch.kernels.wkv6.ops import wkv6
+from repro_torch.kernels.wkv6.ref import wkv6_ref, wkv_chunked
+
+ATTN_TOL = dict(atol=1e-5, rtol=1e-4)
+WKV_TOL = dict(atol=2e-4, rtol=1e-3)
+
+
+def _attn_inputs(B, S, KV, G, hd, seed, bf16=False):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(shape, dtype=np.float32)
+            for shape in ((B, KV, G, hd), (B, S, KV, hd), (B, S, KV, hd))]
+    if bf16:  # the same bf16 values on both sides
+        arrs = [a.astype(ml_dtypes.bfloat16) for a in arrs]
+    return arrs
+
+
+def _torch(a):
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("dims", [(2, 256, 2, 4, 32, 255),
+                                  (1, 1024, 4, 8, 64, 700),
+                                  (2, 96, 1, 2, 16, 40),
+                                  (2, 200, 5, 3, 64, 0),   # smollm's G=3
+                                  (1, 128, 2, 2, 32, 100)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_decode_attn_plain_matches_reference(dims, bf16):
+    """Against the reference's oracle and its kernel in interpret mode (the
+    reference's test shapes, plus G=3 at pos 0)."""
+    B, S, KV, G, hd, pos = dims
+    q, k, v = _attn_inputs(B, S, KV, G, hd, seed=S, bf16=bf16)
+    got = decode_attn(*map(_torch, (q, k, v)), pos)
+    assert got.dtype == torch.float32 and got.shape == (B, KV, G, hd)
+    np.testing.assert_array_equal(
+        got.numpy(), decode_attn_ref(*map(_torch, (q, k, v)), pos).numpy())
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    for want in (ref_oracle(jq, jk, jv, pos),
+                 ref_decode_attn(jq, jk, jv, pos, impl="interpret", blk=64)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **ATTN_TOL)
+
+
+def _wkv_inputs(B, S, H, hd, seed, log_decay=None, zero_s0=False):
+    """Seeded inputs as the reference's tests draw them: r, k, v x0.5,
+    log-decay -exp(N(-1, 0.5)) unless given, u x0.3, s0 x0.2."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (0.5 * rng.standard_normal((B, S, H, hd)) for _ in range(3))
+    ld = -np.exp(0.5 * rng.standard_normal((B, S, H, hd)) - 1.0) \
+        if log_decay is None else np.full((B, S, H, hd), log_decay)
+    u = 0.3 * rng.standard_normal((H, hd))
+    s0 = 0.2 * rng.standard_normal((B, H, hd, hd))
+    if zero_s0:
+        s0 = np.zeros_like(s0)
+    return [x.astype(np.float32) for x in (r, k, v, ld, u, s0)]
+
+
+def _close(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **WKV_TOL)
+
+
+@pytest.mark.parametrize("dims", [(2, 64, 2, 16, 16), (1, 128, 4, 32, 64),
+                                  (2, 100, 2, 16, 32), (1, 32, 1, 8, 32),
+                                  (2, 1, 3, 64, 64)])
+def test_wkv6_plain_matches_reference(dims):
+    """The port's CPU path (``wkv_chunked``) against the reference's oracle,
+    its kernel in interpret mode at chunk c, and the reference model's
+    chunked form; the port's oracle against the reference's. The last
+    shape is one decode step."""
+    B, S, H, hd, c = dims
+    xs = _wkv_inputs(B, S, H, hd, seed=S)
+    ts, js = [torch.from_numpy(x) for x in xs], [jnp.asarray(x) for x in xs]
+    got = wkv6(*ts)
+    _close(got, wkv_chunked(*ts))
+    for want in (ref_wkv6_oracle(*js), ref_wkv6(*js, impl="interpret",
+                                                 chunk=c),
+                 ref_wkv_chunked(*js)):
+        _close(got, want)
+    _close(wkv6_ref(*ts), ref_wkv6_oracle(*js))
+
+
+@pytest.mark.parametrize("log_decay,chunk", [(-3.0, 64), (-8.0, 32)])
+def test_wkv6_plain_is_finite_for_fast_decays(log_decay, chunk):
+    """Trained RWKV6 channels decay fast. At log_decay = -3 and chunk 64
+    the reference's Pallas kernel (``repro/kernels/wkv6/kernel.py:44-47``)
+    evaluates exp(Lx[t] - L[s]) for s >= t too, where the exponent reaches
+    +189; it overflows to inf, and inf * 0 under the triangle mask gives
+    NaN (560 NaNs in a (1, 64, 1, 16) output, jax 0.9.0, CPU). The port's
+    CUDA kernel forms only the pairs s < t; its plain version, like the
+    reference model's chunked form, masks with ``where``. Both stay finite
+    and match the sequential oracle."""
+    xs = _wkv_inputs(1, 128, 2, 16, seed=7, log_decay=log_decay)
+    ts = [torch.from_numpy(x) for x in xs]
+    for got in (wkv6(*ts), wkv_chunked(*ts, chunk=chunk)):
+        assert all(bool(torch.isfinite(t).all()) for t in got)
+        _close(got, ref_wkv6_oracle(*map(jnp.asarray, xs)))

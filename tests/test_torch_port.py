@@ -2,6 +2,7 @@
 anything of the reference package, and its entry points refuse to run on
 the CPU unless asked (``device="cpu"``)."""
 import ast
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -11,9 +12,11 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.core.accmodel import AccModel
 from repro_torch.core.training import accmodel_init
 from repro_torch.engine import StreamingEngine
+from repro_torch.models import DecoderLM
 from repro_torch.vision.dnn import FinalDNN, render_detection_targets
 from repro_torch.vision.train import train_final_dnn
 
@@ -45,11 +48,19 @@ def test_port_files_exist():
                    "kernels/accgrad_reduce/ref.py",
                    "kernels/accgrad_reduce/kernel.py",
                    "kernels/accgrad_reduce/ops.py", "core/accgrad.py",
-                   "core/training.py", "vision/train.py"):
+                   "core/training.py", "vision/train.py",
+                   "configs/base.py", "configs/smollm_360m.py",
+                   "configs/rwkv6_1b6.py", "kernels/decode_attn/ref.py",
+                   "kernels/decode_attn/kernel.py",
+                   "kernels/decode_attn/ops.py", "kernels/wkv6/ref.py",
+                   "kernels/wkv6/kernel.py", "kernels/wkv6/ops.py",
+                   "models/layers.py", "models/rwkv6.py",
+                   "models/transformer.py"):
         assert f"src/repro_torch/{module}" in names
     assert "chip_smoke.py" in names
     for source in ("mbcodec/csrc/mbcodec.cu",
-                   "accgrad_reduce/csrc/accgrad_reduce.cu"):
+                   "accgrad_reduce/csrc/accgrad_reduce.cu",
+                   "decode_attn/csrc/decode_attn.cu", "wkv6/csrc/wkv6.cu"):
         assert (ROOT / "src/repro_torch/kernels" / source).is_file()
 
 
@@ -90,6 +101,30 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
         accmodel_init(0, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         render_detection_targets([[]], 32, 32)
+
+
+def test_lm_defaults_to_cuda_and_refuses_without_it():
+    _no_cuda()
+    cfg = get_reduced_config("smollm-360m")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DecoderLM(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DecoderLM(cfg, device="cuda")
+    assert DecoderLM(cfg, device="cpu").device.type == "cpu"
+
+
+def test_lm_rejects_unported_archs_and_layers():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config("olmoe-1b-7b")
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("gpt-5")
+    cfg = get_reduced_config("smollm_360m")
+    for bad in (dict(block_pattern=(("mamba", "mlp"),)),
+                dict(block_pattern=(("attn", "moe"),)),
+                dict(enc_dec=True), dict(cross_attn_every=5),
+                dict(kv_cache_dtype="int8")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            DecoderLM(dataclasses.replace(cfg, **bad), device="cpu")
 
 
 def test_engine_rejects_unported_modes_and_unknown_backends():
