@@ -47,21 +47,26 @@ check it end to end.
    bf16) against its plain version (atol 1e-5, rtol 1e-4), with
    ``scaled_dot_product_attention`` on the same inputs timed as the
    library call; ``wkv6`` at the rwkv6 path's prefill (B=16, S=1024,
-   H=32) and decode (S=1) shapes against the reference model's chunked
-   form, and on a ragged slice with log-decays down to -8 and s0 != 0
-   against the sequential oracle (atol 2e-4, rtol 1e-3, all finite).
+   H=32) and decode (S=1) shapes, r, k and v in bf16 (as the path passes
+   them) and in fp32, against the reference model's chunked form, and on
+   a ragged slice with log-decays down to -8 and s0 != 0 against the
+   sequential oracle (atol 2e-4, rtol 1e-3, all finite).
 8. LM serving at full width, random bf16 weights from a seeded generator:
    smollm-360m and rwkv6-1.6b each prefill 16 prompts of 1024 tokens
    (``make_prefill_step`` with room for 2048) and take 64 greedy
    ``make_decode_step`` steps. The audited run must make exactly
-   32 x 64 ``decode_attn`` and 24 x (1 + 64) ``wkv6`` launches with every
+   32 x 64 ``decode_attn`` launches in the decode steps, and 24 ``wkv6``
+   launches in the prefill and 24 x 64 in the decode steps, with every
    op on the card and finite logits; a second run gives prefill tokens/s
    and decode ms per step, and ``torch.profiler`` the card's busy share
    of a prefill and of 8 decode steps. Then, in fp32, the decode logits
    after a 256-token prefill must match the full forward pass within
    2e-3 of its largest logit for 16 steps (the reference's property).
-9. Prints one JSON line with each kernel's launches, error and times, the
-   line ``kernels: ...``, and last ``{"ok": true, "device": {...}}``.
+9. Prints one JSON line of the rows at shapes or types the paths do not
+   run (launches 0), then the ``{"kernels": [...]}`` line: one row for
+   each kernel at each shape and type its path runs, with its launches
+   there, error and times; then the line ``kernels: ...``, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; nothing is caught. Without CUDA,
 or without the rest of the repository beside it, it exits non-zero and
@@ -860,20 +865,27 @@ def _wkv_inputs(B, S, H, hd, seed, ld_low=None):
 def wkv6_kernel_phase():
     """``wkv6`` against the reference model's chunked form at the rwkv6
     path's prefill (B=16, S=1024, H=32, hd=64) and decode (S=1) shapes,
-    and against the sequential oracle on a ragged, fast-decay slice (S=1000,
-    log-decays down to -8, s0 != 0), where every output must be finite."""
+    with r, k and v in bf16 as the serving path passes them and in fp32,
+    and against the sequential oracle on a ragged, fast-decay slice
+    (S=1000, log-decays down to -8, s0 != 0), where every output must be
+    finite. The plain version reads the same bf16 values, widened."""
     from repro_torch.kernels.wkv6.kernel import wkv6_cuda
     from repro_torch.kernels.wkv6.ref import wkv6_ref, wkv_chunked
 
-    cases = (("prefill", LM_BATCH, LM_PROMPT, 32, None),
-             ("decode", LM_BATCH, 1, 32, None),
-             ("ragged", 2, 1000, 4, -8.0))
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = (("prefill,bf16", LM_BATCH, LM_PROMPT, 32, None, bf16),
+             ("decode,bf16", LM_BATCH, 1, 32, None, bf16),
+             ("prefill,fp32", LM_BATCH, LM_PROMPT, 32, None, fp32),
+             ("decode,fp32", LM_BATCH, 1, 32, None, fp32),
+             ("ragged", 2, 1000, 4, -8.0, fp32))
     rows = {}
-    for tag, B, S, H, ld_low in cases:
+    for tag, B, S, H, ld_low, dtype in cases:
         hd = 64
-        xs = _wkv_inputs(B, S, H, hd, seed=S, ld_low=ld_low)
+        r, k, v, *rest = _wkv_inputs(B, S, H, hd, seed=S, ld_low=ld_low)
+        xs = (r.to(dtype), k.to(dtype), v.to(dtype), *rest)
         name = f"wkv6[{tag}]"
-        log(f"wkv6 kernel phase {tag}: B={B}, S={S}, H={H}, hd={hd}, fp32"
+        log(f"wkv6 kernel phase {tag}: B={B}, S={S}, H={H}, hd={hd}, r, k, "
+            f"v {dtype}, the rest fp32"
             + (f", log-decay in [{ld_low}, -1e-4]" if ld_low else ""))
 
         def kern():
@@ -884,10 +896,12 @@ def wkv6_kernel_phase():
         got, want = kern(), plain()
         max_err = max(_check_close(f"{name} {part}", g, w, WKV_TOL)
                       for part, g, w in zip(("o", "state"), got, want))
-        # r, k, v, log-decay and o per token, u, s0 and the final state;
-        # per token and head the read-out (2 hd^2), the decay and the
-        # outer-product update (3 hd^2) and the bonus and exp (~6 hd)
-        moved = 4 * (5 * B * S * H * hd + H * hd + 2 * B * H * hd * hd)
+        # r, k, v (in their type), log-decay and o (fp32) per token, u, s0
+        # and the final state; per token and head the read-out (2 hd^2),
+        # the decay and the outer-product update (3 hd^2) and the bonus and
+        # exp (~6 hd)
+        moved = (B * S * H * hd * (3 * xs[0].element_size() + 8)
+                 + 4 * (H * hd + 2 * B * H * hd * hd))
         flop = B * S * H * (5 * hd * hd + 6 * hd)
         rows[name] = timed_row(name, kern, plain, max_err,
                                roofline_ms(moved, flop), WKV6_SOURCE,
@@ -900,11 +914,12 @@ def _param_bytes(model):
     return sum(p.numel() * p.element_size() for p in model.parameters())
 
 
-def _serve(model, prompt, max_seq, steps):
+def _serve(model, prompt, max_seq, steps, marks=None):
     """Prefill ``prompt`` with room for ``max_seq`` tokens, then ``steps``
     greedy decode steps -> (generated tokens (B, steps + 1), whether every
     logit was finite, prefill seconds, decode seconds per step); each
-    clock ends in a synchronize."""
+    clock ends in a synchronize. ``marks["prefill"]``, where given, gets
+    the launch counts as the prefill ends."""
     from repro_torch.serve.steps import make_decode_step, make_prefill_step
 
     prefill = make_prefill_step(model, model.cfg, max_seq=max_seq)
@@ -914,6 +929,8 @@ def _serve(model, prompt, max_seq, steps):
     cache, last = prefill({"tokens": prompt})
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    if marks is not None:
+        marks["prefill"] = launch_counts()
     finite = torch.isfinite(last).all()
     tok = torch.argmax(last[:, -1], dim=-1).to(torch.int32)
     out = [tok]
@@ -1024,10 +1041,12 @@ def lm_serving_phase(rows):
     from repro_torch.kernels.wkv6 import kernel as wk
     from repro_torch.models import DecoderLM
 
-    expect = {"smollm-360m": ("decode_attn", lambda cfg: cfg.n_layers
-                              * LM_STEPS),
-              "rwkv6-1.6b": ("wkv6", lambda cfg: cfg.n_layers
-                             * (1 + LM_STEPS))}
+    # the kernel each model's serving run launches, and the kernels-line
+    # row of each stage that launches it (at that stage's shape and type)
+    stages = {"smollm-360m": ("decode_attn",
+                              {"decode": "decode_attn[path,bf16]"}),
+              "rwkv6-1.6b": ("wkv6", {"prefill": "wkv6[prefill,bf16]",
+                                      "decode": "wkv6[decode,bf16]"})}
     for arch in LM_ARCHS:
         cfg = get_config(arch)
         model = DecoderLM(cfg, torch.bfloat16, torch.bfloat16, device="cuda",
@@ -1042,24 +1061,30 @@ def lm_serving_phase(rows):
             f"{LM_MAX_SEQ}, {LM_STEPS} greedy steps")
         _serve(model, prompt[:, :8], 16, 2)  # loads cuBLAS and the kernels
 
-        kernel, count = expect[arch]
+        kernel, row_of = stages[arch]
+        expect = {"prefill": cfg.n_layers if "prefill" in row_of else 0,
+                  "decode": cfg.n_layers * LM_STEPS}
         dk.LAUNCHES.clear()  # every count to 0 just before the path
         wk.LAUNCHES.clear()
+        marks = {}
         (tokens, finite, _, _), moved, off = audited(
-            lambda: _serve(model, prompt, LM_MAX_SEQ, LM_STEPS))
-        log(f"  launches {moved}")
-        if moved != {kernel: count(cfg)}:
-            raise AssertionError(f"{arch} launched {moved}, expected "
-                                 f"{ {kernel: count(cfg)} }")
+            lambda: _serve(model, prompt, LM_MAX_SEQ, LM_STEPS, marks))
+        at_prefill = marks["prefill"].get(kernel, 0)
+        split = {"prefill": at_prefill,
+                 "decode": moved.get(kernel, 0) - at_prefill}
+        log(f"  launches {moved}: {split['prefill']} in the prefill, "
+            f"{split['decode']} in the decode steps")
+        if set(moved) != {kernel} or split != expect:
+            raise AssertionError(f"{arch} launched {moved} ({split}), "
+                                 f"expected {kernel} {expect}")
         if off:
             raise AssertionError(f"ops off the card: {sorted(off)}")
         log("  every op of the serving run ran on cuda (transfers aside)")
         if not finite or tokens.shape != (LM_BATCH, LM_STEPS + 1):
             raise AssertionError(f"{arch}: non-finite logits or malformed "
                                  f"tokens {tuple(tokens.shape)}")
-        for name in rows:
-            if name.startswith(kernel + "["):
-                rows[name]["launches"] = count(cfg)
+        for stage, name in row_of.items():
+            rows[name]["launches"] = split[stage]
 
         # the timed run, outside the audit (whose hook on every op would
         # dominate the host clock)
@@ -1160,7 +1185,14 @@ def main():
     t0 = time.perf_counter()
     lm_serving_phase(rows)
     log(f"LM serving path: {time.perf_counter() - t0:.2f} s")
-    log(json.dumps({"kernels": list(rows.values())}))
+    # rows at shapes or types the path does not run (fp32, decode_32k,
+    # the ragged fast-decay slice): checked and timed as the others, and
+    # printed on a line of their own with no launches on the path
+    off_path = [dict(row, launches=0) for row in rows.values()
+                if "launches" not in row]
+    log(json.dumps({"kernel_shapes_off_path": off_path}))
+    log(json.dumps({"kernels": [row for row in rows.values()
+                                if "launches" in row]}))
     log("kernels: mbcodec_frame, mbcodec_chunk, mbcodec_chunk_scores, "
         "accgrad_reduce, decode_attn, wkv6")
     log(json.dumps({"ok": True, "device": {

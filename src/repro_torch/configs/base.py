@@ -1,10 +1,11 @@
-"""Architecture and workload-shape configurations (port of
-``repro.configs.base``).
+"""Architecture configurations (port of ``repro.configs.base``).
 
-``ArchConfig`` and ``SHAPES`` are copied as data, field for field, so that
-a configuration reads the same in both packages. Only the archs whose
+``ArchConfig`` is copied as data, field for field, so that a
+configuration reads the same in both packages. Only the archs whose
 serving path the port runs load here (:data:`PORTED`); the others raise
-``NotImplementedError`` until their slice lands (ROADMAP, module 9).
+``NotImplementedError`` until their slice lands (ROADMAP, module 9). The
+reference's workload shapes (``SHAPES``, ``cell_applicable``) wait for
+a slice that runs them.
 """
 from __future__ import annotations
 
@@ -117,36 +118,6 @@ class ArchConfig:
         """Eligible for the long_500k cell (SSM / hybrid / linear
         attention)."""
         return self.family in ("ssm", "hybrid")
-
-
-@dataclasses.dataclass(frozen=True)
-class ShapeSpec:
-    name: str
-    seq_len: int
-    global_batch: int
-    kind: str  # train | prefill | decode
-
-    @property
-    def tokens(self) -> int:
-        return self.seq_len * self.global_batch
-
-
-SHAPES = {
-    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
-    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
-    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
-    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
-}
-
-
-def cell_applicable(cfg: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
-    """Whether an (arch x shape) cell runs, with the reason when skipped."""
-    if shape.name == "long_500k" and not cfg.subquadratic:
-        return False, (
-            "long_500k needs sub-quadratic sequence mixing; "
-            f"{cfg.name} is pure full-attention (skip per brief, see DESIGN.md)"
-        )
-    return True, ""
 
 
 ARCH_IDS = [

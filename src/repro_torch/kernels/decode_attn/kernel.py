@@ -67,6 +67,8 @@ def _check(q, k, v, pos):
             raise ValueError(f"q is {q.dtype} but {name} is {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:  # the kernel reads rows in 16-byte vectors
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"expected q (B, KV, G, hd) and k (B, S, KV, hd), "
                          f"got {tuple(q.shape)} and {tuple(k.shape)}")

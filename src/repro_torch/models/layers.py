@@ -4,9 +4,10 @@ Modules hold their parameters under the reference tree's names (``w``,
 ``b``, ``emb``, ``scale``, ``bias``), with Linear weights in the
 reference's (d_in, d_out) layout, so that ``repro_torch.weights`` carries a
 parameter tree across key for key. Each module's ``reset(generator)``
-draws its parameters from the reference's distributions. Compute follows
-the reference: weights are cast to the activations' type at use, norms
-and softmaxes work in fp32.
+draws its parameters from the reference's distributions. Every module
+takes a ``device`` (default ``"cuda"``, which raises where there is
+none). Compute follows the reference: weights are cast to the
+activations' type at use, norms and softmaxes work in fp32.
 
 One card, so the reference's sharding rules, head / qhead / seq policies
 and context-parallel attention are not ported. The int8 KV cache
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import resolve_device
 from repro_torch.kernels.decode_attn.ops import decode_attn
 
 
@@ -34,7 +36,8 @@ def draw_normal(shape, scale, dtype, generator, device):
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+    return nn.Parameter(torch.empty(shape, dtype=dtype,
+                                    device=resolve_device(device)),
                         requires_grad=False)
 
 
@@ -43,7 +46,7 @@ class Linear(nn.Module):
     1/sqrt(d_in)."""
 
     def __init__(self, d_in, d_out, bias=False, dtype=torch.float32,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
         self.w = _param((d_in, d_out), dtype, device)
         self.b = _param((d_out,), dtype, device) if bias else None
@@ -62,7 +65,7 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
-    def __init__(self, vocab, d_model, dtype=torch.float32, device="cpu"):
+    def __init__(self, vocab, d_model, dtype=torch.float32, device="cuda"):
         super().__init__()
         self.emb = _param((vocab, d_model), dtype, device)
 
@@ -82,7 +85,7 @@ class Embedding(nn.Module):
 class Norm(nn.Module):
     """RMSNorm or LayerNorm (eps 1e-5), computed in fp32 and cast back."""
 
-    def __init__(self, d, kind="rmsnorm", device="cpu"):
+    def __init__(self, d, kind="rmsnorm", device="cuda"):
         super().__init__()
         self.kind = kind
         self.scale = _param((d,), torch.float32, device)
@@ -203,7 +206,7 @@ class Attention(nn.Module):
 
     def __init__(self, d_model, n_heads, n_kv_heads, head_dim,
                  qkv_bias=False, rope_theta=10_000.0, dtype=torch.float32,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
         self.n_heads, self.n_kv_heads = n_heads, n_kv_heads
         self.head_dim, self.rope_theta = head_dim, rope_theta
@@ -279,7 +282,7 @@ class MLP(nn.Module):
     """SwiGLU or GELU (jax.nn.gelu's default tanh form) feed-forward."""
 
     def __init__(self, d_model, d_ff, act="swiglu", dtype=torch.float32,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
         self.act = act
         if act == "swiglu":

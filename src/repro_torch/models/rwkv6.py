@@ -28,7 +28,7 @@ def token_shift(x, last=None):
 
 class RWKV6TimeMix(nn.Module):
     def __init__(self, d_model, head_size, decay_lora, gate_lora,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device="cuda"):
         super().__init__()
         self.d_model, self.head_size = d_model, head_size
         d, f32 = d_model, torch.float32
@@ -100,7 +100,7 @@ class RWKV6TimeMix(nn.Module):
 
 
 class RWKV6ChannelMix(nn.Module):
-    def __init__(self, d_model, d_ff, dtype=torch.float32, device="cpu"):
+    def __init__(self, d_model, d_ff, dtype=torch.float32, device="cuda"):
         super().__init__()
         d, f = d_model, d_ff
         self.mu = _param((2, d), torch.float32, device)  # k, r

@@ -124,14 +124,16 @@ class SubLayer(nn.Module):
 
 
 class Stack(nn.Module):
-    """``n_blocks`` super-blocks of sublayers ``sub0``, ``sub1``, ..."""
+    """``n_blocks`` super-blocks of sublayers ``sub0``, ``sub1``, ...; the
+    default device is CUDA, which raises where there is none."""
 
     def __init__(self, cfg: ArchConfig, compute_dtype=torch.bfloat16,
-                 param_dtype=torch.float32, device="cpu"):
+                 param_dtype=torch.float32, device="cuda"):
         super().__init__()
         self.cfg, self.compute_dtype = cfg, compute_dtype
         if cfg.kv_cache_dtype == "int8" and not cfg.attn_free:
             raise _unported("the int8 KV cache (kv_cache_dtype='int8')")
+        device = resolve_device(device)
         self.blocks = nn.ModuleList(
             nn.ModuleDict({f"sub{i}": SubLayer(cfg, m, f, param_dtype,
                                                device)
@@ -215,12 +217,14 @@ class DecoderLM(nn.Module):
 
     Parameters are held in ``param_dtype`` (the reference's fp32 norm,
     mix, decay and bonus parameters stay fp32) and drawn at construction
-    from ``generator`` by :meth:`init`; ``repro_torch.weights.
-    lm_from_numpy`` carries the reference's parameters across instead.
-    The default device is CUDA, which raises where there is none."""
+    from ``generator`` by :meth:`init`. With ``init=False`` they are left
+    unset for a caller that loads every one of them, as ``repro_torch.
+    weights.lm_from_numpy`` does with the reference's parameters. The
+    default device is CUDA, which raises where there is none."""
 
     def __init__(self, cfg: ArchConfig, compute_dtype=torch.bfloat16,
-                 param_dtype=torch.float32, device="cuda", generator=None):
+                 param_dtype=torch.float32, device="cuda", generator=None,
+                 init: bool = True):
         super().__init__()
         if cfg.enc_dec:
             raise _unported("the encoder-decoder LM")
@@ -235,7 +239,8 @@ class DecoderLM(nn.Module):
         self.final_norm = L.Norm(cfg.d_model, cfg.norm, device=dev)
         self.lm_head = None if cfg.tie_embeddings else L.Linear(
             cfg.d_model, cfg.padded_vocab, dtype=param_dtype, device=dev)
-        self.init(generator)
+        if init:
+            self.init(generator)
 
     @torch.no_grad()
     def init(self, generator=None):

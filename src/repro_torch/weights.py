@@ -104,9 +104,10 @@ def lm_from_numpy(cfg, params, device="cuda",
                   dtype=torch.float32) -> DecoderLM:
     """A :class:`DecoderLM` for ``cfg`` holding the reference's ``params``
     (nested or flat ``"a/b"`` keys, numpy), with weights and compute in
-    ``dtype`` (the parameters the reference keeps in fp32 stay fp32)."""
+    ``dtype`` (the parameters the reference keeps in fp32 stay fp32).
+    Nothing is drawn: the strict load sets every parameter."""
     model = DecoderLM(cfg, compute_dtype=dtype, param_dtype=dtype,
-                      device=device)
+                      device=device, init=False)
     sd = {}
     for key, v in _flat(params).items():
         head, _, rest = key.partition("/")

@@ -338,6 +338,11 @@ def test_decode_attn_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                          k, 5)
     with pytest.raises(ValueError, match="CUDA tensor"):
         decode_attn_cuda(q, k.cpu(), k, 5)
+    # a contiguous view 4 bytes into its storage: raised, not a fault
+    shifted = torch.zeros(k.numel() + 1, device=cuda)[1:].view(k.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_attn_cuda(q, shifted, k, 5)
+    decode_attn_cuda(q, k, k, 5)  # the context is still usable
 
 
 def _wkv_inputs(B, S, H, hd, seed, ld_low=None, s0_scale=0.2):

@@ -16,7 +16,9 @@ from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.core.accmodel import AccModel
 from repro_torch.core.training import accmodel_init
 from repro_torch.engine import StreamingEngine
-from repro_torch.models import DecoderLM
+from repro_torch.models import DecoderLM, Stack
+from repro_torch.models import layers as L
+from repro_torch.models.rwkv6 import RWKV6ChannelMix, RWKV6TimeMix
 from repro_torch.vision.dnn import FinalDNN, render_detection_targets
 from repro_torch.vision.train import train_final_dnn
 
@@ -111,6 +113,28 @@ def test_lm_defaults_to_cuda_and_refuses_without_it():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DecoderLM(cfg, device="cuda")
     assert DecoderLM(cfg, device="cpu").device.type == "cpu"
+
+
+_LM_MODULES = {
+    "Stack": lambda **kw: Stack(get_reduced_config("rwkv6-1.6b"), **kw),
+    "Linear": lambda **kw: L.Linear(8, 4, bias=True, **kw),
+    "Embedding": lambda **kw: L.Embedding(16, 8, **kw),
+    "Norm": lambda **kw: L.Norm(8, "layernorm", **kw),
+    "Attention": lambda **kw: L.Attention(8, 2, 1, 4, **kw),
+    "MLP": lambda **kw: L.MLP(8, 16, **kw),
+    "RWKV6TimeMix": lambda **kw: RWKV6TimeMix(8, 4, 2, 2, **kw),
+    "RWKV6ChannelMix": lambda **kw: RWKV6ChannelMix(8, 16, **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_LM_MODULES))
+def test_lm_modules_default_to_cuda_and_refuse_without_it(name):
+    _no_cuda()
+    build = _LM_MODULES[name]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()
+    params = list(build(device="cpu").parameters())
+    assert params and all(p.device.type == "cpu" for p in params)
 
 
 def test_lm_rejects_unported_archs_and_layers():
