@@ -46,11 +46,18 @@ check it end to end.
    one smollm layer of the reference's decode_32k cell (B=128, S=32768,
    bf16) against its plain version (atol 1e-5, rtol 1e-4), with
    ``scaled_dot_product_attention`` on the same inputs timed as the
-   library call; ``wkv6`` at the rwkv6 path's prefill (B=16, S=1024,
-   H=32) and decode (S=1) shapes, r, k and v in bf16 (as the path passes
-   them) and in fp32, against the reference model's chunked form, and on
-   a ragged slice with log-decays down to -8 and s0 != 0 against the
-   sequential oracle (atol 2e-4, rtol 1e-3, all finite).
+   library call; at the path's shape all three are timed with L2 flushed
+   before each call (on the path each layer reads its own cache from
+   device memory), the L2-hot times logged beside them, and each row logs
+   its GB/s and share of the bound. Then one ``decode_attn`` call with
+   ``pos`` in a device tensor is captured in a CUDA graph at the path's
+   shape (bf16) and replayed at pos 0, 255, 256, 1087 and 2047: each
+   output within the same bound of the plain version and bit for bit an
+   eager call with the int. ``wkv6`` at the rwkv6 path's prefill (B=16,
+   S=1024, H=32) and decode (S=1) shapes, r, k and v in bf16 (as the path
+   passes them) and in fp32, against the reference model's chunked form,
+   and on a ragged slice with log-decays down to -8 and s0 != 0 against
+   the sequential oracle (atol 2e-4, rtol 1e-3, all finite).
 8. LM serving at full width, random bf16 weights from a seeded generator:
    smollm-360m and rwkv6-1.6b each prefill 16 prompts of 1024 tokens
    (``make_prefill_step`` with room for 2048) and take 64 greedy
@@ -115,6 +122,9 @@ LM_CHECK_BATCH, LM_CHECK_PREFILL, LM_CHECK_STEPS = 4, 256, 16
 LM_DECODE_REL = 2e-3  # tests/test_models.py's bound
 DECODE_32K = (128, 32768)  # the reference's decode_32k cell: batch, length
 ATTN_TOL = (1e-5, 1e-4)  # atol, rtol: the reference's kernel bounds
+# device positions of the decode_attn graph check: the first, 255 and 256,
+# the path's last decode step and the cache's last position
+GRAPH_POSITIONS = (0, 255, 256, LM_PROMPT + 63, LM_MAX_SEQ - 1)
 WKV_TOL = (2e-4, 1e-3)
 CARD = ""  # nvidia-smi's name and power limit, set once by main()
 BACKENDS = ("exact", "pallas", "fused", "fused_exact")
@@ -275,12 +285,13 @@ def kernel_phase(frames):
 
 
 def timed_row(name, kern, plain, max_err, bound, source=KERNEL_SOURCE,
-              cold=False, library=None, iters=20, reps=10):
+              cold=False, library=None, iters=20, reps=10, moved=None):
     """The kernels-line row of ``name``, both versions timed here (and
     ``library``, one PyTorch call computing the same function, where there
-    is one); with ``cold``, the row's times are :func:`time_cold_ms`'s and
-    the times on inputs left in L2 by the previous call are logged beside
-    them."""
+    is one); with ``cold``, the row's times (the library's too) are
+    :func:`time_cold_ms`'s and the times on inputs left in L2 by the
+    previous call are logged beside them. Logs the kernel's share of its
+    bound and, given the ``moved`` bytes, its rate."""
     (ms, eager), (plain_ms, plain_eager) = (time_ms(kern, iters, reps),
                                             time_ms(plain, iters, reps))
     lib_ms = time_ms(library, iters, reps)[0] if library else None
@@ -291,8 +302,13 @@ def timed_row(name, kern, plain, max_err, bound, source=KERNEL_SOURCE,
         f"{eager:.4f} ms, plain {plain_eager:.4f} ms ({CARD})")
     if cold:
         ms, plain_ms = time_cold_ms(kern), time_cold_ms(plain)
+        lib_ms = time_cold_ms(library) if library else None
         log(f"  {name}, inputs in device memory (L2 flushed before each "
-            f"call): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"call): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            + (f", library {lib_ms:.4f} ms" if library else ""))
+    log(f"  {name}: kernel at {b_ms / ms:.3f} of its bound"
+        + (f", {moved / ms / 1e6:.1f} GB/s" if moved else "")
+        + (f"; library at {b_ms / lib_ms:.3f}" if library else ""))
     return {"name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name.split("[")[0]],
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
@@ -836,13 +852,44 @@ def decode_attn_kernel_phase():
         moved = (2 * B * (pos + 1) * cfg_kv * hd * k.element_size()
                  + q.numel() * q.element_size() + 4 * q.numel())
         flop = B * cfg_kv * cfg_g * (pos + 1) * (4 * hd + 2)
+        # the path's 22 MB would sit in L2 between calls, where on the path
+        # each layer reads its own cache from device memory: L2 flushed
         big = S > LM_MAX_SEQ  # the plain version's fp32 copies: 21 GB
         rows[name] = timed_row(name, kern, plain, max_err,
                                roofline_ms(moved, flop), DECODE_ATTN_SOURCE,
-                               library=library, reps=1 if big else 10)
+                               cold=not big, library=library,
+                               reps=1 if big else 10, moved=moved)
+        if tag == "path,bf16":
+            _decode_attn_graph_check(q, k, v)
         del q, k, v, qh, kh, vh, want
         torch.cuda.empty_cache()
     return rows
+
+
+def _decode_attn_graph_check(q, k, v):
+    """One call captured in a CUDA graph with pos in a device tensor,
+    replayed at several positions: each output within ``ATTN_TOL`` of the
+    plain version at that pos and bit for bit an eager call with the int."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    pos = torch.zeros(1, dtype=torch.int32, device="cuda")
+    decode_attn_cuda(q, k, v, pos)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attn_cuda(q, k, v, pos)
+    for p in GRAPH_POSITIONS:
+        pos.fill_(p)
+        graph.replay()
+        _check_close(f"decode_attn[graph replay, pos={p}]", out,
+                     decode_attn_ref(q, k, v, p), ATTN_TOL)
+        if not torch.equal(out, decode_attn_cuda(q, k, v, p)):
+            raise AssertionError(f"decode_attn: the graph's replay at pos "
+                                 f"{p} differs from an eager call")
+    log(f"  decode_attn: one captured graph, replayed at pos "
+        f"{', '.join(map(str, GRAPH_POSITIONS))}, equals eager calls bit "
+        f"for bit")
 
 
 def _wkv_inputs(B, S, H, hd, seed, ld_low=None):

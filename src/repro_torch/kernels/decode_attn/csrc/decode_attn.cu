@@ -1,342 +1,490 @@
 // Flash-decoding attention for Hopper (sm_90a), plain C interface for ctypes.
 //
-// decode_attn_split_kernel + decode_attn_combine_kernel replace
+// decode_attn_kernel replaces
 //   src/repro/kernels/decode_attn/kernel.py:59 decode_attn_pallas
 //   (body _kernel): one query token per sequence, in GQA layout q (B, KV,
 //   G, hd), against the KV cache k, v (B, S, KV, hd); positions after pos
-//   are masked; the output (B, KV, G, hd) is fp32.
+//   are masked; the output (B, KV, G, hd) is fp32. Like the TPU kernel's
+//   (1,) int32 array, pos may be read from device memory.
 //
-// Bound on an H100 SXM (data sheet: 3.35 TB/s, 67 TFLOP/s fp32). Each
-// cached K and V row is read once and used by G query heads: about 6 G
+// Bound on an H100 SXM (data sheet: 3.35 TB/s, 67 TFLOP/s fp32): bytes.
+// Each valid K and V row is read once and serves G query heads, about 6 G
 // operations per 4 hd bytes of bf16 cache, far below the ~20 operations
-// per byte where fp32 arithmetic would limit, so the kernel is bound by
-// the cache bytes. At the decode_32k shape (B=128, S=32768, KV=5, hd=64,
-// bf16) that is 5.37 GB, 1.60 ms.
+// per byte where fp32 arithmetic would limit. On the smollm decode path
+// (B=16, KV=5, hd=64, pos=1087, bf16) that is 22.3 MB of valid K/V, 6.65
+// us; at the decode_32k shape (B=128, S=32768) 5.37 GB, 1.60 ms.
 //
 // Design. The TPU kernel walks S in blocks of 512 on one core, one (b, kv)
 // per grid row, with the running max, denominator and accumulator in VMEM,
 // after its wrapper has copied the whole cache to fp32. Here:
-// - The cache is read as it is stored (bf16 or fp32, 16-byte loads),
-//   widened in registers and staged in shared memory as fp32; no fp32 copy
-//   of the cache exists in device memory.
-// - Only positions 0..pos are read: the valid length is cut into
-//   `nsplit` splits and grid (nsplit, B*KV) gives the card enough thread
-//   blocks when B*KV is small (80 on the smollm decode path, against 132
-//   SMs). Masked positions are never loaded, so a split that lies wholly
-//   past pos does not exist; the combine would weigh one by
-//   exp(-inf - M) = 0 all the same (its m is -inf and its l 0, where the
-//   reference's -1e30 sentinel would give exp(0) = 1 to each masked score).
-// - Inside a split, tiles of 4096/hd positions: each thread dots one
-//   position with all G query rows over a channel slice (float4 reads of
-//   a padded K row and broadcast q), one warp per query row keeps the
-//   online softmax (running max m, sum l, rescale factor), and each thread
-//   accumulates 4 output channels for every query row over a slice of the
-//   positions. The partial (acc, m, l) of each split goes to scratch.
-// - decode_attn_combine_kernel merges the splits of each (b, kv) with the
-//   usual log-sum-exp weights.
-// Numerics: fp32 throughout, no fast math; the result differs from the
-// plain version (fp32 einsum and softmax over all of S) in summation order
+// 1. One launch per call. Grid (nsplit, B*KV): each block takes one split
+//    of the cache for one (b, kv) and writes its partial (acc, m, l) to
+//    scratch; after a barrier, one thread takes the row's ticket (an
+//    atomic counter, acquire-release), and the block with the last merges
+//    the row's splits in split order, MERGE_GROUP splits per round of
+//    loads. The result is bitwise the same whatever order the blocks finish
+//    in. A row whose positions all lie in one split is written by that
+//    split directly. The counters are a static array of this library, zero
+//    at load; the merging block resets its row's, so they are zero again
+//    for the next call or graph replay, with no memset. Calls on one device
+//    must therefore be ordered on the card (one stream, or streams that
+//    wait on each other): overlapping calls would share the counters.
+// 2. A pipelined read of the cache as it is stored: a ring of NSTAGE
+//    tiles of K and V in shared memory, in the cache's own type (bf16 or
+//    fp32), filled by 16-byte cp.async.cg copies. The whole ring is in
+//    flight before the first tile is consumed, and each slot is refilled
+//    as soon as every warp is done with it. bf16 is widened to fp32 in
+//    registers where it is used. A lane reads 16 (or 8) bytes of a row, so
+//    the unpadded rows of a tile are read without bank conflicts.
+// 3. Warps that do not wait for each other inside the loop: each warp takes
+//    its own positions of every tile and keeps its own online softmax (m,
+//    l, accumulator) for all G query rows; the lanes of a warp split each
+//    position's channels, and q (pre-scaled) lives in registers. The warps
+//    merge once, after the split, with the same log-sum-exp weights as the
+//    merge across splits. The only block-wide wait in the loop is the
+//    ring's hand-off, one __syncthreads per tile.
+// 4. G is a template parameter (1..8), as hd is (32, 64): no guards and no
+//    dead accumulators. The channels of a lane shrink as G grows, so q and
+//    the accumulator stay within 2 x QA_REGS registers.
+// 5. The grid and the scratch depend on (B*KV, S) only, never on pos: the
+//    wrapper's split plan is a function of S. A block whose split starts
+//    after pos leaves at once, and the merge covers splits 0..pos/split_len
+//    only. Masked positions are never loaded (the last tile's rows past pos
+//    are zero-filled by cp.async without a read). A device pos outside
+//    0..S-1 cannot be raised without a synchronise, so the kernel writes
+//    NaN to every output of the call instead.
+// Numerics: fp32 throughout, no fast math; scores in log2 units (q scaled
+// by log2(e) / sqrt(hd), exp2f); the result differs from the plain version
+// (fp32 einsum and softmax over all of S) in rounding and summation order
 // only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int NT = 128;          // threads of a split block
-constexpr int MAXG = 8;          // query heads per KV head, at most
-constexpr int TILE_ELEMS = 4096;  // cache elements per tile and tensor
-constexpr int COMBINE_NT = 256;
+constexpr int NW = 4;  // warps of a block
+constexpr int NT = 32 * NW;
+// resident blocks per SM, at least; 3 where G > 6, whose q and
+// accumulators do not fit 128 registers without spills
+constexpr int min_blocks(int G) { return G > 6 ? 3 : 4; }
+constexpr int NSTAGE = 3;         // tiles of the ring
+constexpr int TILE_BYTES = 4096;  // bytes of K in a tile (as many of V)
+constexpr int QA_REGS = 32;       // G x a lane's channels, at most
+constexpr int MAX_GROUP = 8;
+constexpr int MERGE_GROUP = 8;   // splits merged per round of loads
+constexpr int MAX_ROWS = 65535;  // B * KV: grid.y, and the tickets
+constexpr unsigned FULL = 0xffffffffu;
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__device__ unsigned int g_tickets[MAX_ROWS];
+
+template <typename T, int HD, int G>
+struct Plan {
+  static constexpr int ES = sizeof(T);
+  // channels of a lane: 16 bytes of a row, or 8 where G * CL would pass
+  // QA_REGS; a quarter-warp then reads 128 contiguous bytes of a tile (a
+  // half-warp, with 8-byte reads), so unpadded rows do not conflict
+  static constexpr int C1 = 16 / ES;
+  static constexpr int CL = G * C1 <= QA_REGS ? C1 : C1 / 2;
+  static constexpr int NS = HD / CL;  // lanes sharing one position
+  static constexpr int LP = 32 / NS;  // positions of one warp pass
+  static constexpr int RB = HD * ES;  // bytes of a cache row
+  static constexpr int R0 = TILE_BYTES / (RB * NW * LP);
+  static constexpr int R = R0 > 0 ? R0 : 1;  // passes of a warp per tile
+  static constexpr int TP = NW * LP * R;     // positions of a tile
+  static constexpr int CPR = RB / 16;        // 16-byte chunks of a row
+  static constexpr int STAGE = 2 * TP * RB;  // K tile, then V tile
+  static constexpr int SMEM = NSTAGE * STAGE;
+  static_assert(CL * ES >= 8 && (CL * ES) % 8 == 0, "lane reads");
+  static_assert(NS <= 32 && 32 % NS == 0, "lanes per position");
+  static_assert(TP * CPR % NT == 0, "copies per thread");
+  static_assert(NW * G * (HD + 2) * 4 <= SMEM, "merge area fits the ring");
+  static_assert(SMEM <= 48 * 1024, "static shared memory");
+};
+
+__device__ __forceinline__ void widen(uint32_t w, float& lo, float& hi) {
+  // a bf16 is the top half of an fp32
+  lo = __uint_as_float(w << 16);
+  hi = __uint_as_float(w & 0xffff0000u);
 }
 
-// 16 bytes of the cache, widened to fp32
-__device__ __forceinline__ void widen16(const float* src, float* dst) {
-  const float4 x = __ldg(reinterpret_cast<const float4*>(src));
-  dst[0] = x.x;
-  dst[1] = x.y;
-  dst[2] = x.z;
-  dst[3] = x.w;
-}
-
-__device__ __forceinline__ void widen16(const __nv_bfloat16* src,
-                                        float* dst) {
-  const uint4 x = __ldg(reinterpret_cast<const uint4*>(src));
-  const unsigned int w[4] = {x.x, x.y, x.z, x.w};
+// N consecutive elements at p (8- or 16-byte aligned), as fp32
+template <int N>
+__device__ __forceinline__ void read_row(const float* p, float (&x)[N]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    // a bf16 is the top half of an fp32
-    dst[2 * i] = __uint_as_float(w[i] << 16);
-    dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  for (int i = 0; i < N; i += 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p + i);
+    x[i] = t.x;
+    x[i + 1] = t.y;
+    x[i + 2] = t.z;
+    x[i + 3] = t.w;
   }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+template <int N>
+__device__ __forceinline__ void read_row(const __nv_bfloat16* p,
+                                         float (&x)[N]) {
+  if constexpr (N % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 8) {
+      const uint4 t = *reinterpret_cast<const uint4*>(p + i);
+      widen(t.x, x[i], x[i + 1]);
+      widen(t.y, x[i + 2], x[i + 3]);
+      widen(t.z, x[i + 4], x[i + 5]);
+      widen(t.w, x[i + 6], x[i + 7]);
+    }
+  } else {
+    static_assert(N == 4, "a lane reads 4, 8 or 16 bf16");
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    widen(t.x, x[0], x[1]);
+    widen(t.y, x[2], x[3]);
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+// 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes)
+               : "memory");
 }
 
-// One thread block per (split, b * KV + kv). Writes the split's unnormalised
-// accumulator to part_acc (B*KV, nsplit, G, HD) and its running max and
-// denominator to part_ml (B*KV, nsplit, G, 2).
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT)
-decode_attn_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, int S, int KV, int G,
-                         int valid, int split_len, float scale,
-                         float* __restrict__ part_acc,
-                         float* __restrict__ part_ml) {
-  constexpr int TILE = TILE_ELEMS / HD;  // positions per tile
-  constexpr int KSTRIDE = HD + 4;        // float4-aligned, conflict-free rows
-  constexpr int VE = 16 / sizeof(T);     // elements per 16-byte load
-  constexpr int VPR = HD / VE;           // 16-byte loads per cache row
-  constexpr int NSLICE = NT / TILE;      // threads sharing one position's dot
-  constexpr int CH = HD / NSLICE;        // channels of each such thread
-  constexpr int NDG = HD / 4;            // float4 groups of output channels
-  constexpr int NPART = NT / NDG;        // threads sharing one channel group
-  static_assert(NT % TILE == 0 && CH % 4 == 0 && NT % NDG == 0, "shape");
-  static_assert(NPART * MAXG * HD <= TILE * HD, "the reduction reuses vs");
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  __shared__ __align__(16) float ks[TILE * KSTRIDE];
-  __shared__ __align__(16) float vs[TILE * HD];
-  __shared__ __align__(16) float qs[MAXG * HD];
-  __shared__ float ps[NSLICE * MAXG * TILE];
-  __shared__ float m_s[MAXG], l_s[MAXG], corr_s[MAXG];
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// atomic add of 1 at gpu scope, with release and acquire semantics
+__device__ __forceinline__ unsigned ticket_add(unsigned* counter) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+               : "=r"(old)
+               : "l"(counter)
+               : "memory");
+  return old;
+}
+
+// One block per (split, b * KV + kv). part_acc (B*KV, nsplit, G, HD) and
+// part_ml (B*KV, nsplit, G, 2) hold the splits' unnormalised accumulators
+// and (max, denominator), in log2 units; out (B*KV, G, HD).
+template <typename T, int HD, int G>
+__global__ void __launch_bounds__(NT, min_blocks(G))
+decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const int* __restrict__ pos_dev,
+                   int pos_host, int S, int KV, int split_len,
+                   float* __restrict__ out, float* __restrict__ part_acc,
+                   float* __restrict__ part_ml) {
+  using P = Plan<T, HD, G>;
+  constexpr int CL = P::CL, NS = P::NS, LP = P::LP, R = P::R, TP = P::TP;
+  __shared__ __align__(16) unsigned char smem[P::SMEM];
+  __shared__ bool is_last;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int bk = blockIdx.y, b = bk / KV, kv = bk % KV;
-  const int split = blockIdx.x;
-  const int s_begin = split * split_len;
-  const int s_end = min(s_begin + split_len, valid);
-  const size_t row = static_cast<size_t>(KV) * HD;  // between positions
-  const size_t head = (static_cast<size_t>(b) * S * KV + kv) * HD;
-  const T* kb = k + head;
-  const T* vb = v + head;
-
-  for (int i = tid; i < G * HD; i += NT)
-    qs[i] = to_float(q[static_cast<size_t>(bk) * G * HD + i]);
-  if (tid < MAXG) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.0f;
+  const int row = blockIdx.y, split = blockIdx.x, nsplit = gridDim.x;
+  float* o = out + static_cast<size_t>(row) * G * HD;
+  const int pos = pos_dev ? *pos_dev : pos_host;
+  if (pos < 0 || pos >= S) {  // only a device pos gets here
+    if (split == 0)
+      for (int i = tid; i < G * HD; i += NT)
+        o[i] = __int_as_float(0x7fc00000);  // quiet NaN
+    return;
   }
+  const int nact = pos / split_len + 1;  // splits holding a position <= pos
+  if (split >= nact) return;
+  const int begin = split * split_len;
+  const int end = min(begin + split_len, pos + 1);
+  const int ntile = (end - begin + TP - 1) / TP;
+  const int b = row / KV, kv = row % KV;
+  const size_t step = static_cast<size_t>(KV) * HD;  // between positions
+  const T* kb = k + (static_cast<size_t>(b) * S * KV + kv) * HD;
+  const T* vb = v + (static_cast<size_t>(b) * S * KV + kv) * HD;
 
-  const int sp = tid % TILE, sl = tid / TILE;  // scores: position, slice
-  const int dg = tid % NDG, part = tid / NDG;  // P.V: channels, positions
-  float acc[MAXG][4];
+  // tile t of the split into slot t % NSTAGE of the ring, as commit group
+  // t (empty past the last tile, so that the count stays in step)
+  auto fetch = [&](int t) {
+    if (t < ntile) {
+      unsigned char* ks = smem + (t % NSTAGE) * P::STAGE;
+      unsigned char* vs = ks + TP * P::RB;
+      const int t0 = begin + t * TP;
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g)
-    acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.0f;
-
-  for (int t0 = s_begin; t0 < s_end; t0 += TILE) {
-    const int n = min(TILE, s_end - t0);
-    __syncthreads();  // the previous tile is consumed; qs, m_s are set
-#pragma unroll 4
-    for (int c = tid; c < n * VPR; c += NT) {
-      const int p = c / VPR, e = (c % VPR) * VE;
-      float kx[VE], vx[VE];
-      widen16(kb + (t0 + p) * row + e, kx);
-      widen16(vb + (t0 + p) * row + e, vx);
-#pragma unroll
-      for (int j = 0; j < VE; j += 4) {
-        *reinterpret_cast<float4*>(&ks[p * KSTRIDE + e + j]) =
-            make_float4(kx[j], kx[j + 1], kx[j + 2], kx[j + 3]);
-        *reinterpret_cast<float4*>(&vs[p * HD + e + j]) =
-            make_float4(vx[j], vx[j + 1], vx[j + 2], vx[j + 3]);
+      for (int j = 0; j < TP * P::CPR / NT; ++j) {
+        const int c = tid + j * NT, p = c / P::CPR, e = c % P::CPR;
+        const bool in = t0 + p < end;
+        const size_t off = (in ? t0 + p : begin) * step + e * (16 / P::ES);
+        cp_async16(ks + p * P::RB + e * 16, kb + off, in ? 16 : 0);
+        cp_async16(vs + p * P::RB + e * 16, vb + off, in ? 16 : 0);
       }
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int t = 0; t < NSTAGE; ++t) fetch(t);  // the whole ring in flight
 
-    // partial q.k of position sp over channel slice sl, all query rows
-    if (sp < n) {
-      float dot[MAXG];
+  // lane = position group pg x channel slice sl; q of the slice, scaled
+  const int sl = lane % NS, pg = lane / NS;
+  const float qscale = LOG2E / sqrtf(static_cast<float>(HD));
+  float qr[G][CL];
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g) dot[g] = 0.0f;
-#pragma unroll 4
-      for (int e = sl * CH; e < (sl + 1) * CH; e += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(
-            &ks[sp * KSTRIDE + e]);
+  for (int g = 0; g < G; ++g) {
+    read_row<CL>(q + (static_cast<size_t>(row) * G + g) * HD + sl * CL,
+                 qr[g]);
 #pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
-          if (g < G) {
-            const float4 qq =
-                *reinterpret_cast<const float4*>(&qs[g * HD + e]);
-            dot[g] = fmaf(qq.x, kk.x, dot[g]);
-            dot[g] = fmaf(qq.y, kk.y, dot[g]);
-            dot[g] = fmaf(qq.z, kk.z, dot[g]);
-            dot[g] = fmaf(qq.w, kk.w, dot[g]);
-          }
-        }
-      }
+    for (int c = 0; c < CL; ++c) qr[g][c] *= qscale;
+  }
+  float m[G], l[G], acc[G][CL];
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g)
-        if (g < G) ps[(sl * MAXG + g) * TILE + sp] = dot[g];
-    }
-    __syncthreads();
+  for (int g = 0; g < G; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < CL; ++c) acc[g][c] = 0.0f;
+  }
+  const int wbase = warp * LP * R;  // this warp's first position of a tile
 
-    // online softmax, one warp per query row: scores into slice 0's slots,
-    // then their exponentials against the new running max
-    for (int g = warp; g < G; g += NT / 32) {
-      float mx = -INFINITY;
-      for (int p = lane; p < n; p += 32) {
-        float s = 0.0f;
-        for (int h = 0; h < NSLICE; ++h) s += ps[(h * MAXG + g) * TILE + p];
-        s *= scale;
-        ps[g * TILE + p] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.0f;
-      for (int p = lane; p < n; p += 32) {
-        const float e = expf(ps[g * TILE + p] - m_new);
-        ps[g * TILE + p] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);  // 0 on the first tile
-        corr_s[g] = corr;
-        l_s[g] = l_s[g] * corr + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
+  for (int t = 0; t < ntile; ++t) {
+    // NSTAGE + max(t - 1, 0) groups committed: groups 0..t are in (at
+    // t = 0, tile 1 too, which was fetched with tile 0)
+    cp_async_wait<NSTAGE - 2>();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    if (t > 0) fetch(t - 1 + NSTAGE);  // into tile t - 1's slot
+    const int t0 = begin + t * TP;
+    if (t0 + wbase >= end) continue;  // the warp's positions lie past pos
+    const unsigned char* ks = smem + (t % NSTAGE) * P::STAGE;
+    const unsigned char* vs = ks + TP * P::RB;
 
-    // acc = acc * corr + P . V over this thread's positions
+    float s[R][G], mx[G];
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g < G) {
-        const float c = corr_s[g];
-        acc[g][0] *= c;
-        acc[g][1] *= c;
-        acc[g][2] *= c;
-        acc[g][3] *= c;
+    for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int p = wbase + r * LP + pg;
+      float kx[CL];
+      read_row<CL>(reinterpret_cast<const T*>(ks + p * P::RB) + sl * CL, kx);
+      const bool valid = t0 + p < end;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float d = 0.0f;
+#pragma unroll
+        for (int c = 0; c < CL; ++c) d = fmaf(qr[g][c], kx[c], d);
+#pragma unroll
+        for (int off = 1; off < NS; off <<= 1)
+          d += __shfl_xor_sync(FULL, d, off);
+        s[r][g] = valid ? d : -INFINITY;
+        mx[g] = fmaxf(mx[g], s[r][g]);
       }
     }
-    for (int p = part; p < n; p += NPART) {
-      const float4 vv = *reinterpret_cast<const float4*>(&vs[p * HD + dg * 4]);
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        if (g < G) {
-          const float w = ps[g * TILE + p];
-          acc[g][0] = fmaf(w, vv.x, acc[g][0]);
-          acc[g][1] = fmaf(w, vv.y, acc[g][1]);
-          acc[g][2] = fmaf(w, vv.z, acc[g][2]);
-          acc[g][3] = fmaf(w, vv.w, acc[g][3]);
-        }
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int off = NS; off < 32; off <<= 1)
+        mx[g] = fmaxf(mx[g], __shfl_xor_sync(FULL, mx[g], off));
+      // finite: the warp's first position of the tile is valid
+      const float mn = fmaxf(m[g], mx[g]);
+      if (mn > m[g]) {  // the same on every lane
+        const float corr = exp2f(m[g] - mn);  // 0 while m is -inf
+        m[g] = mn;
+        l[g] *= corr;
+#pragma unroll
+        for (int c = 0; c < CL; ++c) acc[g][c] *= corr;
       }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        s[r][g] = exp2f(s[r][g] - mn);  // 0 past pos
+        l[g] += s[r][g];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int p = wbase + r * LP + pg;
+      float vx[CL];  // zeros past pos
+      read_row<CL>(reinterpret_cast<const T*>(vs + p * P::RB) + sl * CL, vx);
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int c = 0; c < CL; ++c)
+          acc[g][c] = fmaf(s[r][g], vx[c], acc[g][c]);
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the warps' states now
 
-  // sum the position slices of each channel group; vs is free now
-  __syncthreads();
-  float* red = vs;
+  // sum over the position groups; every lane ends with the warp's totals
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g)
-    if (g < G)
-      *reinterpret_cast<float4*>(&red[(part * MAXG + g) * HD + dg * 4]) =
-          make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int off = NS; off < 32; off <<= 1) {
+      l[g] += __shfl_xor_sync(FULL, l[g], off);
+#pragma unroll
+      for (int c = 0; c < CL; ++c)
+        acc[g][c] += __shfl_xor_sync(FULL, acc[g][c], off);
+    }
+  }
+  float* wacc = reinterpret_cast<float*>(smem);  // (NW, G, HD)
+  float* wml = wacc + NW * G * HD;               // (NW, G, 2)
+  if (pg == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int c = 0; c < CL; ++c)
+        wacc[(warp * G + g) * HD + sl * CL + c] = acc[g][c];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      wml[(warp * G + g) * 2] = m[g];
+      wml[(warp * G + g) * 2 + 1] = l[g];
+    }
+  }
   __syncthreads();
-  const size_t base = static_cast<size_t>(bk) * gridDim.x + split;
+
+  // the block's partial: warps merged in warp order (warp 0 holds the
+  // split's first position, so the max is finite)
+  const size_t slot = static_cast<size_t>(row) * nsplit + split;
   for (int i = tid; i < G * HD; i += NT) {
-    const int g = i / HD, d = i % HD;
-    float s = 0.0f;
-    for (int pp = 0; pp < NPART; ++pp) s += red[(pp * MAXG + g) * HD + d];
-    part_acc[base * G * HD + i] = s;
+    const int g = i / HD;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, wml[(w * G + g) * 2]);
+    float L = 0.0f, O = 0.0f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float c = exp2f(wml[(w * G + g) * 2] - M);  // 0 for m = -inf
+      L = fmaf(c, wml[(w * G + g) * 2 + 1], L);
+      O = fmaf(c, wacc[w * G * HD + i], O);
+    }
+    if (nact == 1) {
+      o[i] = O / fmaxf(L, 1e-30f);
+    } else {
+      part_acc[slot * G * HD + i] = O;
+      if (i % HD == 0) {
+        part_ml[(slot * G + g) * 2] = M;
+        part_ml[(slot * G + g) * 2 + 1] = L;
+      }
+    }
   }
-  if (tid < G) {
-    part_ml[(base * G + tid) * 2] = m_s[tid];
-    part_ml[(base * G + tid) * 2 + 1] = l_s[tid];
+  if (nact == 1) return;
+
+  __syncthreads();  // the block's partial is written
+  if (tid == 0) {
+    // release: the partial (all threads', ordered by the barrier) before
+    // the ticket; acquire: the other splits' partials, for the last one
+    const unsigned ticket = ticket_add(&g_tickets[row]);
+    is_last = ticket == static_cast<unsigned>(nact - 1);
+    if (is_last) g_tickets[row] = 0;  // every split has its ticket
+  }
+  __syncthreads();
+  if (!is_last) return;
+
+  // the row's last block: merge its splits in split order, MERGE_GROUP at
+  // a time with their loads in flight together (L2 reads, as other SMs
+  // wrote them), rescaling the running sums by each group's max
+  const float* ml = part_ml + static_cast<size_t>(row) * nsplit * G * 2;
+  const float* pa = part_acc + static_cast<size_t>(row) * nsplit * G * HD;
+  for (int i = tid; i < G * HD; i += NT) {
+    const int g = i / HD;
+    float M = -INFINITY, L = 0.0f, O = 0.0f;
+    for (int s0 = 0; s0 < nact; s0 += MERGE_GROUP) {
+      float mv[MERGE_GROUP], lv[MERGE_GROUP], ov[MERGE_GROUP];
+#pragma unroll
+      for (int j = 0; j < MERGE_GROUP; ++j) {
+        const int sp = s0 + j;
+        const bool in = sp < nact;
+        mv[j] = in ? __ldcg(ml + (sp * G + g) * 2) : -INFINITY;
+        lv[j] = in ? __ldcg(ml + (sp * G + g) * 2 + 1) : 0.0f;
+        ov[j] = in ? __ldcg(pa + static_cast<size_t>(sp) * G * HD + i) : 0.0f;
+      }
+      float mg = M;  // finite: split 0 holds position 0
+#pragma unroll
+      for (int j = 0; j < MERGE_GROUP; ++j) mg = fmaxf(mg, mv[j]);
+      const float c = exp2f(M - mg);  // 0 on the first group
+      L *= c;
+      O *= c;
+#pragma unroll
+      for (int j = 0; j < MERGE_GROUP; ++j) {
+        const float w = exp2f(mv[j] - mg);  // 0 past the last split
+        L = fmaf(w, lv[j], L);
+        O = fmaf(w, ov[j], O);
+      }
+      M = mg;
+    }
+    o[i] = O / fmaxf(L, 1e-30f);
   }
 }
 
-// One thread block per b * KV + kv: out = sum_s w_s acc_s / sum_s w_s l_s
-// with w_s = exp(m_s - max_s m_s).
-__global__ void __launch_bounds__(COMBINE_NT)
-decode_attn_combine_kernel(const float* __restrict__ part_acc,
-                           const float* __restrict__ part_ml, int nsplit,
-                           int G, int HD, float* __restrict__ out) {
-  const size_t bk = blockIdx.x;
-  const float* ml = part_ml + bk * nsplit * G * 2;
-  for (int i = threadIdx.x; i < G * HD; i += COMBINE_NT) {
-    const int g = i / HD;
-    float M = -INFINITY;
-    for (int s = 0; s < nsplit; ++s) M = fmaxf(M, ml[(s * G + g) * 2]);
-    float L = 0.0f, O = 0.0f;
-    for (int s = 0; s < nsplit; ++s) {
-      const float w = expf(ml[(s * G + g) * 2] - M);  // 0 for m = -inf
-      L = fmaf(w, ml[(s * G + g) * 2 + 1], L);
-      O = fmaf(w, part_acc[(bk * nsplit + s) * G * HD + i], O);
-    }
-    out[bk * G * HD + i] = O / fmaxf(L, 1e-30f);
-  }
+struct Args {
+  const void *q, *k, *v;
+  const int* pos_dev;
+  int pos, S, KV, rows, split_len, nsplit;
+  float *out, *part_acc, *part_ml;
+  cudaStream_t stream;
+};
+
+template <typename T, int HD, int G>
+int launch(const Args& a) {
+  decode_attn_kernel<T, HD, G>
+      <<<dim3(a.nsplit, a.rows), NT, 0, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+          static_cast<const T*>(a.v), a.pos_dev, a.pos, a.S, a.KV,
+          a.split_len, a.out, a.part_acc, a.part_ml);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
-void launch_split(const void* q, const void* k, const void* v, int B, int S,
-                  int KV, int G, int valid, int split_len, int nsplit,
-                  float* part_acc, float* part_ml, cudaStream_t stream) {
-  const dim3 grid(nsplit, B * KV);
-  decode_attn_split_kernel<T, HD><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), S, KV, G, valid, split_len,
-      1.0f / sqrtf(static_cast<float>(HD)), part_acc, part_ml);
+int by_group(int G, const Args& a) {
+  switch (G) {
+    case 1: return launch<T, HD, 1>(a);
+    case 2: return launch<T, HD, 2>(a);
+    case 3: return launch<T, HD, 3>(a);
+    case 4: return launch<T, HD, 4>(a);
+    case 5: return launch<T, HD, 5>(a);
+    case 6: return launch<T, HD, 6>(a);
+    case 7: return launch<T, HD, 7>(a);
+    case 8: return launch<T, HD, 8>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <typename T>
-int launch_typed(const void* q, const void* k, const void* v, int B, int S,
-                 int KV, int G, int HD, int valid, int split_len, int nsplit,
-                 float* part_acc, float* part_ml, cudaStream_t stream) {
+int by_head_dim(int HD, int G, const Args& a) {
   switch (HD) {
-    case 32:
-      launch_split<T, 32>(q, k, v, B, S, KV, G, valid, split_len, nsplit,
-                          part_acc, part_ml, stream);
-      return 0;
-    case 64:
-      launch_split<T, 64>(q, k, v, B, S, KV, G, valid, split_len, nsplit,
-                          part_acc, part_ml, stream);
-      return 0;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 32: return by_group<T, 32>(G, a);
+    case 64: return by_group<T, 64>(G, a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
 // q (B, KV, G, HD), k, v (B, S, KV, HD), all bf16 (is_bf16) or all fp32,
-// contiguous; positions 0..pos attend. Scratch part_acc (B*KV*nsplit*G*HD)
-// and part_ml (B*KV*nsplit*G*2) fp32; out (B, KV, G, HD) fp32. Splits of
-// split_len positions cover 0..pos; nsplit = ceil((pos + 1) / split_len).
-// Two launches on `stream`; returns the first CUDA error, or 0.
+// contiguous, 16-byte aligned; positions 0..pos attend, pos being *pos_dev
+// (an int32 in device memory) when pos_dev is not null, else pos. Splits of
+// split_len positions cover 0..S-1: nsplit = ceil(S / split_len). Scratch
+// part_acc (B*KV*nsplit*G*HD) and part_ml (B*KV*nsplit*G*2) fp32; out (B,
+// KV, G, HD) fp32, NaN throughout if a device pos lies outside 0..S-1.
+// One launch on `stream`, nothing else; returns its CUDA error, or 0.
 extern "C" int decode_attn(const void* q, const void* k, const void* v,
-                           float* out, float* part_acc, float* part_ml,
-                           int B, int S, int KV, int G, int HD, int pos,
-                           int split_len, int nsplit, int is_bf16,
-                           void* stream) {
-  if (G < 1 || G > MAXG || pos < 0 || pos >= S || nsplit < 1 ||
-      (nsplit - 1) * split_len > pos || nsplit * split_len <= pos)
+                           const int* pos_dev, float* out, float* part_acc,
+                           float* part_ml, int B, int S, int KV, int G,
+                           int HD, int pos, int split_len, int nsplit,
+                           int is_bf16, void* stream) {
+  const long long rows = static_cast<long long>(B) * KV;
+  if (G < 1 || G > MAX_GROUP || S < 1 || rows < 1 || rows > MAX_ROWS ||
+      split_len < 1 || nsplit < 1 ||
+      static_cast<long long>(nsplit - 1) * split_len >= S ||
+      static_cast<long long>(nsplit) * split_len < S ||
+      (pos_dev == nullptr && (pos < 0 || pos >= S)))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err =
-      is_bf16 ? launch_typed<__nv_bfloat16>(q, k, v, B, S, KV, G, HD,
-                                            pos + 1, split_len, nsplit,
-                                            part_acc, part_ml, s)
-              : launch_typed<float>(q, k, v, B, S, KV, G, HD, pos + 1,
-                                    split_len, nsplit, part_acc, part_ml, s);
-  if (err != 0) return err;
-  decode_attn_combine_kernel<<<B * KV, COMBINE_NT, 0, s>>>(
-      part_acc, part_ml, nsplit, G, HD, out);
-  return static_cast<int>(cudaGetLastError());
+  const Args a{q, k, v, pos_dev, pos, S, KV, static_cast<int>(rows),
+               split_len, nsplit, out, part_acc, part_ml,
+               static_cast<cudaStream_t>(stream)};
+  return is_bf16 ? by_head_dim<__nv_bfloat16>(HD, G, a)
+                 : by_head_dim<float>(HD, G, a);
 }

@@ -1,13 +1,16 @@
-"""ctypes wrapper of the CUDA kernels in ``csrc/decode_attn.cu``.
+"""ctypes wrapper of the CUDA kernel in ``csrc/decode_attn.cu``.
 
-``decode_attn_cuda`` launches ``decode_attn_split_kernel`` over splits of
-the valid positions and ``decode_attn_combine_kernel`` to merge them
-(together they replace ``repro/kernels/decode_attn/kernel.py::
-decode_attn_pallas``). It takes CUDA tensors, q, k and v all bf16 or all
-fp32, reads the cache in its own type, allocates its output and scratch,
-launches on the current stream without synchronising, and raises on any
-CUDA error the launch reports. :data:`LAUNCHES` counts its calls, so a run
-can show that it went through the kernel.
+``decode_attn_cuda`` launches ``decode_attn_kernel`` once per call over
+splits of the cache, the last block of each (b, kv) merging its splits
+(it replaces ``repro/kernels/decode_attn/kernel.py::decode_attn_pallas``).
+It takes CUDA tensors, q, k and v all bf16 or all fp32, reads the cache
+in its own type, allocates its output and scratch, launches on the
+current stream without synchronising, and raises on any CUDA error the
+launch reports. ``pos`` is a Python int, or an int32 CUDA tensor of one
+element that the kernel reads on the card: the grid and scratch depend
+on the cache's length only, so one captured CUDA graph serves every
+``pos``. :data:`LAUNCHES` counts its calls, so a run can show that it went
+through the kernel.
 """
 from __future__ import annotations
 
@@ -19,13 +22,17 @@ import torch
 
 from repro_torch.kernels import build
 
-#: launches per kernel: "decode_attn" (one split + combine pair per call)
+#: launches per kernel: "decode_attn" (one launch per call)
 LAUNCHES: collections.Counter = collections.Counter()
 
-MAX_GROUP = 8  # query heads per KV head (the kernel's MAXG)
+MAX_GROUP = 8  # query heads per KV head (the kernel's MAX_GROUP)
+MAX_ROWS = 65535  # B * KV: grid.y and the kernel's tickets
 HEAD_DIMS = (32, 64)
-MIN_SPLIT = 256  # positions: below this a split would be mostly overhead
-BLOCKS_PER_SM = 5  # split blocks resident per SM at hd 64 (40 KB shared)
+SPLIT_ALIGN = 64  # positions: a whole number of the kernel's tiles
+MIN_SPLIT, MAX_SPLIT = 128, 1024  # positions of a split
+# blocks over the whole cache, per SM: with the cache half full, about 4
+# hold positions, one wave at the kernel's 4 resident blocks per SM
+BLOCKS_PER_SM = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,7 +41,7 @@ _I = ctypes.c_int
 @functools.lru_cache()
 def _lib():
     lib = build.load("decode_attn")
-    lib.decode_attn.argtypes = [_P] * 6 + [_I] * 9 + [_P]
+    lib.decode_attn.argtypes = [_P] * 7 + [_I] * 9 + [_P]
     lib.decode_attn.restype = _I
     return lib
 
@@ -44,14 +51,16 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def split_plan(rows: int, valid: int, sms: int):
-    """(split_len, nsplit) for ``rows`` = B*KV query groups over ``valid``
-    positions: enough thread blocks to fill ``sms`` SMs, no split shorter
-    than :data:`MIN_SPLIT` positions (unless ``valid`` is), none empty."""
-    want = -(-BLOCKS_PER_SM * sms // rows)
-    nsplit = max(1, min(want, -(-valid // MIN_SPLIT)))
-    split_len = -(-valid // nsplit)
-    return split_len, -(-valid // split_len)
+def split_plan(rows: int, S: int, sms: int):
+    """(split_len, nsplit) for ``rows`` = B*KV query groups over a cache
+    of ``S`` positions, whatever ``pos`` is: about
+    :data:`BLOCKS_PER_SM` thread blocks per SM over the whole cache, splits
+    of :data:`MIN_SPLIT` to :data:`MAX_SPLIT` positions, a multiple of
+    :data:`SPLIT_ALIGN`; they cover 0..S-1 and none starts past it."""
+    per_block = -(-S * rows // (BLOCKS_PER_SM * sms))
+    split_len = -(-per_block // SPLIT_ALIGN) * SPLIT_ALIGN
+    split_len = min(max(split_len, MIN_SPLIT), MAX_SPLIT)
+    return split_len, -(-S // split_len)
 
 
 def _check(q, k, v, pos):
@@ -81,21 +90,36 @@ def _check(q, k, v, pos):
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     if not 1 <= G <= MAX_GROUP:
         raise ValueError(f"group size {G} not in 1..{MAX_GROUP}")
-    if not 0 <= int(pos) < S:
+    if not 1 <= B * KV <= MAX_ROWS:
+        raise ValueError(f"B*KV = {B * KV} outside one launch's "
+                         f"1..{MAX_ROWS}")
+    if isinstance(pos, torch.Tensor):
+        if pos.dtype != torch.int32:
+            raise ValueError(f"a pos tensor must be int32, got {pos.dtype}")
+        if pos.device != q.device:
+            raise ValueError(f"a pos tensor must lie on q's device "
+                             f"{q.device}, got {pos.device}")
+        if pos.numel() != 1:
+            raise ValueError(f"a pos tensor must hold one element, got "
+                             f"{tuple(pos.shape)}")
+    elif not 0 <= int(pos) < S:
         raise ValueError(f"pos {pos} outside the cache's 0..{S - 1}")
-    if B * KV > 65535:  # grid.y
-        raise ValueError(f"B*KV = {B * KV} exceeds one launch's 65535")
 
 
 def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos: int) -> torch.Tensor:
+                     pos) -> torch.Tensor:
     """q (B, KV, G, hd); k, v (B, S, KV, hd); positions 0..pos attend ->
-    (B, KV, G, hd) fp32."""
+    (B, KV, G, hd) fp32. ``pos``: an int (checked here), or an int32 CUDA
+    tensor of one element on q's device, read by the kernel; a value of it
+    outside 0..S-1 gives NaN throughout the output."""
     _check(q, k, v, pos)
     B, KV, G, hd = q.shape
     S = k.shape[1]
-    pos = int(pos)
-    split_len, nsplit = split_plan(B * KV, pos + 1, _sm_count(q.device))
+    if isinstance(pos, torch.Tensor):
+        pos_ptr, pos = pos.data_ptr(), 0
+    else:
+        pos_ptr, pos = None, int(pos)
+    split_len, nsplit = split_plan(B * KV, S, _sm_count(q.device))
     with torch.cuda.device(q.device):
         out = torch.empty((B, KV, G, hd), dtype=torch.float32,
                           device=q.device)
@@ -104,9 +128,10 @@ def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         part_ml = torch.empty((B * KV * nsplit * G * 2,),
                               dtype=torch.float32, device=q.device)
         err = _lib().decode_attn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(), B, S, KV, G, hd, pos,
-            split_len, nsplit, int(q.dtype == torch.bfloat16),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_ptr,
+            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), B, S,
+            KV, G, hd, pos, split_len, nsplit,
+            int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attn launch failed with cudaError_t "

@@ -10,9 +10,10 @@ import torch
 
 
 def decode_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    pos: int) -> torch.Tensor:
+                    pos) -> torch.Tensor:
     """q: (B, KV, G, hd); k/v: (B, S, KV, hd); pos: inclusive last valid
-    index. Returns (B, KV, G, hd) in fp32."""
+    index, an int or a one-element integer tensor. Returns (B, KV, G, hd)
+    in fp32."""
     S = k.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bkgh,bskh->bkgs", q.float(), k.float()) * scale

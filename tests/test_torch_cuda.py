@@ -273,6 +273,13 @@ def test_accgrad_frames_on_the_card_matches_the_cpu(exact_convs):
     assert all(p.grad is None for p in card_net.parameters())
 
 
+def _attn_inputs(cuda, B, S, KV, G, hd, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                             ).to(cuda, dtype)
+            for shape in ((B, KV, G, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+
 # decode_attn against its plain version: fp32 sums in another order over
 # O(1) values, atol 1e-5 and rtol 1e-4 (the reference's kernel bound);
 # for bf16 caches the same, since both read the same bf16 values.
@@ -281,7 +288,8 @@ def test_accgrad_frames_on_the_card_matches_the_cpu(exact_convs):
     (3, 1000, 2, 3, 64, 0),     # S no block divides, only position 0
     (1, 777, 1, 8, 32, 300),    # pos inside a tile, G=8, hd 32
     (2, 300, 4, 1, 64, 299),    # G=1, the whole cache
-    (16, 4500, 5, 3, 64, 4321)])  # several splits of a long cache
+    (16, 4500, 5, 3, 64, 4321),  # several splits of a long cache
+    (2, 32768, 5, 3, 64, 0)])   # every split but the first one empty
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attn_matches_plain_version(cuda, dims, dtype):
     from repro_torch.kernels.decode_attn import kernel as dk
@@ -289,10 +297,7 @@ def test_decode_attn_matches_plain_version(cuda, dims, dtype):
     from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 
     B, S, KV, G, hd, pos = dims
-    rng = np.random.default_rng(S)
-    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
-                                ).to(cuda, dtype)
-               for shape in ((B, KV, G, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    q, k, v = _attn_inputs(cuda, B, S, KV, G, hd, dtype, seed=S)
     before = dk.LAUNCHES["decode_attn"]
     got = decode_attn(q, k, v, pos)
     assert dk.LAUNCHES["decode_attn"] == before + 1
@@ -301,6 +306,71 @@ def test_decode_attn_matches_plain_version(cuda, dims, dtype):
     assert got.dtype == torch.float32 and got.shape == (B, KV, G, hd)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("G", range(1, 9))
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_takes_every_group_size(cuda, G, hd, dtype):
+    """Each (G, hd) instantiation, at a pos inside a tile and a split."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    q, k, v = _attn_inputs(cuda, 3, 1500, 2, G, hd, dtype, seed=10 * G + hd)
+    got = decode_attn_cuda(q, k, v, 1234)
+    want = decode_attn_ref(q, k, v, 1234)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-5, rtol=1e-4)
+
+
+def test_decode_attn_is_bitwise_repeatable(cuda):
+    """The last block of each (b, kv) merges its splits in split order, so
+    two calls agree bit for bit whatever order the blocks finish in."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+
+    q, k, v = _attn_inputs(cuda, 16, 8192, 5, 3, 64, torch.bfloat16, seed=4)
+    first = decode_attn_cuda(q, k, v, 8000)
+    for _ in range(3):
+        assert torch.equal(decode_attn_cuda(q, k, v, 8000), first)
+
+
+def test_decode_attn_graph_replays_at_device_positions(cuda):
+    """One call captured with pos in a device tensor serves every pos: each
+    replay equals an eager call with the int, bit for bit, and the plain
+    version within the bound."""
+    from repro_torch.kernels.decode_attn import kernel as dk
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    q, k, v = _attn_inputs(cuda, 4, 2048, 5, 3, 64, torch.bfloat16, seed=5)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda)
+    dk.decode_attn_cuda(q, k, v, pos)  # loads the library off the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dk.decode_attn_cuda(q, k, v, pos)
+    for p in (1087, 0, 2047):
+        pos.fill_(p)
+        graph.replay()
+        assert torch.equal(out, dk.decode_attn_cuda(q, k, v, p))
+        np.testing.assert_allclose(
+            out.cpu().numpy(), decode_attn_ref(q, k, v, p).cpu().numpy(),
+            atol=1e-5, rtol=1e-4)
+
+
+def test_decode_attn_device_pos_out_of_range_gives_nan(cuda):
+    """A device pos outside 0..S-1 cannot be raised without a synchronise:
+    the output is NaN throughout, and the next call is right."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    q, k, v = _attn_inputs(cuda, 2, 300, 5, 3, 64, torch.bfloat16, seed=6)
+    for bad in (300, -1):
+        pos = torch.tensor([bad], dtype=torch.int32, device=cuda)
+        assert bool(decode_attn_cuda(q, k, v, pos).isnan().all())
+    pos = torch.tensor([299], dtype=torch.int32, device=cuda)
+    np.testing.assert_allclose(
+        decode_attn_cuda(q, k, v, pos).cpu().numpy(),
+        decode_attn_ref(q, k, v, 299).cpu().numpy(), atol=1e-5, rtol=1e-4)
 
 
 def test_decode_attn_ignores_what_lies_past_pos(cuda):
@@ -342,6 +412,12 @@ def test_decode_attn_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     shifted = torch.zeros(k.numel() + 1, device=cuda)[1:].view(k.shape)
     with pytest.raises(ValueError, match="16-byte"):
         decode_attn_cuda(q, shifted, k, 5)
+    for pos, what in ((torch.tensor([5], device=cuda), "int32"),
+                      (torch.tensor([5], dtype=torch.int32), "device"),
+                      (torch.tensor([5, 6], dtype=torch.int32, device=cuda),
+                       "one element")):
+        with pytest.raises(ValueError, match=what):
+            decode_attn_cuda(q, k, k, pos)
     decode_attn_cuda(q, k, k, 5)  # the context is still usable
 
 

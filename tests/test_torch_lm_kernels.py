@@ -9,6 +9,8 @@ reference's own kernel bounds (``tests/test_kernels.py``): decode_attn
 atol 1e-5, rtol 1e-4, bf16 inputs included, since both sides widen the
 same bf16 values; wkv6 atol 2e-4, rtol 1e-3.
 """
+import inspect
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -20,6 +22,8 @@ from repro.kernels.decode_attn.ref import decode_attn_ref as ref_oracle
 from repro.kernels.wkv6.ops import wkv6 as ref_wkv6
 from repro.kernels.wkv6.ref import wkv6_ref as ref_wkv6_oracle
 from repro.models.rwkv6 import wkv_chunked as ref_wkv_chunked
+from repro_torch.kernels.decode_attn.kernel import (MAX_SPLIT, MIN_SPLIT,
+                                                    SPLIT_ALIGN, split_plan)
 from repro_torch.kernels.decode_attn.ops import decode_attn
 from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 from repro_torch.kernels.wkv6.ops import wkv6
@@ -64,6 +68,42 @@ def test_decode_attn_plain_matches_reference(dims, bf16):
                  ref_decode_attn(jq, jk, jv, pos, impl="interpret", blk=64)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    **ATTN_TOL)
+
+
+@pytest.mark.parametrize("dims", [(2, 256, 2, 4, 32, 255),
+                                  (1, 1024, 4, 8, 64, 700),
+                                  (2, 200, 5, 3, 64, 0)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_decode_attn_tensor_pos_matches_reference_array_pos(dims, bf16):
+    """``pos`` as a one-element int32 tensor against the reference's kernel
+    given ``pos`` as a (1,) int32 array (its own form, ``kernel.py:58``),
+    in interpret mode; the same as the int form, bit for bit."""
+    B, S, KV, G, hd, pos = dims
+    q, k, v = _attn_inputs(B, S, KV, G, hd, seed=S + 1, bf16=bf16)
+    tq, tk, tv = map(_torch, (q, k, v))
+    got = decode_attn(tq, tk, tv, torch.tensor([pos], dtype=torch.int32))
+    np.testing.assert_array_equal(got.numpy(),
+                                  decode_attn(tq, tk, tv, pos).numpy())
+    want = ref_decode_attn(*map(jnp.asarray, (q, k, v)),
+                           jnp.array([pos], jnp.int32), impl="interpret",
+                           blk=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+
+
+@pytest.mark.parametrize("rows,sms", [(80, 132), (640, 132), (1, 132),
+                                      (10, 8), (65535, 132)])
+def test_decode_attn_split_plan_depends_on_the_cache_length_only(rows, sms):
+    """The kernel's grid and scratch come from (B*KV, S, SM count) alone,
+    so one plan (and one captured graph) serves every pos: its splits are
+    whole multiples of the alignment within the length bounds, cover
+    0..S-1, so that every pos has its split, and none starts past S-1."""
+    assert list(inspect.signature(split_plan).parameters) == ["rows", "S",
+                                                              "sms"]
+    for S in range(1, 32769):
+        split_len, nsplit = split_plan(rows, S, sms)
+        assert split_len % SPLIT_ALIGN == 0
+        assert MIN_SPLIT <= split_len <= MAX_SPLIT
+        assert (nsplit - 1) * split_len < S <= nsplit * split_len
 
 
 def _wkv_inputs(B, S, H, hd, seed, log_decay=None, zero_s0=False):
