@@ -4,7 +4,9 @@ check it end to end.
     python3 chip_smoke.py      # from the repository root, on a CUDA host
 
 1. Prints the card's name and power limit, and builds the CUDA kernels
-   from ``src/repro_torch/kernels`` with nvcc into ``build/kernels/``.
+   from ``src/repro_torch/kernels`` with nvcc into ``build/kernels/``,
+   logging ptxas's registers and spills; for each of the eight ``wkv6``
+   instantiations also its shared memory, and it fails on a spill there.
 2. Kernel phase: each kernel (``mbcodec_frame``, ``mbcodec_chunk`` with
    and without the reference clip, and ``mbcodec_chunk_scores`` with and
    without it) runs at its path's shapes (T=10 frames, N=2880 blocks; 8
@@ -57,7 +59,10 @@ check it end to end.
    S=1024, H=32) and decode (S=1) shapes, r, k and v in bf16 (as the path
    passes them) and in fp32, against the reference model's chunked form,
    and on a ragged slice with log-decays down to -8 and s0 != 0 against
-   the sequential oracle (atol 2e-4, rtol 1e-3, all finite).
+   the sequential oracle (atol 2e-4, rtol 1e-3, all finite); the bound of
+   a row with S >= 2 takes its operations at the TF32 tensor-core rate
+   over three (the kernel's products), of a decode row at the CUDA-core
+   rate.
 8. LM serving at full width, random bf16 weights from a seeded generator:
    smollm-360m and rwkv6-1.6b each prefill 16 prompts of 1024 tokens
    (``make_prefill_step`` with room for 2048) and take 64 greedy
@@ -82,6 +87,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -95,6 +101,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12  # fp32 without tensor cores, same sheet
+# TF32 on the tensor cores (dense, same sheet), three products a value:
+# the rate of the wkv6 sequence kernel's fp32-exact products
+H100_TF32X3_FLOP_PER_S = 495e12 / 3
 # per coefficient and frame beyond the transforms' 4 x 16 multiply-adds:
 # residual, step (qstep * w), divide, round, abs, 1 + |q|, log2, the bit
 # cost's multiply-add (2), nonzero test, bit sum, dequantize, add to the
@@ -185,11 +194,12 @@ def time_ms(fn, iters=20, reps=10):
     return device, _event_median(fn, iters)
 
 
-def roofline_ms(moved, flop):
+def roofline_ms(moved, flop, rate=H100_FP32_FLOP_PER_S):
     """Least time for a call that moves ``moved`` bytes and does ``flop``
-    fp32 operations: the bytes at the memory rate or the operations at the
-    CUDA-core rate, whichever is larger, and which it is."""
-    t_bytes, t_ops = moved / H100_BYTES_PER_S, flop / H100_FP32_FLOP_PER_S
+    operations: the bytes at the memory rate or the operations at ``rate``
+    (the fp32 CUDA-core rate unless the kernel's products run elsewhere),
+    whichever is larger, and which it is."""
+    t_bytes, t_ops = moved / H100_BYTES_PER_S, flop / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -950,11 +960,51 @@ def wkv6_kernel_phase():
         moved = (B * S * H * hd * (3 * xs[0].element_size() + 8)
                  + 4 * (H * hd + 2 * B * H * hd * hd))
         flop = B * S * H * (5 * hd * hd + 6 * hd)
+        # S >= 2: the products on the tensor cores (TF32, three products a
+        # value); a decode step on the CUDA cores
+        rate = H100_TF32X3_FLOP_PER_S if S > 1 else H100_FP32_FLOP_PER_S
         rows[name] = timed_row(name, kern, plain, max_err,
-                               roofline_ms(moved, flop), WKV6_SOURCE,
+                               roofline_ms(moved, flop, rate), WKV6_SOURCE,
                                iters=3 if ld_low else 20,
                                reps=1 if ld_low else 10)
     return rows
+
+
+def wkv6_build_report(report):
+    """Logs each wkv6 instantiation's registers, shared memory (static, and
+    the sequence kernel's dynamic) and spills from nvcc's ``-Xptxas -v``
+    report; fails on any spill."""
+    from repro_torch.kernels.wkv6.kernel import smem_bytes
+
+    name, seen = None, 0
+    for line in report.splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            kind = "seq" if "seq_kernel" in fn else "step"
+            bf16 = "bfloat16" in fn
+            hd = int(re.search(r"Li(\d+)E", fn).group(1))
+            name = (f"wkv6_{kind}_kernel<{'bf16' if bf16 else 'fp32'}, {hd}>",
+                    kind, hd, bf16)
+            spills = None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and name:
+            label, kind, hd, bf16 = name
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            dyn = smem_bytes(hd, bf16) if kind == "seq" else 0
+            log(f"    {label}: {m.group(1)} registers, "
+                f"{int(smem.group(1)) if smem else 0} B static and {dyn} B "
+                f"dynamic shared memory, {spills} B spilled")
+            if spills is None or spills:
+                raise AssertionError(f"{label} spills ({spills} B) or has "
+                                     f"no ptxas report")
+            name, seen = None, seen + 1
+    if seen != 8:
+        raise AssertionError(f"ptxas reported {seen} wkv6 kernels, not 8")
 
 
 def _param_bytes(model):
@@ -1012,6 +1062,8 @@ def _profiled(label, run, per):
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:5]
+    ours = [e for e in kernels
+            if any(k in e.key for k in ("wkv6_", "decode_attn_kernel"))]
     host = sorted((e for e in rows if e.device_type == DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)[:5]
     log(f"  profiled {label} ({CARD}), per {per[0]}: host clock "
@@ -1020,6 +1072,9 @@ def _profiled(label, run, per):
         f"{launches / per[1]:.1f} kernel launches; top kernels (ms): "
         + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / per[1]:.4f}"
                     f" x{e.count / per[1]:g}" for e in top)
+        + "; the port's LM kernels (ms): "
+        + ("; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / per[1]:.4f}"
+                     f" x{e.count / per[1]:g}" for e in ours) or "none")
         + "; top host ops by self time (ms): "
         + "; ".join(f"{e.key} {e.self_cpu_time_total / 1e3 / per[1]:.4f}"
                     f" x{e.count / per[1]:g}" for e in host))
@@ -1191,8 +1246,13 @@ def main():
     t0 = time.perf_counter()
     built = build.build()
     log(f"build: {time.perf_counter() - t0:.2f} s")
+    if "wkv6" not in built:
+        log("  wkv6 was built before this run: no ptxas report here")
     for name, (secs, report) in built.items():
         log(f"  nvcc {name}: {secs:.2f} s")
+        if name == "wkv6":
+            wkv6_build_report(report)
+            continue
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")

@@ -1,12 +1,15 @@
 """ctypes wrapper of the CUDA kernel in ``csrc/wkv6.cu``.
 
-``wkv6_cuda`` launches ``wkv6_kernel`` (replaces
-``repro/kernels/wkv6/kernel.py::wkv6_pallas``), one thread block per
-(b, h), over any sequence length, one token included. It takes CUDA
-contiguous tensors (r, k, v bf16 or fp32, the rest fp32), allocates its
-outputs, launches on the current stream without synchronising, and raises
-on any CUDA error the launch reports. :data:`LAUNCHES` counts its
-launches, so a run can show that it went through the kernel.
+``wkv6_cuda`` launches one kernel per call (replaces
+``repro/kernels/wkv6/kernel.py::wkv6_pallas``): over S >= 2 tokens,
+``wkv6_seq_kernel`` with one thread-block cluster per (b, h) and one CTA
+per segment of the sequence, as :func:`ref.segment_plan` cuts it; for a
+decode step (S = 1), ``wkv6_step_kernel``, one block per (b, h). It takes
+CUDA contiguous tensors (r, k, v bf16 or fp32, the rest fp32), allocates
+its outputs, launches on the current stream without synchronising (so a
+CUDA graph can capture it), and raises on any CUDA error the launch
+reports. :data:`LAUNCHES` counts its launches, so a run can show that it
+went through the kernel.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.wkv6.ref import segment_plan
 
 #: launches per kernel: "wkv6"
 LAUNCHES: collections.Counter = collections.Counter()
@@ -30,9 +34,16 @@ _I = ctypes.c_int
 @functools.lru_cache()
 def _lib():
     lib = build.load("wkv6")
-    lib.wkv6.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+    lib.wkv6.argtypes = [_P] * 8 + [_I] * 7 + [_P]
     lib.wkv6.restype = _I
+    lib.wkv6_smem_bytes.argtypes = [_I, _I]
+    lib.wkv6_smem_bytes.restype = _I
     return lib
+
+
+def smem_bytes(hd: int, bf16: bool) -> int:
+    """Dynamic shared memory of one CTA of the sequence kernel."""
+    return _lib().wkv6_smem_bytes(hd, int(bf16))
 
 
 def _check(r, k, v, log_decay, u, s0):
@@ -74,13 +85,14 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (o (B, S, H, hd), final state (B, H, hd, hd)), fp32."""
     _check(r, k, v, log_decay, u, s0)
     B, S, H, hd = r.shape
+    nseg, seg_len, _ = segment_plan(S)
     with torch.cuda.device(r.device):
         o = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
         s_out = torch.empty_like(s0)
         err = _lib().wkv6(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), log_decay.data_ptr(),
             u.data_ptr(), s0.data_ptr(), o.data_ptr(), s_out.data_ptr(),
-            B, S, H, hd, int(r.dtype == torch.bfloat16),
+            B, S, H, hd, int(r.dtype == torch.bfloat16), nseg, seg_len,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"wkv6 launch failed with cudaError_t {err}")

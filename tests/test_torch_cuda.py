@@ -438,11 +438,23 @@ def _wkv_inputs(B, S, H, hd, seed, ld_low=None, s0_scale=0.2):
 
 # wkv6 against the sequential oracle: atol 2e-4, rtol 1e-3, the
 # reference's kernel bound (tests/test_kernels.py); every output finite.
+# Lengths cross every boundary of the kernel's plan (ref.segment_plan):
+# chunks of 16, sub-blocks of 8, segments of up to 128 tokens, clusters of
+# up to 8 segments, and rounds past 1024 tokens.
 @pytest.mark.parametrize("dims", [
     (16, 1, 32, 64, None),     # a decode step: one token, no padding
     (2, 1000, 3, 64, -8.0),    # ragged last chunk, fast decays
     (1, 77, 2, 32, None),      # hd 32, ragged
-    (3, 64, 4, 64, -3.0)])     # where the reference kernel gives NaN
+    (3, 64, 4, 64, -3.0),      # where the reference kernel gives NaN
+    (2, 2, 3, 64, None),       # one segment, one short chunk
+    (2, 16, 2, 64, None),      # one whole chunk
+    (2, 17, 2, 32, -8.0),      # two segments, the second of one token
+    (1, 127, 2, 64, None),     # 8 segments of 16, the last short
+    (1, 128, 2, 64, -3.0),     # 8 whole segments of 16
+    (1, 129, 2, 64, None),     # 5 segments of 32, the last of one token
+    (1, 1024, 2, 64, None),    # 8 segments of 128: the prefill's plan
+    (1, 1025, 2, 32, -8.0),    # a second round of one token
+    (1, 4096, 1, 64, None)])   # four full rounds
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wkv6_matches_sequential_oracle(cuda, dims, dtype):
     from repro_torch.kernels.wkv6 import kernel as wk
@@ -484,6 +496,44 @@ def test_wkv6_chained_steps_equal_one_call(cuda):
                                o_all.cpu().numpy(), atol=2e-5, rtol=1e-4)
     np.testing.assert_allclose(s.cpu().numpy(), s_all.cpu().numpy(),
                                atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("S", [1, 1024])
+def test_wkv6_is_bitwise_repeatable(cuda, S):
+    """No atomics and a fixed order of the segments' fold: two calls on
+    the same inputs give the same bits."""
+    from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+
+    r, k, v, ld, u, s0 = (t.to(cuda) for t in _wkv_inputs(4, S, 8, 64, 5))
+    r, k, v = (t.bfloat16() for t in (r, k, v))
+    first = wkv6_cuda(r, k, v, ld, u, s0)
+    second = wkv6_cuda(r, k, v, ld, u, s0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("S", [1, 1024])
+def test_wkv6_graph_replays_as_eager_calls(cuda, S):
+    """A CUDA graph that captured ``wkv6_cuda`` replays bit for bit the
+    eager call, at the prefill (S=1024) and decode (S=1) shapes, with new
+    inputs copied into the captured tensors before each replay."""
+    from repro_torch.kernels.wkv6 import kernel as wk
+
+    xs = [t.to(cuda) for t in _wkv_inputs(16, S, 32, 64, 11)]
+    xs[:3] = [t.bfloat16() for t in xs[:3]]
+    wk.wkv6_cuda(*xs)  # builds the library and sets the kernel's attributes
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = wk.wkv6_cuda(*xs)
+    for seed in (12, 13):
+        fresh = [t.to(cuda) for t in _wkv_inputs(16, S, 32, 64, seed)]
+        for dst, src in zip(xs, fresh):
+            dst.copy_(src)
+        graph.replay()
+        want = wk.wkv6_cuda(*xs)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
 
 
 def test_wkv6_wrapper_rejects_what_the_kernel_does_not_take(cuda):

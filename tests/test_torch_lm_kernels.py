@@ -27,7 +27,9 @@ from repro_torch.kernels.decode_attn.kernel import (MAX_SPLIT, MIN_SPLIT,
 from repro_torch.kernels.decode_attn.ops import decode_attn
 from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 from repro_torch.kernels.wkv6.ops import wkv6
-from repro_torch.kernels.wkv6.ref import wkv6_ref, wkv_chunked
+from repro_torch.kernels.wkv6.ref import (MAX_SEG_LEN, MAX_SEGMENTS,
+                                          SEG_CHUNK, segment_plan, wkv6_ref,
+                                          wkv6_segmented, wkv_chunked)
 
 ATTN_TOL = dict(atol=1e-5, rtol=1e-4)
 WKV_TOL = dict(atol=2e-4, rtol=1e-3)
@@ -108,11 +110,16 @@ def test_decode_attn_split_plan_depends_on_the_cache_length_only(rows, sms):
 
 def _wkv_inputs(B, S, H, hd, seed, log_decay=None, zero_s0=False):
     """Seeded inputs as the reference's tests draw them: r, k, v x0.5,
-    log-decay -exp(N(-1, 0.5)) unless given, u x0.3, s0 x0.2."""
+    log-decay -exp(N(-1, 0.5)) unless given (a constant, or "uniform-8":
+    a uniform draw in [-8, -1e-4]), u x0.3, s0 x0.2."""
     rng = np.random.default_rng(seed)
     r, k, v = (0.5 * rng.standard_normal((B, S, H, hd)) for _ in range(3))
-    ld = -np.exp(0.5 * rng.standard_normal((B, S, H, hd)) - 1.0) \
-        if log_decay is None else np.full((B, S, H, hd), log_decay)
+    if log_decay is None:
+        ld = -np.exp(0.5 * rng.standard_normal((B, S, H, hd)) - 1.0)
+    elif log_decay == "uniform-8":
+        ld = rng.uniform(-8.0, -1e-4, (B, S, H, hd))
+    else:
+        ld = np.full((B, S, H, hd), log_decay)
     u = 0.3 * rng.standard_normal((H, hd))
     s0 = 0.2 * rng.standard_normal((B, H, hd, hd))
     if zero_s0:
@@ -160,3 +167,44 @@ def test_wkv6_plain_is_finite_for_fast_decays(log_decay, chunk):
     for got in (wkv6(*ts), wkv_chunked(*ts, chunk=chunk)):
         assert all(bool(torch.isfinite(t).all()) for t in got)
         _close(got, ref_wkv6_oracle(*map(jnp.asarray, xs)))
+
+
+# The CUDA kernel's decomposition (segments with local states chained in
+# rank order, chunks of 16 cut into sub-blocks of 8, every exponent <= 0),
+# written plainly, against the reference's oracle and, where its decays
+# keep the reference kernel finite, its Pallas kernel in interpret mode.
+# Segment counts 1..8 are given as they stand, so that a count past what
+# the sequence fills leaves empty segments; S=1000 with one segment of 128
+# takes 8 rounds.
+@pytest.mark.parametrize("S,n_seg,hd,log_decay", [
+    (1, 1, 64, None), (1, 8, 32, "uniform-8"),
+    (15, 1, 32, None), (15, 8, 64, -3.0),
+    (17, 2, 64, None), (17, 5, 32, "uniform-8"),
+    (129, 3, 32, -3.0), (129, 8, 64, None), (129, 6, 64, "uniform-8"),
+    (1000, 1, 32, "uniform-8"), (1000, 4, 64, None), (1000, 7, 32, -3.0),
+    (1000, 8, 64, "uniform-8")])
+def test_wkv6_segmented_matches_reference(S, n_seg, hd, log_decay):
+    xs = _wkv_inputs(2, S, 2, hd, seed=S + n_seg, log_decay=log_decay)
+    _, seg_len, _ = segment_plan(S, n_seg)
+    got = wkv6_segmented(*map(torch.from_numpy, xs), n_seg, seg_len)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    js = list(map(jnp.asarray, xs))
+    _close(got, ref_wkv6_oracle(*js))
+    if log_decay is None:  # fast decays give the reference kernel NaN
+        _close(got, ref_wkv6(*js, impl="interpret"))
+
+
+def test_wkv6_segment_plan_covers_every_length():
+    """Segments are whole chunks of at most MAX_SEG_LEN tokens, at most
+    MAX_SEGMENTS per round, none of them empty when one round covers the
+    sequence; a sequence up to 8 x 128 tokens takes one round, and the
+    rounds cover S with less than one round to spare."""
+    for S in range(1, 5000):
+        n_seg, seg_len, rounds = segment_plan(S)
+        assert 1 <= n_seg <= MAX_SEGMENTS
+        assert seg_len % SEG_CHUNK == 0 and seg_len <= MAX_SEG_LEN
+        assert (rounds - 1) * n_seg * seg_len < S <= rounds * n_seg * seg_len
+        assert rounds == 1 if S <= MAX_SEGMENTS * MAX_SEG_LEN else \
+            n_seg == MAX_SEGMENTS
+        if rounds == 1:
+            assert (n_seg - 1) * seg_len < S
