@@ -5,15 +5,20 @@ check it end to end.
 
 1. Prints the card's name and power limit, and builds the CUDA kernels
    from ``src/repro_torch/kernels`` with nvcc into ``build/kernels/``,
-   logging ptxas's registers and spills; for each of the eight ``wkv6``
-   instantiations also its shared memory, and it fails on a spill there.
+   logging ptxas's registers and spills; for each of the four
+   ``mbcodec_chunk_kernel`` and eight ``wkv6`` instantiations also its
+   shared memory (and stack frame), and it fails on a spill there (or a
+   stack frame in the chunk kernel).
 2. Kernel phase: each kernel (``mbcodec_frame``, ``mbcodec_chunk`` with
    and without the reference clip, and ``mbcodec_chunk_scores`` with and
    without it) runs at its path's shapes (T=10 frames, N=2880 blocks; 8
    streams for the scores kernel) against its plain PyTorch version on
    the same inputs; it must agree (see ``check_kernel``) and both are
-   timed with CUDA events. The scores kernel is also held against the
-   explicit-array chunk kernel fed the QP map its threshold implies.
+   timed with CUDA events. The chunk and scores kernels are also held to
+   the same bounds against their row/column twin (``ref.py::
+   mbcodec_chunk_rowcol``, the kernel's association) and log their GB/s;
+   the scores kernel is held bit for bit against the explicit-array
+   chunk kernel fed the QP map its threshold implies.
 3. Single-stream path: the AccMPEG loop,
    ``StreamingEngine.run(AccMPEGPolicy)``, at full size (dashcam scene,
    30 frames of 384x640, detection FinalDNN width 32, AccModel width 16,
@@ -222,15 +227,18 @@ def time_cold_ms(fn, iters=20, reps=10):
     return time_ms(both, iters, reps)[0] - time_ms(flush, iters, reps)[0]
 
 
+def codec_bytes(T, N, qp_bytes):
+    """Bytes one codec call on T frames of N blocks (all streams' frames
+    counted in T) must move, QP inputs taking ``qp_bytes``: blocks and
+    rec, bits, D and w, 4 bytes each, each read or written once."""
+    return 4 * (2 * T * N * 256 + T * N + 2 * 256) + qp_bytes
+
+
 def bound_ms(T, N, qp_bytes):
-    """Least time for one codec call on T frames of N blocks (all streams'
-    frames counted in T) whose QP inputs take ``qp_bytes``, each input
-    read once and each output written once."""
-    coefs = T * N * 256
-    # blocks and rec, bits, D and w; 4 bytes each
-    moved = 4 * (2 * coefs + T * N + 2 * 256) + qp_bytes
-    flop = T * N * 4 * 2 * 16 ** 3 + coefs * ELEMENTWISE_FLOP
-    return roofline_ms(moved, flop)
+    """Least time for that call: :func:`codec_bytes` against its
+    transforms' and quantizer's operations."""
+    flop = T * N * 4 * 2 * 16 ** 3 + T * N * 256 * ELEMENTWISE_FLOP
+    return roofline_ms(codec_bytes(T, N, qp_bytes), flop)
 
 
 def check_kernel(name, got, want):
@@ -263,6 +271,7 @@ def kernel_phase(frames):
     from repro_torch.kernels.mbcodec import kernel as K
     from repro_torch.kernels.mbcodec.ops import _chunk_blocks
     from repro_torch.kernels.mbcodec.ref import (mbcodec_chunk_ref,
+                                                 mbcodec_chunk_rowcol,
                                                  mbcodec_ref)
 
     blocks, n_mb, C = _chunk_blocks(frames)
@@ -275,22 +284,29 @@ def kernel_phase(frames):
     variants = {
         "mbcodec_frame": (
             lambda q=False: K.mbcodec_frame_cuda(blocks[0], qp[0], want_q=q),
-            lambda q=False: mbcodec_ref(blocks[0], qp[0], want_q=q), 1)}
+            lambda q=False: mbcodec_ref(blocks[0], qp[0], want_q=q), 1,
+            None)}
     for clip in (False, True):
         variants[K.chunk_kernel_name(clip)] = (
             lambda q=False, c=clip: K.mbcodec_chunk_cuda(blocks, qp, c,
                                                          want_q=q),
             lambda q=False, c=clip: mbcodec_chunk_ref(blocks, qp, c,
-                                                      want_q=q), T)
+                                                      want_q=q), T, clip)
     rows = {}
-    for name, (kern, plain, frames_in) in variants.items():
+    for name, (kern, plain, frames_in, clip) in variants.items():
         got, want = kern(True), plain(True)
         torch.cuda.synchronize()
         if frames_in == 1:
             got, want = ([t[None] for t in x] for x in (got, want))
         max_err = check_kernel(name, got, want)
+        moved = None
+        if clip is not None:  # the chunk kernel: also against its twin
+            check_kernel(f"{name} vs its row/column twin", got,
+                         mbcodec_chunk_rowcol(blocks, qp, clip, want_q=True))
+            moved = codec_bytes(frames_in, N, 4 * frames_in * N)
         rows[name] = timed_row(name, kern, plain, max_err,
-                               bound_ms(frames_in, N, 4 * frames_in * N))
+                               bound_ms(frames_in, N, 4 * frames_in * N),
+                               moved=moved)
     return rows
 
 
@@ -329,10 +345,11 @@ def scores_kernel_phase(fleet_chunk):
     """The stream-batched scores kernel at the fleet path's shapes (8
     streams, T=10, N=2880) against its plain version, and against the
     explicit-array chunk kernel fed the QP map its threshold implies (one
-    ``encode_block`` body: expected bit-identical)."""
+    kernel body: expected bit-identical)."""
     from repro_torch.kernels.mbcodec import kernel as K
     from repro_torch.kernels.mbcodec.ops import _chunk_blocks
-    from repro_torch.kernels.mbcodec.ref import (mbcodec_chunk_scores_ref,
+    from repro_torch.kernels.mbcodec.ref import (mbcodec_chunk_rowcol,
+                                                 mbcodec_chunk_scores_ref,
                                                  scores_qp)
 
     blocks, n_mb, C = _chunk_blocks(fleet_chunk)
@@ -365,6 +382,14 @@ def scores_kernel_phase(fleet_chunk):
         max_err = check_kernel(name, [fold(t) for t in got],
                                [fold(t) for t in want])
         qp = scores_qp(pooled, knobs, C)
+        twin = mbcodec_chunk_rowcol(blocks.transpose(0, 1),
+                                    qp[None].expand(T, S, N), clip,
+                                    want_q=True)
+        check_kernel(f"{name} vs its row/column twin",
+                     [fold(t) for t in got],
+                     [t.reshape((T, S * N) + tuple(t.shape[3:]))
+                      for t in twin])
+        del twin
         explicit = [K.mbcodec_chunk_cuda(
             blocks[s], qp[s].expand(T, N).contiguous(), clip, want_q=True)
             for s in range(S)]
@@ -378,7 +403,9 @@ def scores_kernel_phase(fleet_chunk):
             check_kernel(f"{name} vs mbcodec_chunk", [fold(t) for t in got],
                          [fold(t) for t in explicit])
         rows[name] = timed_row(name, kern, plain, max_err,
-                               bound_ms(S * T, N, 4 * S * n_mb + 12))
+                               bound_ms(S * T, N, 4 * S * n_mb + 12),
+                               moved=codec_bytes(S * T, N,
+                                                 4 * S * n_mb + 12))
     return rows
 
 
@@ -970,41 +997,80 @@ def wkv6_kernel_phase():
     return rows
 
 
+def ptxas_kernels(report):
+    """nvcc's ``-Xptxas -v`` report -> one dict per kernel it compiled:
+    its mangled name and its registers, static shared memory, stack frame
+    and spilled bytes (None where the report gives no line)."""
+    kernels = []
+    for line in report.splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            kernels.append({"fn": m.group(1), "registers": None, "smem": 0,
+                            "stack": None, "spills": None})
+        if not kernels:
+            continue
+        k = kernels[-1]
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            k["stack"] = int(m.group(1))
+            k["spills"] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m:
+            k["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            k["smem"] = int(smem.group(1)) if smem else 0
+    return kernels
+
+
+def mbcodec_build_report(report):
+    """Logs each mbcodec kernel's registers, shared memory, stack frame and
+    spills from nvcc's ``-Xptxas -v`` report; fails unless all four
+    ``mbcodec_chunk_kernel`` instantiations are there, none with a spill
+    or a stack frame (each thread's rows live in registers)."""
+    chunk = 0
+    for k in ptxas_kernels(report):
+        fn = k["fn"]
+        if "mbcodec_chunk_kernel" in fn:
+            source = "QpFromScores" if "QpFromScores" in fn else "QpFromArray"
+            label = f"mbcodec_chunk_kernel<{'ILb1E' in fn}, {source}>"
+        else:
+            label = "mbcodec_frame_kernel"
+        log(f"    {label}: {k['registers']} registers, {k['smem']} B shared "
+            f"memory, {k['stack']} B stack frame, {k['spills']} B spilled")
+        if label.startswith("mbcodec_chunk_kernel"):
+            chunk += 1
+            if k["stack"] is None or k["stack"] or k["spills"]:
+                raise AssertionError(f"{label}: {k['stack']} B stack frame, "
+                                     f"{k['spills']} B spilled (or no "
+                                     f"ptxas report)")
+    if chunk != 4:
+        raise AssertionError(f"ptxas reported {chunk} mbcodec_chunk_kernel "
+                             f"instantiations, not 4")
+
+
 def wkv6_build_report(report):
     """Logs each wkv6 instantiation's registers, shared memory (static, and
     the sequence kernel's dynamic) and spills from nvcc's ``-Xptxas -v``
     report; fails on any spill."""
     from repro_torch.kernels.wkv6.kernel import smem_bytes
 
-    name, seen = None, 0
-    for line in report.splitlines():
-        m = re.search(r"entry function '(\w+)'", line)
-        if m:
-            fn = m.group(1)
-            kind = "seq" if "seq_kernel" in fn else "step"
-            bf16 = "bfloat16" in fn
-            hd = int(re.search(r"Li(\d+)E", fn).group(1))
-            name = (f"wkv6_{kind}_kernel<{'bf16' if bf16 else 'fp32'}, {hd}>",
-                    kind, hd, bf16)
-            spills = None
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and name:
-            spills = int(m.group(1)) + int(m.group(2))
-        m = re.search(r"Used (\d+) registers(.*)", line)
-        if m and name:
-            label, kind, hd, bf16 = name
-            smem = re.search(r"(\d+) bytes smem", m.group(2))
-            dyn = smem_bytes(hd, bf16) if kind == "seq" else 0
-            log(f"    {label}: {m.group(1)} registers, "
-                f"{int(smem.group(1)) if smem else 0} B static and {dyn} B "
-                f"dynamic shared memory, {spills} B spilled")
-            if spills is None or spills:
-                raise AssertionError(f"{label} spills ({spills} B) or has "
-                                     f"no ptxas report")
-            name, seen = None, seen + 1
-    if seen != 8:
-        raise AssertionError(f"ptxas reported {seen} wkv6 kernels, not 8")
+    kernels = ptxas_kernels(report)
+    for k in kernels:
+        fn = k["fn"]
+        kind = "seq" if "seq_kernel" in fn else "step"
+        bf16 = "bfloat16" in fn
+        hd = int(re.search(r"Li(\d+)E", fn).group(1))
+        label = f"wkv6_{kind}_kernel<{'bf16' if bf16 else 'fp32'}, {hd}>"
+        dyn = smem_bytes(hd, bf16) if kind == "seq" else 0
+        log(f"    {label}: {k['registers']} registers, {k['smem']} B static "
+            f"and {dyn} B dynamic shared memory, {k['spills']} B spilled")
+        if k["spills"] is None or k["spills"]:
+            raise AssertionError(f"{label} spills ({k['spills']} B) or has "
+                                 f"no ptxas report")
+    if len(kernels) != 8:
+        raise AssertionError(f"ptxas reported {len(kernels)} wkv6 kernels, "
+                             f"not 8")
 
 
 def _param_bytes(model):
@@ -1246,12 +1312,14 @@ def main():
     t0 = time.perf_counter()
     built = build.build()
     log(f"build: {time.perf_counter() - t0:.2f} s")
-    if "wkv6" not in built:
-        log("  wkv6 was built before this run: no ptxas report here")
+    for name in ("mbcodec", "wkv6"):
+        if name not in built:
+            log(f"  {name} was built before this run: no ptxas report here")
     for name, (secs, report) in built.items():
         log(f"  nvcc {name}: {secs:.2f} s")
-        if name == "wkv6":
-            wkv6_build_report(report)
+        if name in ("mbcodec", "wkv6"):
+            (mbcodec_build_report if name == "mbcodec"
+             else wkv6_build_report)(report)
             continue
         for line in report.splitlines():
             if "registers" in line or "spill" in line:

@@ -8,7 +8,12 @@ mbcodec_chunk_pallas``), ``mbcodec_chunk_scores_cuda`` launches
 ``jax.vmap``) and ``mbcodec_frame_cuda`` launches ``mbcodec_frame_kernel``
 (replaces ``mbcodec_pallas``). All take CUDA float32 contiguous tensors,
 allocate their outputs, launch on the current stream without
-synchronising, and raise on any CUDA error the launch reports.
+synchronising, and raise on any CUDA error the launch reports. The chunk
+kernels read each block row as 16-byte vectors, so their wrappers also
+refuse a ``blocks`` that does not start on a 16-byte boundary. They hold D
+compiled in (each transform FMA takes it as an immediate) and check it
+against ``codec/dct.py``'s on every launch; w goes into the launch's
+parameters from host memory, so a captured CUDA graph holds it.
 :data:`LAUNCHES` counts the launches of each kernel, so a run can show
 that it went through them.
 """
@@ -20,12 +25,17 @@ import functools
 
 import torch
 
-from repro_torch.codec.dct import MB, dct_tensor, weight_tensor
+from repro_torch.codec.dct import (MB, dct_matrix, dct_tensor, freq_weight,
+                                   weight_tensor)
 from repro_torch.kernels import build
 
 #: launches per kernel: "mbcodec_frame", "mbcodec_chunk[clip=False|True]",
 #: "mbcodec_chunk_scores[clip=False|True]"
 LAUNCHES: collections.Counter = collections.Counter()
+
+#: what the chunk entry points return when the host's D differs from the
+#: one compiled into the kernel (``kDctMismatch`` in ``mbcodec.cu``)
+DCT_MISMATCH = -1
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,7 +73,23 @@ def _check(name, t, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_aligned(**tensors):
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def _host_consts():
+    """Host pointers to D and w (float32, kept alive by the caches of
+    ``codec/dct.py``): the chunk kernels check D against the D they were
+    compiled with and take w as a launch parameter."""
+    return dct_matrix().ctypes.data, freq_weight().ctypes.data
+
+
 def _raise_on(err: int, kernel: str):
+    if err == DCT_MISMATCH:
+        raise RuntimeError(f"{kernel}: the D compiled into mbcodec.cu is not "
+                           f"codec/dct.py's dct_matrix()")
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed with cudaError_t {err}")
 
@@ -79,13 +105,15 @@ def mbcodec_chunk_cuda(blocks: torch.Tensor, qp: torch.Tensor,
         raise ValueError(f"empty chunk: T={T}, N={N}")
     if qp.device != blocks.device:
         raise ValueError("blocks and qp lie on different devices")
+    _check_aligned(blocks=blocks)
     with torch.cuda.device(blocks.device):
-        d, w = dct_tensor(blocks.device), weight_tensor(blocks.device)
+        d, w = _host_consts()
         rec = torch.empty_like(blocks)
         bits = torch.empty((T, N), dtype=torch.float32, device=blocks.device)
         q = torch.empty_like(blocks) if want_q else None
+        _check_aligned(rec=rec, q=q)
         err = _lib().mbcodec_chunk(
-            blocks.data_ptr(), qp.data_ptr(), d.data_ptr(), w.data_ptr(),
+            blocks.data_ptr(), qp.data_ptr(), d, w,
             rec.data_ptr(), bits.data_ptr(), q.data_ptr() if want_q else None,
             T, N, int(bool(clip_refs)),
             torch.cuda.current_stream().cuda_stream)
@@ -115,16 +143,18 @@ def mbcodec_chunk_scores_cuda(blocks: torch.Tensor, pooled: torch.Tensor,
         raise ValueError(f"{S} streams exceed one launch's 65535")
     if pooled.device != blocks.device or knobs.device != blocks.device:
         raise ValueError("blocks, pooled and knobs lie on different devices")
+    _check_aligned(blocks=blocks)
     name = scores_kernel_name(clip_refs)
     with torch.cuda.device(blocks.device):
-        d, w = dct_tensor(blocks.device), weight_tensor(blocks.device)
+        d, w = _host_consts()
         rec = torch.empty_like(blocks)
         bits = torch.empty((S, T, N), dtype=torch.float32,
                            device=blocks.device)
         q = torch.empty_like(blocks) if want_q else None
+        _check_aligned(rec=rec, q=q)
         err = _lib().mbcodec_chunk_scores(
             blocks.data_ptr(), pooled.data_ptr(), knobs.data_ptr(),
-            d.data_ptr(), w.data_ptr(), rec.data_ptr(), bits.data_ptr(),
+            d, w, rec.data_ptr(), bits.data_ptr(),
             q.data_ptr() if want_q else None, S, T, N, n_mb, C,
             int(bool(clip_refs)), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)

@@ -7,11 +7,14 @@ This file imports no JAX, so it runs on a CUDA host without it:
 Elsewhere every test skips. Tolerances: decoded atol 1e-5 and bits rtol
 1e-4 in blocks where no quantized coefficient flips; round-half flips
 between the kernel's and cuBLAS's float orders at most 1e-4 of the
-coefficients; through the codec backends, where a flip moves its
+coefficients (the same against the chunk kernel's row/column twin,
+``ref.py::mbcodec_chunk_rowcol``, which differs from it by FMA rounding
+only); through the codec backends, where a flip moves its
 macroblock for the rest of the chunk, at most 2 of 60 macroblocks off by
 more than 1e-5; bytes per frame rtol 1e-3. The scores kernel against the
-explicit-array kernel fed the implied QP map: bit-equal (one
-``encode_block`` body). ``accgrad_reduce`` against its plain version:
+explicit-array kernel fed the implied QP map: bit-equal (one kernel
+body); each chunk kernel against itself, called again or replayed from a
+CUDA graph: bit-equal (no atomics). ``accgrad_reduce`` against its plain version:
 rtol 1e-5 per macroblock sum (summation order only); batched against per
 frame: bit-equal (each macroblock is summed alike). ``accgrad_frames`` on
 the card against the CPU's plain path: atol 1e-4 on grids normalised to
@@ -25,6 +28,7 @@ from repro_torch.codec import codec as tc
 from repro_torch.kernels.mbcodec import kernel as tk
 from repro_torch.kernels.mbcodec import ops as tops
 from repro_torch.kernels.mbcodec.ref import (mbcodec_chunk_ref,
+                                             mbcodec_chunk_rowcol,
                                              mbcodec_chunk_scores_ref,
                                              mbcodec_ref, scores_qp)
 
@@ -160,6 +164,166 @@ def test_scores_kernel_matches_plain_and_explicit_kernel(cuda, clip):
                                     want_q=True)
         for a, b in zip(got, exp):
             assert torch.equal(a[s], b)
+
+
+# The chunk kernel takes 8 blocks per thread block (2 a warp, a row per
+# thread): N = 3 x 7 = 21 leaves a ragged last thread block of 5.
+RAGGED_MB, RAGGED_C = 7, 3
+
+
+def _ragged_blocks(cuda, S, T, seed):
+    """Blocks (S, T, 21, 16, 16) in [0, 1] drifting frame to frame, and
+    QP (S, T, 21) uniform in [10, 50]."""
+    rng = np.random.RandomState(seed)
+    N = RAGGED_MB * RAGGED_C
+    ramp = 0.3 * np.arange(T).reshape(1, T, 1, 1, 1)
+    blocks = np.clip(rng.rand(S, T, N, 16, 16) + ramp - 0.6, 0, 1)
+    qp = rng.uniform(10, 50, (S, T, N))
+    return (torch.from_numpy(blocks.astype(np.float32)).to(cuda),
+            torch.from_numpy(qp.astype(np.float32)).to(cuda))
+
+
+def _assert_flips_bounded(got, want):
+    """got / want = (rec, bits, q), frames first: flips at most 1e-4 of
+    the coefficients, and blocks without flips within decoded atol 1e-5
+    and bits rtol 1e-4."""
+    flips = got[2] != want[2]
+    assert flips.sum().item() <= 1e-4 * flips.numel()
+    clean = ~flips.flatten(2).any(-1).any(0)
+    assert bool(clean.any())
+    np.testing.assert_allclose(got[0][:, clean].cpu().numpy(),
+                               want[0][:, clean].cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(got[1][:, clean].cpu().numpy(),
+                               want[1][:, clean].cpu().numpy(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("T", [1, 10])
+def test_chunk_kernel_on_a_ragged_grid_matches_plain_and_twin(cuda, T,
+                                                              clip):
+    """The explicit-QP chunk kernel at N = 21 (a ragged last thread block)
+    against the plain version and against its row/column twin."""
+    blocks, qp = _ragged_blocks(cuda, 1, T, 20 + T)
+    got = tk.mbcodec_chunk_cuda(blocks[0], qp[0], clip, want_q=True)
+    for oracle in (mbcodec_chunk_ref, mbcodec_chunk_rowcol):
+        want = oracle(blocks[0], qp[0], clip, want_q=True)
+        torch.cuda.synchronize()
+        _assert_flips_bounded(got, want)
+
+
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("T", [1, 10])
+@pytest.mark.parametrize("S", [1, 3])
+def test_scores_kernel_on_a_ragged_grid_matches_plain_twin_and_explicit(
+        cuda, S, T, clip):
+    """The scores kernel at N = 21 over S streams against the plain
+    version and the twin on the implied QP map (flips counted), and bit
+    for bit against the explicit-QP kernel fed that map."""
+    blocks, _ = _ragged_blocks(cuda, S, T, 30 + S + T)
+    pooled = torch.from_numpy(np.random.RandomState(S).rand(
+        S, RAGGED_MB).astype(np.float32)).to(cuda)
+    pooled[:, 2] = 0.5  # alpha exactly on a score
+    knobs = torch.tensor([0.5, 24.0, 40.0], device=cuda)
+    got = tk.mbcodec_chunk_scores_cuda(blocks, pooled, knobs, RAGGED_C,
+                                       clip, want_q=True)
+    qp = scores_qp(pooled, knobs, RAGGED_C)  # (S, N)
+    N = qp.shape[1]
+    for s in range(S):
+        mine = tuple(t[s] for t in got)
+        for oracle in (mbcodec_chunk_ref, mbcodec_chunk_rowcol):
+            _assert_flips_bounded(mine, oracle(
+                blocks[s], qp[s].expand(T, N), clip, want_q=True))
+        explicit = tk.mbcodec_chunk_cuda(
+            blocks[s].contiguous(), qp[s].expand(T, N).contiguous(), clip,
+            want_q=True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(mine, explicit))
+
+
+def test_chunk_kernels_are_bitwise_repeatable(cuda):
+    """No atomics: two calls of each chunk kernel give the same bits."""
+    blocks, qp = _ragged_blocks(cuda, 3, 10, 7)
+    pooled = torch.rand(3, RAGGED_MB, device=cuda)
+    knobs = torch.tensor([0.5, 28.0, 42.0], device=cuda)
+    for clip in (False, True):
+        calls = [(tk.mbcodec_chunk_cuda(blocks[0], qp[0], clip,
+                                        want_q=True),
+                  tk.mbcodec_chunk_scores_cuda(blocks, pooled, knobs,
+                                               RAGGED_C, clip, want_q=True))
+                 for _ in range(2)]
+        torch.cuda.synchronize()
+        for first, second in zip(*calls):
+            assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_chunk_kernels_replay_in_a_cuda_graph(cuda):
+    """Both chunk kernels captured in one CUDA graph (D and w travel in
+    the launch's parameters) replay bit for bit as eager calls, with new
+    inputs copied into the captured tensors before each replay."""
+    frames = torch.from_numpy(_frames(T=10, H=96, W=160)).to(cuda)
+    blocks, n_mb, C = tops._chunk_blocks(frames)
+    qp = torch.full(blocks.shape[:2], 30.0, device=cuda)
+    fleet = torch.stack([blocks, blocks.flip(0)])
+    pooled = torch.rand(2, n_mb, device=cuda)
+    knobs = torch.tensor([0.5, 28.0, 42.0], device=cuda)
+
+    def calls():
+        return (tk.mbcodec_chunk_cuda(blocks, qp, True),
+                tk.mbcodec_chunk_scores_cuda(fleet, pooled, knobs, C, False))
+
+    calls()  # loads the library off the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = calls()
+    for seed in (1, 2):
+        rng = np.random.RandomState(seed)
+        fresh = torch.from_numpy(rng.rand(*blocks.shape).astype(np.float32))
+        blocks.copy_(fresh)
+        fleet.copy_(torch.stack([fresh, fresh.flip(0)]))
+        qp.uniform_(20, 45)
+        pooled.uniform_()
+        graph.replay()
+        want = calls()
+        torch.cuda.synchronize()
+        for a, b in zip(out, want):
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_chunk_wrappers_refuse_blocks_off_a_16_byte_boundary(cuda):
+    """The chunk kernels read rows as 16-byte vectors: a contiguous view 4
+    bytes into its storage is refused, not a fault."""
+    blocks, qp = _ragged_blocks(cuda, 1, 2, 0)
+    shifted = torch.zeros(blocks.numel() + 1, device=cuda)[1:]
+    shifted = shifted.view(blocks.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        tk.mbcodec_chunk_cuda(shifted[0], qp[0])
+    with pytest.raises(ValueError, match="16-byte"):
+        tk.mbcodec_chunk_scores_cuda(shifted,
+                                     torch.rand(1, RAGGED_MB, device=cuda),
+                                     torch.tensor([0.5, 30.0, 40.0],
+                                                  device=cuda), RAGGED_C)
+    tk.mbcodec_chunk_cuda(blocks[0], qp[0])  # the context is still usable
+    torch.cuda.synchronize()
+
+
+def test_chunk_kernels_refuse_a_dct_matrix_other_than_the_compiled_one(
+        cuda, monkeypatch):
+    """D is compiled into the chunk kernels; a launch handed another D
+    raises instead of coding with the wrong transform."""
+    blocks, qp = _ragged_blocks(cuda, 1, 2, 0)
+    other = tk.dct_matrix().copy()
+    other[3, 5] = np.nextafter(other[3, 5], np.float32(1))
+    w = tk.freq_weight()
+    monkeypatch.setattr(tk, "_host_consts",
+                        lambda: (other.ctypes.data, w.ctypes.data))
+    with pytest.raises(RuntimeError, match="dct_matrix"):
+        tk.mbcodec_chunk_cuda(blocks[0], qp[0])
+    with pytest.raises(RuntimeError, match="dct_matrix"):
+        tk.mbcodec_chunk_scores_cuda(blocks,
+                                     torch.rand(1, RAGGED_MB, device=cuda),
+                                     torch.tensor([0.5, 30.0, 40.0],
+                                                  device=cuda), RAGGED_C)
 
 
 def test_fleet_engine_overlaps_on_the_card(cuda):

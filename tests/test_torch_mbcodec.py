@@ -20,7 +20,10 @@ from repro_torch.codec import codec as tc
 from repro_torch.kernels import build
 from repro_torch.kernels.mbcodec import kernel as tk
 from repro_torch.kernels.mbcodec import ops as tops
-from repro_torch.kernels.mbcodec.ref import mbcodec_chunk_ref, mbcodec_ref
+from repro_torch.kernels.mbcodec.ref import (mbcodec_chunk_ref,
+                                             mbcodec_chunk_rowcol,
+                                             mbcodec_ref, rowcol_bits,
+                                             scores_qp)
 
 
 def _chunk(T=4, H=32, W=48, seed=3, lo=0.0, hi=1.0, drift=0.04):
@@ -179,6 +182,24 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         build.build(["mbcodec"])
 
 
+def test_chunk_kernel_compiles_in_the_dct_matrix_of_codec_dct():
+    """``mbcodec.cu`` writes D out as hex floats so that its transform FMAs
+    take D as immediates: bit for bit ``codec/dct.py::dct_matrix()``, which
+    the kernel's launch also checks on the card."""
+    import re
+
+    from repro_torch.codec.dct import dct_matrix
+
+    src = (build.KERNELS_DIR / build.SOURCES["mbcodec"]).read_text()
+    body = src.split("#define MBCODEC_DCT_16")[1].split("}")[0]
+    lits = re.findall(r"(-?0x[0-9a-f.]+p[-+]?\d+)f", body)
+    table = np.array([float.fromhex(x) for x in lits], np.float32)
+    assert table.shape == (256,)
+    assert np.array_equal(table.view(np.uint32),
+                          dct_matrix().reshape(-1).view(np.uint32))
+    assert tk.DCT_MISMATCH == -1 and "kDctMismatch = -1" in src
+
+
 def test_library_path_tracks_the_source():
     path = build.library_path("mbcodec")
     assert path.parent == build.BUILD_DIR
@@ -283,3 +304,121 @@ def test_scores_qp_thresholds_with_ge():
     pooled = torch.tensor([[0.2, 0.5, 0.7]])
     qp = scores_qp(pooled, torch.tensor([0.5, 30.0, 40.0]), 2)
     assert qp.tolist() == [[40.0, 40.0, 30.0, 30.0, 30.0, 30.0]]
+
+
+# ---------------------------------------------------------------------------
+# the plain twin of the chunk kernel's association (row pass, column pass,
+# quantize, D^T deq, then D; bits summed per column, then a butterfly)
+# ---------------------------------------------------------------------------
+def _assert_flips_bounded(got, want):
+    """got / want = (rec, bits, q) with a leading frame axis: flipped
+    coefficients at most 1e-4 of all; blocks without flips agree, decoded
+    atol 1e-5 and bits rtol 1e-4. Returns the number of flips."""
+    flips = got[2] != want[2]
+    n_flips = int(flips.sum())
+    assert n_flips <= 1e-4 * flips.numel()
+    clean = ~flips.flatten(2).any(-1).any(0)  # blocks never flipped
+    assert bool(clean.any())
+    np.testing.assert_allclose(got[0][:, clean].numpy(),
+                               want[0][:, clean].numpy(), atol=1e-5)
+    np.testing.assert_allclose(got[1][:, clean].numpy(),
+                               want[1][:, clean].numpy(), rtol=1e-4)
+    return n_flips
+
+
+def _drifting_blocks(shape, seed):
+    """Blocks (T, ..., 16, 16) in [0, 1] that drift frame to frame, so the
+    carried reference matters."""
+    rng = np.random.RandomState(seed)
+    T = shape[0]
+    ramp = 0.3 * np.arange(T).reshape((T,) + (1,) * (len(shape) + 1))
+    return np.clip(rng.rand(*shape, 16, 16) + ramp - 0.6, 0,
+                   1).astype(np.float32)
+
+
+@pytest.mark.parametrize("clip_refs", [False, True])
+@pytest.mark.parametrize("T,N,seed", [(5, 64, 11), (1, 21, 4), (10, 21, 6)])
+def test_rowcol_twin_matches_plain_version(T, N, seed, clip_refs):
+    """The twin against ``mbcodec_chunk_ref`` (the ref's association, D X
+    then D^T), flips counted, with q consistent with the bits."""
+    blocks = _drifting_blocks((T, N), seed)
+    qp = np.random.RandomState(seed + 1).uniform(10, 50, (T, N))
+    args = (torch.from_numpy(blocks), torch.from_numpy(qp.astype(np.float32)),
+            clip_refs)
+    got = mbcodec_chunk_rowcol(*args, want_q=True)
+    want = mbcodec_chunk_ref(*args, want_q=True)
+    _assert_flips_bounded(got, want)
+    assert torch.equal(got[2], got[2].round())
+    assert all(torch.isfinite(t).all() for t in got)
+    # torch's CPU log2 may differ by a few ulp on a process's first call,
+    # so the bits of a second call are held to rounding, not to the bit
+    rec, bits = mbcodec_chunk_rowcol(*args)
+    assert torch.equal(rec, got[0])
+    np.testing.assert_allclose(bits.numpy(), got[1].numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("clip_refs", [False, True])
+def test_rowcol_twin_matches_pallas_chunk_kernel(clip_refs):
+    """The twin against ``mbcodec_chunk_pallas`` itself (interpret mode) on
+    one 64-block tile, the reference's q recovered from its ``want_q``-free
+    outputs by the plain version (flips between the two float orders
+    counted against the plain version's q)."""
+    blocks = _drifting_blocks((5, 64), 11)
+    qp = np.random.RandomState(12).uniform(10, 50, (5, 64)).astype(
+        np.float32)
+    r_pl, b_pl = jk.mbcodec_chunk_pallas(
+        jnp.asarray(blocks), jnp.asarray(qp), clip_refs=clip_refs,
+        interpret=True)
+    args = (torch.from_numpy(blocks), torch.from_numpy(qp), clip_refs)
+    got = mbcodec_chunk_rowcol(*args, want_q=True)
+    q_plain = mbcodec_chunk_ref(*args, want_q=True)[2]
+    _assert_flips_bounded(got, (torch.from_numpy(np.asarray(r_pl)),
+                                torch.from_numpy(np.asarray(b_pl)), q_plain))
+
+
+@pytest.mark.parametrize("clip_refs", [False, True])
+def test_rowcol_twin_matches_pallas_scores_kernel(clip_refs):
+    """The twin on the QP map ``scores_qp`` implies, against
+    ``mbcodec_chunk_scores_pallas`` (interpret mode), stream by stream;
+    alpha sits exactly on one score of each stream."""
+    S, T, N = 2, 5, 64
+    blocks = _drifting_blocks((T, S, N), 10)
+    pooled = _pooled(S, N, 8)
+    qp = scores_qp(torch.from_numpy(pooled), torch.from_numpy(KNOBS), 1)
+    args = (torch.from_numpy(blocks), qp[None].expand(T, S, N), clip_refs)
+    got = mbcodec_chunk_rowcol(*args, want_q=True)
+    q_plain = mbcodec_chunk_ref(*args, want_q=True)[2]
+    for s in range(S):
+        r_pl, b_pl = jk.mbcodec_chunk_scores_pallas(
+            jnp.asarray(blocks[:, s]), jnp.asarray(pooled[s]),
+            jnp.asarray(KNOBS), clip_refs=clip_refs, interpret=True)
+        _assert_flips_bounded(
+            tuple(t[:, s] for t in got),
+            (torch.from_numpy(np.asarray(r_pl)),
+             torch.from_numpy(np.asarray(b_pl)), q_plain[:, s]))
+
+
+def test_rowcol_bits_sum_columns_then_by_butterfly():
+    """``rowcol_bits`` adds each column from row 0 down, then the column
+    sums pairwise at distance 8, 4, 2, 1 (the kernel's shuffle order), then
+    the header: equal to an explicit float32 loop, bit for bit."""
+    cost = torch.from_numpy(np.random.RandomState(3).rand(4, 16, 16)
+                            .astype(np.float32) * 20)
+    bits = rowcol_bits(cost)
+    for n in range(4):
+        col = [torch.tensor(0.0) for _ in range(16)]
+        for i in range(16):
+            for k in range(16):
+                col[i] = col[i] + cost[n, k, i]
+        for half in (8, 4, 2, 1):
+            col = [col[i] + col[i + half] for i in range(half)]
+        assert float(bits[n]) == float(col[0] + tc.BLOCK_OVERHEAD)
+
+
+def test_rowcol_twin_bits_agree_with_block_bits_of_its_q():
+    blocks = _drifting_blocks((2, 3), 2)
+    _, bits, q = mbcodec_chunk_rowcol(torch.from_numpy(blocks),
+                                      torch.full((2, 3), 12.0), want_q=True)
+    np.testing.assert_allclose(bits.numpy(),
+                               tc.block_bits(q[:, :, None]).numpy(),
+                               rtol=1e-5)
