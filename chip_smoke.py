@@ -8,24 +8,33 @@ check it end to end.
    logging ptxas's registers and spills; for each of the four
    ``mbcodec_chunk_kernel`` and eight ``wkv6`` instantiations also its
    shared memory (and stack frame), and it fails on a spill there (or a
-   stack frame in the chunk kernel).
-2. Kernel phase: each kernel (``mbcodec_frame``, ``mbcodec_chunk`` with
-   and without the reference clip, and ``mbcodec_chunk_scores`` with and
-   without it) runs at its path's shapes (T=10 frames, N=2880 blocks; 8
-   streams for the scores kernel) against its plain PyTorch version on
-   the same inputs; it must agree (see ``check_kernel``) and both are
-   timed with CUDA events. The chunk and scores kernels are also held to
-   the same bounds against their row/column twin (``ref.py::
-   mbcodec_chunk_rowcol``, the kernel's association) and log their GB/s;
-   the scores kernel is held bit for bit against the explicit-array
-   chunk kernel fed the QP map its threshold implies.
+   stack frame in the chunk kernel), or if the mbcodec library holds any
+   kernel besides the four chunk kernel instantiations. It logs each of
+   those four's SASS instruction count and top opcodes (``cuobjdump``).
+2. Kernel phase: each mbcodec entry point (``mbcodec_frame``, the chunk
+   kernel at T = 1; ``mbcodec_chunk`` with and without the reference
+   clip; ``mbcodec_chunk_scores`` with and without it) runs at its path's
+   shapes (one frame or T=10 frames of N=2880 blocks; 8 streams for the
+   scores kernel) against its plain PyTorch version on the same inputs;
+   it must agree (see ``check_kernel``) and both are timed with CUDA
+   events. Each is also held to the same bounds against its row/column
+   twin (``ref.py::mbcodec_chunk_rowcol``, the kernel's association) and
+   logs its GB/s. The frame row is held bit for bit against
+   ``mbcodec_chunk`` at T = 1, and the scores kernel against the
+   explicit-array chunk kernel fed the QP map its threshold implies. The
+   chunk kernel is also timed over 1, 2, 5 and 10 frames and on one
+   thread block, to split a launch's fixed cost from a frame's (logged
+   only).
 3. Single-stream path: the AccMPEG loop,
    ``StreamingEngine.run(AccMPEGPolicy)``, at full size (dashcam scene,
    30 frames of 384x640, detection FinalDNN width 32, AccModel width 16,
    weights drawn from a seeded ``torch.Generator``) under the codec
    backends exact, pallas, fused and fused_exact. Each run's kernel
    launches are counted, every op is checked to run on the card, and the
-   kernel backends' bytes are held against exact's.
+   kernel backends' bytes are held against exact's. Then one
+   ``torch.profiler`` window of one chunk's encode under pallas and under
+   fused logs the launches and kernels, device against host ms, the busy
+   share and the top ops (it checks nothing).
 4. Fleet path: ``MultiStreamEngine.run`` over 8 dashcam streams of 30
    frames of 384x640 with the same models, under exact, fused and
    fused_exact overlapped and fused serialized, with the same launch and
@@ -91,8 +100,10 @@ prints no result.
 """
 from __future__ import annotations
 
+import collections
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -285,7 +296,7 @@ def kernel_phase(frames):
         "mbcodec_frame": (
             lambda q=False: K.mbcodec_frame_cuda(blocks[0], qp[0], want_q=q),
             lambda q=False: mbcodec_ref(blocks[0], qp[0], want_q=q), 1,
-            None)}
+            False)}
     for clip in (False, True):
         variants[K.chunk_kernel_name(clip)] = (
             lambda q=False, c=clip: K.mbcodec_chunk_cuda(blocks, qp, c,
@@ -299,14 +310,37 @@ def kernel_phase(frames):
         if frames_in == 1:
             got, want = ([t[None] for t in x] for x in (got, want))
         max_err = check_kernel(name, got, want)
-        moved = None
-        if clip is not None:  # the chunk kernel: also against its twin
-            check_kernel(f"{name} vs its row/column twin", got,
-                         mbcodec_chunk_rowcol(blocks, qp, clip, want_q=True))
-            moved = codec_bytes(frames_in, N, 4 * frames_in * N)
+        check_kernel(f"{name} vs its row/column twin", got,
+                     mbcodec_chunk_rowcol(blocks[:frames_in], qp[:frames_in],
+                                          clip, want_q=True))
+        if frames_in == 1:  # the frame entry point: the chunk kernel at T=1
+            chunk = K.mbcodec_chunk_cuda(blocks[:1], qp[:1], False,
+                                         want_q=True)
+            torch.cuda.synchronize()
+            differ = [int((a != b).sum()) for a, b in zip(got, chunk)]
+            log(f"  {name} vs mbcodec_chunk at T = 1: elements differing in "
+                f"rec, bits, q: {differ}"
+                + (" (bit-identical)" if not any(differ) else ""))
+            if any(differ):
+                raise AssertionError(f"{name} is not mbcodec_chunk at T = 1")
         rows[name] = timed_row(name, kern, plain, max_err,
                                bound_ms(frames_in, N, 4 * frames_in * N),
-                               moved=moved)
+                               moved=codec_bytes(frames_in, N,
+                                                 4 * frames_in * N))
+    # the chunk kernel over 1 to T frames: what a launch costs beyond the
+    # per-frame work, which a single frame (the frame entry point) pays;
+    # and one thread block's frame alone, the latency of the body
+    by_t = {t: time_ms(lambda t=t: K.mbcodec_chunk_cuda(blocks[:t], qp[:t],
+                                                        False))[0]
+            for t in (1, 2, 5, T)}
+    per_frame = (by_t[T] - by_t[1]) / (T - 1)
+    one_cta = time_ms(lambda: K.mbcodec_chunk_cuda(blocks[:1, :8],
+                                                   qp[:1, :8], False))[0]
+    log(f"  {K.chunk_kernel_name(False)} by frames ({CARD}): "
+        + ", ".join(f"T={t} {ms:.4f} ms" for t, ms in by_t.items())
+        + f"; {per_frame:.4f} ms a further frame, "
+        f"{by_t[1] - per_frame:.4f} ms fixed a launch (T=1 less that); "
+        f"one thread block (8 blocks) at T=1 {one_cta:.4f} ms")
     return rows
 
 
@@ -471,8 +505,9 @@ def audited(run):
 
 
 def main_path_phase(scene_frames, rows, dnn, am):
+    from repro_torch.codec.codec import CHUNK_ENCODERS
     from repro_torch.core.pipeline import make_reference
-    from repro_torch.core.quality import QualityConfig
+    from repro_torch.core.quality import QualityConfig, qp_map_from_scores
     from repro_torch.engine import AccMPEGPolicy, StreamingEngine
     from repro_torch.kernels.mbcodec.kernel import LAUNCHES, chunk_kernel_name
 
@@ -532,6 +567,16 @@ def main_path_phase(scene_frames, rows, dnn, am):
         rows[name]["launches"] = launches.get(name, 0)
         if rows[name]["launches"] < 1:
             raise AssertionError(f"{name} never launched on its path")
+
+    # where one chunk's encode spends its time: the pallas backend (one
+    # launch a frame) against fused (one a chunk), on the policy's QP maps
+    chunk = scene_frames[:CHUNK_FRAMES]
+    qmaps, _ = qp_map_from_scores(am.scores(chunk[:1]), qcfg)
+    for impl in ("pallas", "fused"):
+        encode = CHUNK_ENCODERS.resolve(impl)
+        encode(chunk, qmaps)  # warm
+        _profiled(f"{impl} encode of one chunk",
+                  lambda: float(encode(chunk, qmaps)[1].sum()), ("chunk", 1))
 
 
 def fleet_phase(fleet_frames, rows, dnn, am):
@@ -1023,30 +1068,54 @@ def ptxas_kernels(report):
     return kernels
 
 
+def _mbcodec_label(fn):
+    """``mbcodec_chunk_kernel<clip, QpSource>`` of a mangled name."""
+    source = "QpFromScores" if "QpFromScores" in fn else "QpFromArray"
+    return f"mbcodec_chunk_kernel<{'ILb1E' in fn}, {source}>"
+
+
+def mbcodec_sass_report():
+    """Logs each mbcodec instantiation's SASS (``cuobjdump -sass`` of the
+    built library): its instruction count and most frequent opcodes. The
+    loop over frames holds one frame's whole body, so the count is about
+    one thread's instructions a frame. Checks nothing."""
+    from repro_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build.library_path("mbcodec"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    for part in sass.split("Function : ")[1:]:
+        ops = collections.Counter(re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+            part))
+        log(f"    {_mbcodec_label(part.split()[0])} SASS: "
+            f"{sum(ops.values())} instructions; "
+            + ", ".join(f"{op} {n}" for op, n in ops.most_common(10)))
+
+
 def mbcodec_build_report(report):
     """Logs each mbcodec kernel's registers, shared memory, stack frame and
-    spills from nvcc's ``-Xptxas -v`` report; fails unless all four
-    ``mbcodec_chunk_kernel`` instantiations are there, none with a spill
-    or a stack frame (each thread's rows live in registers)."""
-    chunk = 0
-    for k in ptxas_kernels(report):
+    spills from nvcc's ``-Xptxas -v`` report; fails unless the library
+    holds exactly the four ``mbcodec_chunk_kernel`` instantiations (the
+    frame entry point launches one of them), none with a spill or a stack
+    frame (each thread's rows live in registers)."""
+    kernels = ptxas_kernels(report)
+    for k in kernels:
         fn = k["fn"]
-        if "mbcodec_chunk_kernel" in fn:
-            source = "QpFromScores" if "QpFromScores" in fn else "QpFromArray"
-            label = f"mbcodec_chunk_kernel<{'ILb1E' in fn}, {source}>"
-        else:
-            label = "mbcodec_frame_kernel"
+        if "mbcodec_chunk_kernel" not in fn:
+            raise AssertionError(f"the mbcodec library holds {fn}, a kernel "
+                                 f"other than mbcodec_chunk_kernel")
+        label = _mbcodec_label(fn)
         log(f"    {label}: {k['registers']} registers, {k['smem']} B shared "
             f"memory, {k['stack']} B stack frame, {k['spills']} B spilled")
-        if label.startswith("mbcodec_chunk_kernel"):
-            chunk += 1
-            if k["stack"] is None or k["stack"] or k["spills"]:
-                raise AssertionError(f"{label}: {k['stack']} B stack frame, "
-                                     f"{k['spills']} B spilled (or no "
-                                     f"ptxas report)")
-    if chunk != 4:
-        raise AssertionError(f"ptxas reported {chunk} mbcodec_chunk_kernel "
-                             f"instantiations, not 4")
+        if k["stack"] is None or k["stack"] or k["spills"]:
+            raise AssertionError(f"{label}: {k['stack']} B stack frame, "
+                                 f"{k['spills']} B spilled (or no ptxas "
+                                 f"report)")
+    if len(kernels) != 4:
+        raise AssertionError(f"ptxas reported {len(kernels)} "
+                             f"mbcodec_chunk_kernel instantiations, not 4")
 
 
 def wkv6_build_report(report):
@@ -1109,8 +1178,8 @@ def _serve(model, prompt, max_seq, steps, marks=None):
 def _profiled(label, run, per):
     """``run()`` under ``torch.profiler``: the card's busy share of the
     window (the kernels' summed device time, one stream, over the host
-    clock), the kernels that fill it and the host's costliest ops, each
-    per ``per`` (steps or calls)."""
+    clock), the kernels that fill it, the port's own kernels and the
+    host's costliest ops, each per ``per`` (steps, calls or chunks)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1128,17 +1197,19 @@ def _profiled(label, run, per):
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:5]
-    ours = [e for e in kernels
-            if any(k in e.key for k in ("wkv6_", "decode_attn_kernel"))]
+    ours = [e for e in kernels if any(k in e.key for k in (
+        "wkv6_", "decode_attn_kernel", "mbcodec_chunk_kernel",
+        "accgrad_reduce_kernel"))]
     host = sorted((e for e in rows if e.device_type == DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)[:5]
     log(f"  profiled {label} ({CARD}), per {per[0]}: host clock "
         f"{wall * 1e3 / per[1]:.4f} ms under the profiler, device busy "
         f"{busy * 1e3 / per[1]:.4f} ms (share {busy / wall:.4f}), "
-        f"{launches / per[1]:.1f} kernel launches; top kernels (ms): "
+        f"{launches / per[1]:.1f} kernel launches of {len(kernels)} "
+        f"kernels; top kernels (ms): "
         + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / per[1]:.4f}"
                     f" x{e.count / per[1]:g}" for e in top)
-        + "; the port's LM kernels (ms): "
+        + "; the port's kernels (ms): "
         + ("; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / per[1]:.4f}"
                      f" x{e.count / per[1]:g}" for e in ours) or "none")
         + "; top host ops by self time (ms): "
@@ -1324,6 +1395,7 @@ def main():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
+    mbcodec_sass_report()
 
     t0 = time.perf_counter()
     scene = make_scene("dashcam", seed=33, T=SCENE_FRAMES, H=HEIGHT,

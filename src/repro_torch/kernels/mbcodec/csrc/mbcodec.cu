@@ -1,14 +1,15 @@
 // Macroblock codec kernels for Hopper (sm_90a), plain C interface for ctypes.
 //
-// mbcodec_chunk_kernel<CLIP, QpSource> replaces two TPU kernels of
-// src/repro/kernels/mbcodec/kernel.py: with QpFromArray,
-// mbcodec_chunk_pallas (body _chunk_kernel / _encode_tile_step); with
-// QpFromScores, mbcodec_chunk_scores_pallas (body _chunk_scores_kernel),
-// stream-batched as the reference's jax.vmap over it. Per 16x16 block, a
-// scan over the chunk's T frames of DCT(x - ref) -> quantize by
-// qstep(qp) * w -> entropy bits -> dequantize -> IDCT -> ref += rec, with
-// the frame-0 reference zero and, when CLIP, the reference clipped to
-// [0, 1] each step. QpFromScores assigns the two-level QP inside the
+// mbcodec_chunk_kernel<CLIP, QpSource>, the one kernel of this file,
+// replaces the three TPU kernels of src/repro/kernels/mbcodec/kernel.py:
+// with QpFromArray, mbcodec_chunk_pallas (body _chunk_kernel /
+// _encode_tile_step) and, at T = 1, mbcodec_pallas (see mbcodec_frame
+// below); with QpFromScores, mbcodec_chunk_scores_pallas (body
+// _chunk_scores_kernel), stream-batched as the reference's jax.vmap over
+// it. Per 16x16 block, a scan over the chunk's T frames of DCT(x - ref)
+// -> quantize by qstep(qp) * w -> entropy bits -> dequantize -> IDCT ->
+// ref += rec, with the frame-0 reference zero and, when CLIP, the
+// reference clipped to [0, 1] each step. QpFromScores assigns the two-level QP inside the
 // kernel from the stream's dilated AccModel scores and a knob triple
 // (alpha, qp_hi, qp_lo) read from device memory, so no QP map exists in
 // device memory and the host never reads the knobs.
@@ -20,7 +21,7 @@
 // fp32 rate (0.124 ms with the quantizer's elementwise work), so the
 // operations sit at about 80-90% of the bytes: the kernel is bound by
 // bytes, with little slack for anything but the FMAs themselves. A
-// single-stream chunk is an eighth of both. The transforms stay on the
+// single-stream chunk is an eighth of both, one frame a tenth of that. The transforms stay on the
 // CUDA cores in plain fp32: TF32 or bf16 products would round
 // coefficients differently and flip quantized values, which changes bytes.
 //
@@ -71,13 +72,20 @@
 //   (QpFromScores); both run one body, so the scores kernel gives the
 //   explicit-array kernel's bits on the QP map its threshold implies.
 //
-// mbcodec_frame_kernel replaces
-//   src/repro/kernels/mbcodec/kernel.py::mbcodec_pallas (body _kernel):
-//   the same block transform for one frame with no reference. It keeps the
-//   first version's body (encode_block, one thread block of 256 threads
-//   per block, one thread per coefficient, D and w staged in shared memory
-//   and 4 __syncthreads a block); it is the next kernel to take the chunk
-//   kernel's design.
+// The frame entry point, mbcodec_frame, replaces a third TPU kernel,
+// src/repro/kernels/mbcodec/kernel.py::mbcodec_pallas (body _kernel): one
+// frame's block transform with no reference. It launches the chunk kernel
+// <false, QpFromArray> at S = 1, T = 1, which is the same function
+// exactly: with the reference zero, a = x - 0 is x bit for bit (-0 - 0
+// stays -0), and the stored ref = 0 + rec is rec (0 + (-0) gives +0, which
+// compares equal). So it equals mbcodec_chunk at T = 1 bit for bit, and
+// keeps the chunk kernel's contract: D compiled in and checked, w in the
+// launch parameters, rows read as 16-byte vectors, no atomics. At N = 2880
+// a launch is 360 thread blocks of 128 threads, one wave at 5 an SM; with
+// one frame there is no frame t+1 to load ahead, so the frame's load is
+// exposed once. (The first CUDA version gave each block 256 threads, one
+// per coefficient, with D and w staged in shared memory per block and 4
+// __syncthreads a block.)
 //
 // Numerics follow the reference so that quantized values match: IEEE
 // division c / step (no fast math), rintf (half to even), exp2f / log2f
@@ -390,91 +398,6 @@ mbcodec_chunk_kernel(const float* __restrict__ blocks, QpSource qps,
   }
 }
 
-// ---------------------------------------------------------------------------
-// The frame kernel: the first version's body, one thread per coefficient.
-// ---------------------------------------------------------------------------
-struct Smem {
-  float d[NT];   // D[r][k] at r * 16 + k
-  float dt[NT];  // D[k][r] at r * 16 + k
-  float w[NT];
-  float a[NT];
-  float b[NT];
-  float warp_bits[NT / 32];
-};
-
-__device__ __forceinline__ void stage_constants(Smem& s, const float* d,
-                                                const float* w, int r,
-                                                int c) {
-  const int tid = r * MB + c;
-  s.d[tid] = d[tid];
-  s.dt[tid] = d[c * MB + r];
-  s.w[tid] = w[tid];
-}
-
-// One 16x16 block through transform, quantizer and inverse. Thread (r, c)
-// passes src[r][c] and gets back the residual reconstruction at (r, c) and
-// its quantized coefficient in *q. Thread 0 also gets the block's bits.
-// Contains the __syncthreads that make stage_constants visible.
-__device__ __forceinline__ float encode_block(float src, float qp, Smem& s,
-                                              int r, int c, float* q,
-                                              float* bits) {
-  const int tid = r * MB + c;
-  s.a[tid] = src;
-  __syncthreads();
-  float y = 0.0f;  // (X D^T)[r][c]
-#pragma unroll
-  for (int k = 0; k < MB; ++k) y += s.a[r * MB + k] * s.dt[k * MB + c];
-  s.b[tid] = y;
-  __syncthreads();
-  float coef = 0.0f;  // (D X D^T)[r][c]
-#pragma unroll
-  for (int j = 0; j < MB; ++j) coef += s.d[r * MB + j] * s.b[j * MB + c];
-
-  const float step = qstep_of(qp) * s.w[tid];
-  const float qv = rintf(coef / step);
-  const float aq = fabsf(qv);
-  float bit = BITS_PER_MAG * log2f(1.0f + aq) + (aq > 0.5f ? RUN_BITS : 0.0f);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    bit += __shfl_down_sync(0xffffffffu, bit, off);
-  if ((tid & 31) == 0) s.warp_bits[tid >> 5] = bit;
-  s.a[tid] = qv * step;
-  __syncthreads();
-  if (tid == 0) {
-    float total = 0.0f;
-#pragma unroll
-    for (int i = 0; i < NT / 32; ++i) total += s.warp_bits[i];
-    *bits = total + BLOCK_OVERHEAD;
-  }
-  float z = 0.0f;  // (deq D)[r][c]
-#pragma unroll
-  for (int k = 0; k < MB; ++k) z += s.a[r * MB + k] * s.d[k * MB + c];
-  s.b[tid] = z;
-  __syncthreads();
-  float rec = 0.0f;  // (D^T deq D)[r][c]
-#pragma unroll
-  for (int j = 0; j < MB; ++j) rec += s.dt[r * MB + j] * s.b[j * MB + c];
-  *q = qv;
-  return rec;
-}
-
-__global__ void __launch_bounds__(NT)
-mbcodec_frame_kernel(const float* __restrict__ blocks,
-                     const float* __restrict__ qp,
-                     const float* __restrict__ d, const float* __restrict__ w,
-                     float* __restrict__ rec_out, float* __restrict__ bits_out,
-                     float* __restrict__ q_out, int N) {
-  __shared__ Smem s;
-  const int n = blockIdx.x;
-  const int r = threadIdx.x / MB, c = threadIdx.x % MB;
-  stage_constants(s, d, w, r, c);
-  const size_t off = static_cast<size_t>(n) * NT + threadIdx.x;
-  float q = 0.0f, bits = 0.0f;
-  rec_out[off] = encode_block(blocks[off], qp[n], s, r, c, &q, &bits);
-  if (q_out != nullptr) q_out[off] = q;
-  if (threadIdx.x == 0) bits_out[n] = bits;
-}
-
 constexpr int kDctMismatch = -1;  // the host's D is not the compiled D
 
 template <class QpSource>
@@ -525,12 +448,13 @@ extern "C" int mbcodec_chunk_scores(const float* blocks, const float* pooled,
                       w_host, rec, bits, q, S, T, N, clip, stream);
 }
 
-// blocks (N, 16, 16), qp (N,), d / w (16, 16), all on the device -> rec
-// (N, 16, 16), bits (N,), q optional.
+// blocks (N, 16, 16), qp (N,) on the device; d / w (16, 16) in host memory
+// -> rec (N, 16, 16), bits (N,), and q (N, 16, 16) when q is not null: the
+// chunk kernel at T = 1 with no clip, so mbcodec_chunk at T = 1 bit for bit.
 extern "C" int mbcodec_frame(const float* blocks, const float* qp,
-                             const float* d, const float* w, float* rec,
-                             float* bits, float* q, int N, void* stream) {
-  mbcodec_frame_kernel<<<N, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      blocks, qp, d, w, rec, bits, q, N);
-  return static_cast<int>(cudaGetLastError());
+                             const float* d_host, const float* w_host,
+                             float* rec, float* bits, float* q, int N,
+                             void* stream) {
+  return launch_chunk(blocks, QpFromArray{qp}, d_host, w_host, rec, bits, q,
+                      1, 1, N, 0, stream);
 }

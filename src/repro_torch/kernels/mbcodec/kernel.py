@@ -1,21 +1,22 @@
-"""ctypes wrappers of the CUDA kernels in ``csrc/mbcodec.cu``.
+"""ctypes wrappers of the CUDA kernel in ``csrc/mbcodec.cu``.
 
-``mbcodec_chunk_cuda`` launches ``mbcodec_chunk_kernel<clip_refs,
-QpFromArray>`` (replaces ``repro/kernels/mbcodec/kernel.py::
-mbcodec_chunk_pallas``), ``mbcodec_chunk_scores_cuda`` launches
-``mbcodec_chunk_kernel<clip_refs, QpFromScores>`` over a whole fleet chunk
-(replaces ``mbcodec_chunk_scores_pallas`` under the reference's
-``jax.vmap``) and ``mbcodec_frame_cuda`` launches ``mbcodec_frame_kernel``
-(replaces ``mbcodec_pallas``). All take CUDA float32 contiguous tensors,
-allocate their outputs, launch on the current stream without
-synchronising, and raise on any CUDA error the launch reports. The chunk
-kernels read each block row as 16-byte vectors, so their wrappers also
-refuse a ``blocks`` that does not start on a 16-byte boundary. They hold D
-compiled in (each transform FMA takes it as an immediate) and check it
-against ``codec/dct.py``'s on every launch; w goes into the launch's
-parameters from host memory, so a captured CUDA graph holds it.
-:data:`LAUNCHES` counts the launches of each kernel, so a run can show
-that it went through them.
+The file holds one kernel template, ``mbcodec_chunk_kernel<clip_refs,
+QpSource>``, behind three entry points. ``mbcodec_chunk_cuda`` launches it
+with ``QpFromArray`` (replaces ``repro/kernels/mbcodec/kernel.py::
+mbcodec_chunk_pallas``), ``mbcodec_chunk_scores_cuda`` with
+``QpFromScores`` over a whole fleet chunk (replaces
+``mbcodec_chunk_scores_pallas`` under the reference's ``jax.vmap``) and
+``mbcodec_frame_cuda`` with ``QpFromArray`` at T = 1 and no clip (replaces
+``mbcodec_pallas``; bit for bit ``mbcodec_chunk_cuda`` at T = 1). All take
+CUDA float32 contiguous tensors, allocate their outputs, launch on the
+current stream without synchronising, and raise on any CUDA error the
+launch reports. The kernel reads each block row as 16-byte vectors, so
+every wrapper also refuses a ``blocks`` that does not start on a 16-byte
+boundary. It holds D compiled in (each transform FMA takes it as an
+immediate), and each launch checks it against ``codec/dct.py``'s; w goes
+into the launch's parameters from host memory, so a captured CUDA graph
+holds it. :data:`LAUNCHES` counts the launches of each entry point, so a
+run can show that it went through them.
 """
 from __future__ import annotations
 
@@ -25,16 +26,15 @@ import functools
 
 import torch
 
-from repro_torch.codec.dct import (MB, dct_matrix, dct_tensor, freq_weight,
-                                   weight_tensor)
+from repro_torch.codec.dct import MB, dct_matrix, freq_weight
 from repro_torch.kernels import build
 
 #: launches per kernel: "mbcodec_frame", "mbcodec_chunk[clip=False|True]",
 #: "mbcodec_chunk_scores[clip=False|True]"
 LAUNCHES: collections.Counter = collections.Counter()
 
-#: what the chunk entry points return when the host's D differs from the
-#: one compiled into the kernel (``kDctMismatch`` in ``mbcodec.cu``)
+#: what every entry point returns when the host's D differs from the one
+#: compiled into the kernel (``kDctMismatch`` in ``mbcodec.cu``)
 DCT_MISMATCH = -1
 
 _P = ctypes.c_void_p
@@ -81,8 +81,8 @@ def _check_aligned(**tensors):
 
 def _host_consts():
     """Host pointers to D and w (float32, kept alive by the caches of
-    ``codec/dct.py``): the chunk kernels check D against the D they were
-    compiled with and take w as a launch parameter."""
+    ``codec/dct.py``): each launch checks D against the D the kernel was
+    compiled with and takes w as a launch parameter."""
     return dct_matrix().ctypes.data, freq_weight().ctypes.data
 
 
@@ -165,7 +165,7 @@ def mbcodec_chunk_scores_cuda(blocks: torch.Tensor, pooled: torch.Tensor,
 def mbcodec_frame_cuda(blocks: torch.Tensor, qp: torch.Tensor,
                        want_q: bool = False):
     """blocks (N, 16, 16), qp (N,) -> (rec (N, 16, 16), bits (N,)), plus q
-    (N, 16, 16) when ``want_q``."""
+    (N, 16, 16) when ``want_q``: the chunk kernel at T = 1 with no clip."""
     N = blocks.shape[0]
     _check("blocks", blocks, (N, MB, MB))
     _check("qp", qp, (N,))
@@ -173,13 +173,15 @@ def mbcodec_frame_cuda(blocks: torch.Tensor, qp: torch.Tensor,
         raise ValueError("empty frame")
     if qp.device != blocks.device:
         raise ValueError("blocks and qp lie on different devices")
+    _check_aligned(blocks=blocks)
     with torch.cuda.device(blocks.device):
-        d, w = dct_tensor(blocks.device), weight_tensor(blocks.device)
+        d, w = _host_consts()
         rec = torch.empty_like(blocks)
         bits = torch.empty((N,), dtype=torch.float32, device=blocks.device)
         q = torch.empty_like(blocks) if want_q else None
+        _check_aligned(rec=rec, q=q)
         err = _lib().mbcodec_frame(
-            blocks.data_ptr(), qp.data_ptr(), d.data_ptr(), w.data_ptr(),
+            blocks.data_ptr(), qp.data_ptr(), d, w,
             rec.data_ptr(), bits.data_ptr(), q.data_ptr() if want_q else None,
             N, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "mbcodec_frame")

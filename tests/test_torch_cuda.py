@@ -12,9 +12,10 @@ coefficients (the same against the chunk kernel's row/column twin,
 only); through the codec backends, where a flip moves its
 macroblock for the rest of the chunk, at most 2 of 60 macroblocks off by
 more than 1e-5; bytes per frame rtol 1e-3. The scores kernel against the
-explicit-array kernel fed the implied QP map: bit-equal (one kernel
-body); each chunk kernel against itself, called again or replayed from a
-CUDA graph: bit-equal (no atomics). ``accgrad_reduce`` against its plain version:
+explicit-array kernel fed the implied QP map, and the frame wrapper
+against the chunk kernel at T = 1: bit-equal (one kernel body); each
+entry point against itself, called again or replayed from a CUDA graph:
+bit-equal (no atomics). ``accgrad_reduce`` against its plain version:
 rtol 1e-5 per macroblock sum (summation order only); batched against per
 frame: bit-equal (each macroblock is summed alike). ``accgrad_frames`` on
 the card against the CPU's plain path: atol 1e-4 on grids normalised to
@@ -197,18 +198,54 @@ def _assert_flips_bounded(got, want):
                                want[1][:, clean].cpu().numpy(), rtol=1e-4)
 
 
-@pytest.mark.parametrize("clip", [False, True])
-@pytest.mark.parametrize("T", [1, 10])
+def _frame_as_chunk(blocks, qp, clip=False, want_q=False):
+    """The frame wrapper on a chunk of one frame, with no clip (the chunk
+    kernel at T = 1), results with their leading frame axis."""
+    assert blocks.shape[0] == 1 and not clip
+    out = tk.mbcodec_frame_cuda(blocks[0], qp[0], want_q=want_q)
+    return tuple(t[None] for t in out)
+
+
+def _frame_ref(blocks, qp, clip=False, want_q=False):
+    """``mbcodec_ref`` on a chunk of one frame, as ``_frame_as_chunk``."""
+    assert blocks.shape[0] == 1 and not clip
+    return tuple(t[None] for t in mbcodec_ref(blocks[0], qp[0], want_q))
+
+
+# (T, clip, entry point); the chunk cases keep their ids, and the frame
+# wrapper runs at the one shape it takes (T = 1, no clip)
+RAGGED_CASES = [pytest.param(T, clip, "chunk", id=f"{T}-{clip}")
+                for T in (1, 10) for clip in (False, True)] + [
+    pytest.param(1, False, "frame", id="frame")]
+
+
+@pytest.mark.parametrize("T,clip,entry", RAGGED_CASES)
 def test_chunk_kernel_on_a_ragged_grid_matches_plain_and_twin(cuda, T,
-                                                              clip):
-    """The explicit-QP chunk kernel at N = 21 (a ragged last thread block)
-    against the plain version and against its row/column twin."""
+                                                              clip, entry):
+    """The explicit-QP chunk kernel (or the frame wrapper) at N = 21 (a
+    ragged last thread block) against the plain version and against its
+    row/column twin."""
     blocks, qp = _ragged_blocks(cuda, 1, T, 20 + T)
-    got = tk.mbcodec_chunk_cuda(blocks[0], qp[0], clip, want_q=True)
-    for oracle in (mbcodec_chunk_ref, mbcodec_chunk_rowcol):
+    kernel, plain = ((tk.mbcodec_chunk_cuda, mbcodec_chunk_ref)
+                     if entry == "chunk" else (_frame_as_chunk, _frame_ref))
+    got = kernel(blocks[0], qp[0], clip, want_q=True)
+    for oracle in (plain, mbcodec_chunk_rowcol):
         want = oracle(blocks[0], qp[0], clip, want_q=True)
         torch.cuda.synchronize()
         _assert_flips_bounded(got, want)
+
+
+def test_frame_kernel_is_the_chunk_kernel_at_one_frame(cuda):
+    """The frame wrapper launches the chunk kernel at T = 1 with no clip:
+    bit for bit ``mbcodec_chunk_cuda`` on the same frame, q included."""
+    blocks, qp = _blocks_qp(cuda)
+    before = dict(tk.LAUNCHES)
+    got = _frame_as_chunk(blocks[:1], qp[:1], want_q=True)
+    assert tk.LAUNCHES["mbcodec_frame"] == before.get("mbcodec_frame",
+                                                      0) + 1
+    want = tk.mbcodec_chunk_cuda(blocks[:1], qp[:1], False, want_q=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("clip", [False, True])
@@ -241,7 +278,7 @@ def test_scores_kernel_on_a_ragged_grid_matches_plain_twin_and_explicit(
 
 
 def test_chunk_kernels_are_bitwise_repeatable(cuda):
-    """No atomics: two calls of each chunk kernel give the same bits."""
+    """No atomics: two calls of each entry point give the same bits."""
     blocks, qp = _ragged_blocks(cuda, 3, 10, 7)
     pooled = torch.rand(3, RAGGED_MB, device=cuda)
     knobs = torch.tensor([0.5, 28.0, 42.0], device=cuda)
@@ -249,7 +286,9 @@ def test_chunk_kernels_are_bitwise_repeatable(cuda):
         calls = [(tk.mbcodec_chunk_cuda(blocks[0], qp[0], clip,
                                         want_q=True),
                   tk.mbcodec_chunk_scores_cuda(blocks, pooled, knobs,
-                                               RAGGED_C, clip, want_q=True))
+                                               RAGGED_C, clip, want_q=True),
+                  tk.mbcodec_frame_cuda(blocks[0, 3], qp[0, 3],
+                                        want_q=True))
                  for _ in range(2)]
         torch.cuda.synchronize()
         for first, second in zip(*calls):
@@ -257,9 +296,9 @@ def test_chunk_kernels_are_bitwise_repeatable(cuda):
 
 
 def test_chunk_kernels_replay_in_a_cuda_graph(cuda):
-    """Both chunk kernels captured in one CUDA graph (D and w travel in
-    the launch's parameters) replay bit for bit as eager calls, with new
-    inputs copied into the captured tensors before each replay."""
+    """The three entry points captured in one CUDA graph (D and w travel
+    in the launch's parameters) replay bit for bit as eager calls, with
+    new inputs copied into the captured tensors before each replay."""
     frames = torch.from_numpy(_frames(T=10, H=96, W=160)).to(cuda)
     blocks, n_mb, C = tops._chunk_blocks(frames)
     qp = torch.full(blocks.shape[:2], 30.0, device=cuda)
@@ -269,7 +308,8 @@ def test_chunk_kernels_replay_in_a_cuda_graph(cuda):
 
     def calls():
         return (tk.mbcodec_chunk_cuda(blocks, qp, True),
-                tk.mbcodec_chunk_scores_cuda(fleet, pooled, knobs, C, False))
+                tk.mbcodec_chunk_scores_cuda(fleet, pooled, knobs, C, False),
+                tk.mbcodec_frame_cuda(blocks[4], qp[4]))
 
     calls()  # loads the library off the capture
     torch.cuda.synchronize()
@@ -291,13 +331,15 @@ def test_chunk_kernels_replay_in_a_cuda_graph(cuda):
 
 
 def test_chunk_wrappers_refuse_blocks_off_a_16_byte_boundary(cuda):
-    """The chunk kernels read rows as 16-byte vectors: a contiguous view 4
-    bytes into its storage is refused, not a fault."""
+    """The kernel reads rows as 16-byte vectors: a contiguous view 4 bytes
+    into its storage is refused by every entry point, not a fault."""
     blocks, qp = _ragged_blocks(cuda, 1, 2, 0)
     shifted = torch.zeros(blocks.numel() + 1, device=cuda)[1:]
     shifted = shifted.view(blocks.shape)
     with pytest.raises(ValueError, match="16-byte"):
         tk.mbcodec_chunk_cuda(shifted[0], qp[0])
+    with pytest.raises(ValueError, match="16-byte"):
+        tk.mbcodec_frame_cuda(shifted[0, 0], qp[0, 0])
     with pytest.raises(ValueError, match="16-byte"):
         tk.mbcodec_chunk_scores_cuda(shifted,
                                      torch.rand(1, RAGGED_MB, device=cuda),
@@ -309,8 +351,8 @@ def test_chunk_wrappers_refuse_blocks_off_a_16_byte_boundary(cuda):
 
 def test_chunk_kernels_refuse_a_dct_matrix_other_than_the_compiled_one(
         cuda, monkeypatch):
-    """D is compiled into the chunk kernels; a launch handed another D
-    raises instead of coding with the wrong transform."""
+    """D is compiled into the kernel; a launch of any entry point handed
+    another D raises instead of coding with the wrong transform."""
     blocks, qp = _ragged_blocks(cuda, 1, 2, 0)
     other = tk.dct_matrix().copy()
     other[3, 5] = np.nextafter(other[3, 5], np.float32(1))
@@ -319,6 +361,8 @@ def test_chunk_kernels_refuse_a_dct_matrix_other_than_the_compiled_one(
                         lambda: (other.ctypes.data, w.ctypes.data))
     with pytest.raises(RuntimeError, match="dct_matrix"):
         tk.mbcodec_chunk_cuda(blocks[0], qp[0])
+    with pytest.raises(RuntimeError, match="dct_matrix"):
+        tk.mbcodec_frame_cuda(blocks[0, 0], qp[0, 0])
     with pytest.raises(RuntimeError, match="dct_matrix"):
         tk.mbcodec_chunk_scores_cuda(blocks,
                                      torch.rand(1, RAGGED_MB, device=cuda),

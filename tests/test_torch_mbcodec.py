@@ -422,3 +422,29 @@ def test_rowcol_twin_bits_agree_with_block_bits_of_its_q():
     np.testing.assert_allclose(bits.numpy(),
                                tc.block_bits(q[:, :, None]).numpy(),
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 64, 65, 200])
+def test_rowcol_twin_matches_pallas_frame_kernel(n):
+    """The frame kernel is the chunk kernel at T = 1 with no clip, so its
+    association is the twin's at T = 1: held against ``mbcodec_pallas``
+    itself (interpret mode), flips counted against the plain version's q."""
+    blocks, qp = _blocks_qp((n,), n)
+    r_pl, b_pl = jops.mbcodec(jnp.asarray(blocks), jnp.asarray(qp),
+                              impl="interpret")
+    args = (torch.from_numpy(blocks)[None], torch.from_numpy(qp)[None])
+    got = mbcodec_chunk_rowcol(*args, False, want_q=True)
+    q_plain = mbcodec_ref(*(a[0] for a in args), want_q=True)[2]
+    _assert_flips_bounded(got, (torch.from_numpy(np.asarray(r_pl))[None],
+                                torch.from_numpy(np.asarray(b_pl))[None],
+                                q_plain[None]))
+
+
+def test_mbcodec_source_holds_one_kernel_template():
+    """``mbcodec.cu`` holds one ``__global__`` template, which serves the
+    frame, chunk and scores entry points; the frame's own body is gone."""
+    src = (build.KERNELS_DIR / build.SOURCES["mbcodec"]).read_text()
+    assert src.count("__global__") == 1
+    assert "mbcodec_frame_kernel" not in src
+    for entry in ("mbcodec_frame", "mbcodec_chunk", "mbcodec_chunk_scores"):
+        assert f'extern "C" int {entry}(' in src
