@@ -4,7 +4,9 @@
 (bytes * 8 / bandwidth + RTT/2). Server inference delay is excluded, as
 in the paper. The chunk loops live in :mod:`repro_torch.engine`; a fleet
 sharing one uplink is priced by processor sharing
-(:func:`shared_stream_delays`) and its pipeline by :class:`FleetTiming`.
+(:func:`shared_stream_delays`) and its pipeline by :class:`FleetTiming`;
+a time-varying uplink (``control.traces.NetworkTrace``) by
+:class:`UplinkClock`.
 """
 from __future__ import annotations
 
@@ -42,10 +44,10 @@ class ChunkResult:
     accuracy: float
     bytes: float
     encode_s: float
-    overhead_s: float      # camera-side model cost (AccModel)
+    overhead_s: float      # camera-side model cost (AccModel / heuristic)
     stream_s: float
-    extra_rtt_s: float = 0.0  # server feedback loops (baselines, later)
-    queue_s: float = 0.0   # uplink backlog wait (trace mode, later)
+    extra_rtt_s: float = 0.0  # server-driven feedback loops (DDS)
+    queue_s: float = 0.0   # uplink backlog wait (trace mode)
     ci: int = -1           # absolute chunk-interval index
 
     @property
@@ -185,6 +187,57 @@ def shared_stream_delays(stream_bytes: Sequence[float],
     delays = np.empty(n, np.float64)
     delays[order] = t + net.rtt_s / 2.0
     return delays.tolist()
+
+
+class UplinkClock:
+    """Trace-aware delay accounting for one camera uplink (or one fleet's
+    shared uplink).
+
+    The constant-bandwidth model prices every chunk on its own
+    (:func:`stream_delay`). With a time-varying trace
+    (:class:`repro_torch.control.traces.NetworkTrace`, duck-typed here)
+    two effects matter, and this clock owns both: the transmit time
+    depends on *when* the upload starts (``trace.transmit_time``
+    integrates rate over the trace), and chunk ``ci+1`` cannot start
+    uploading until chunk ``ci`` has left the uplink, so during a fade the
+    backlog queues and the wait is charged as ``queue_s``.
+
+    Chunk ``ci`` is captured at ``ci * chunk_size / fps`` (a live camera,
+    not a file read); it is ready to send after its camera-side compute
+    (``ready_s``), and starts as soon as the uplink is free.
+    """
+
+    def __init__(self, trace, chunk_size: int = 10, fps: float = 30.0):
+        self.trace = trace
+        self.chunk_wall_s = chunk_size / fps
+        self.free_at_s = 0.0
+
+    def capture_s(self, ci: int) -> float:
+        return ci * self.chunk_wall_s
+
+    def send(self, ci: int, n_bytes: float, ready_s: float):
+        """One stream's transmission -> ``(stream_s, queue_s)``.
+        ``stream_s`` (transmit + RTT/2) means what :func:`stream_delay`
+        means; ``queue_s`` is the uplink-busy wait before it."""
+        ready = self.capture_s(ci) + ready_s
+        start = max(ready, self.free_at_s)
+        dt = self.trace.transmit_time(n_bytes, start)
+        self.free_at_s = start + dt
+        return dt + self.trace.rtt_s / 2.0, start - ready
+
+    def send_shared(self, ci: int, stream_bytes: Sequence[float],
+                    ready_s: float):
+        """Fleet variant: N chunk uploads start together and
+        processor-share the uplink (``trace.shared_transmit_times``).
+        Returns ``(per-stream stream_s list, queue_s)``; the queue wait is
+        common to the batch."""
+        ready = self.capture_s(ci) + ready_s
+        start = max(ready, self.free_at_s)
+        durs = np.asarray(
+            self.trace.shared_transmit_times(stream_bytes, start),
+            np.float64)
+        self.free_at_s = start + (float(durs.max()) if durs.size else 0.0)
+        return (durs + self.trace.rtt_s / 2.0).tolist(), start - ready
 
 
 def make_reference(frames: np.ndarray, final_dnn, qp_hi: int = 30,

@@ -759,3 +759,97 @@ def test_wkv6_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                   s0[..., :16, :16].contiguous())
     with pytest.raises(ValueError, match="CUDA tensor"):
         wkv6_cuda(r, k, v, ld, u.cpu(), s0)
+
+
+# ---------------------------------------------------------------------------
+# the single-stream engine's baselines and rate-controlled policy
+# ---------------------------------------------------------------------------
+def _engine_models(cuda):
+    from repro_torch.core.accmodel import AccModel
+    from repro_torch.vision.dnn import FinalDNN
+
+    g = torch.Generator().manual_seed(0)
+    return (FinalDNN("detection", 8, generator=g, device="cuda"),
+            AccModel(8, generator=g, device="cuda"))
+
+
+def test_controlled_prep_does_not_synchronise(cuda):
+    """Setting knobs (a pinned, non-blocking copy) and applying them
+    (``_controlled_prep``) never wait on the card, and give the CPU's
+    frames, QP map and keep."""
+    from repro_torch.control import RateController
+    from repro_torch.control.controller import _controlled_prep
+
+    frames = _frames(T=10)
+    rng = np.random.RandomState(1)
+    scores = rng.rand(1, 6, 10).astype(np.float32)
+    ctrl = RateController()
+    ctrl.level = 0.4
+    chunk, sc = (torch.from_numpy(a).to(cuda) for a in (frames, scores))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    knobs = ctrl.knob_array(cuda)
+    got = _controlled_prep(chunk, sc, knobs, gamma=2)
+    torch.cuda.set_sync_debug_mode(0)
+    want = _controlled_prep(torch.from_numpy(frames),
+                            torch.from_numpy(scores),
+                            ctrl.knob_array("cpu"), gamma=2)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("impl", ["fused", "fused_exact", "pallas"])
+def test_baseline_policies_launch_the_engines_kernel(cuda, impl):
+    """Every RoI encode of a baseline goes through the engine's backend:
+    one chunk kernel a chunk (and one in the warm-up) under the fused
+    backends, one frame kernel a sent frame under pallas, where
+    Reducto+AccMPEG sends only its kept frames; uniform, Reducto and SiEVE
+    encode with the plain exact scan and launch nothing. Per chunk,
+    ``fused_exact`` and ``pallas`` bytes are within 1e-3 of ``exact``
+    where the QP maps do not depend on the backend."""
+    from repro_torch.control import (ControlledAccMPEGPolicy,
+                                     RateController, lte_trace)
+    from repro_torch.core.quality import QualityConfig
+    from repro_torch.engine import (DDSPolicy, EAARPolicy,
+                                    ReductoAccMPEGPolicy, ReductoPolicy,
+                                    SiEVEPolicy, StreamingEngine,
+                                    UniformPolicy, VigilPolicy,
+                                    frame_diff_feature)
+
+    dnn, am = _engine_models(cuda)
+    frames = torch.from_numpy(_frames(T=20, seed=5)).to(cuda)
+    feats = [frame_diff_feature(frames[s:s + 10]) for s in (0, 10)]
+    thresh = float(torch.cat([f[1:] for f in feats]).median()) + 1e-6
+    sent = sum(int((f >= thresh)[1:].sum()) + 1 for f in feats)
+    assert 2 < sent < 20
+    qcfg = QualityConfig(alpha=0.5, gamma=1)
+    name = {"fused": tk.chunk_kernel_name(False),
+            "fused_exact": tk.chunk_kernel_name(True),
+            "pallas": "mbcodec_frame"}[impl]
+    per_chunk = 10 if impl == "pallas" else 1
+    cases = {
+        "uniform": (lambda: UniformPolicy(38), 0),
+        "reducto": (lambda: ReductoPolicy(thresh=thresh), 0),
+        "sieve": (lambda: SiEVEPolicy(dnn, delta=1e-4), 0),
+        "dds": (DDSPolicy, 3 * per_chunk),
+        "eaar": (EAARPolicy, 3 * per_chunk),
+        "vigil": (lambda: VigilPolicy(dnn), 3 * per_chunk),
+        "reducto_accmpeg": (lambda: ReductoAccMPEGPolicy(am, qcfg, thresh),
+                            per_chunk + (sent if impl == "pallas" else 2)),
+    }
+    for policy, launches in cases.values():
+        before = tk.LAUNCHES[name]
+        got = StreamingEngine(dnn, impl=impl).run(policy(), frames)
+        assert tk.LAUNCHES[name] - before == launches
+        if impl != "fused" and launches:
+            want = StreamingEngine(dnn).run(policy(), frames)
+            n = 1 if got.method == "eaar" else 2
+            for g, w in zip(got.chunks[:n], want.chunks[:n]):
+                assert g.bytes == pytest.approx(w.bytes, rel=1e-3)
+    ctrl = RateController()
+    before = tk.LAUNCHES[name]
+    run = StreamingEngine(dnn, impl=impl, trace=lte_trace(),
+                          controller=ctrl).run(
+        ControlledAccMPEGPolicy(am, ctrl), frames)
+    assert tk.LAUNCHES[name] - before == 3 * per_chunk
+    assert len(ctrl.history) == 2 and all(c.bytes > 0 for c in run.chunks)

@@ -12,10 +12,13 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch import baselines
 from repro_torch.configs import get_config, get_reduced_config
+from repro_torch.control import (ControlKnobs, ControlledAccMPEGPolicy,
+                                 RateController, lte_trace)
 from repro_torch.core.accmodel import AccModel
 from repro_torch.core.training import accmodel_init
-from repro_torch.engine import StreamingEngine
+from repro_torch.engine import EngineConfig, StreamingEngine
 from repro_torch.models import DecoderLM, Stack
 from repro_torch.models import layers as L
 from repro_torch.models.rwkv6 import RWKV6ChannelMix, RWKV6TimeMix
@@ -57,7 +60,9 @@ def test_port_files_exist():
                    "kernels/decode_attn/ops.py", "kernels/wkv6/ref.py",
                    "kernels/wkv6/kernel.py", "kernels/wkv6/ops.py",
                    "models/layers.py", "models/rwkv6.py",
-                   "models/transformer.py"):
+                   "models/transformer.py", "control/__init__.py",
+                   "control/traces.py", "control/controller.py",
+                   "baselines/__init__.py", "baselines/baselines.py"):
         assert f"src/repro_torch/{module}" in names
     assert "chip_smoke.py" in names
     for source in ("mbcodec/csrc/mbcodec.cu",
@@ -103,6 +108,25 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
         accmodel_init(0, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         render_detection_targets([[]], 32, 32)
+    # the baselines, trace mode and the rate-controlled policy
+    frames = torch.zeros(10, 32, 32, 3).numpy()
+    for run, extra in ((baselines.run_uniform, (38,)),
+                       (baselines.run_dds, ()), (baselines.run_eaar, ()),
+                       (baselines.run_reducto, ()),
+                       (baselines.run_vigil, (dnn,))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run(frames, dnn, *extra)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingEngine(dnn, trace=lte_trace(), controller=RateController())
+    ctrl = RateController()
+    assert StreamingEngine(dnn, trace=lte_trace(), controller=ctrl,
+                           device="cpu").trace.genre == "lte"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ctrl.knob_array()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ControlKnobs(0.3, 30.0, 40.0, 0.0).as_array()
+    policy = ControlledAccMPEGPolicy(AccModel(8, device="cpu"), ctrl)
+    assert policy.controller.knob_array("cpu").device.type == "cpu"
 
 
 def test_lm_defaults_to_cuda_and_refuses_without_it():
@@ -152,9 +176,13 @@ def test_lm_rejects_unported_archs_and_layers():
 
 
 def test_engine_rejects_unported_modes_and_unknown_backends():
+    """The single-stream engine takes a trace and a controller; the fleet's
+    config still refuses them (and the autoscaler), which come with the
+    fleet's control plane (ROADMAP module 6)."""
     dnn = FinalDNN("detection", 8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        StreamingEngine(dnn, device="cpu", trace=object())
+    for field in ("trace", "controller", "autoscaler"):
+        with pytest.raises(NotImplementedError, match="module 6"):
+            EngineConfig(**{field: object()})
     with pytest.raises(ValueError, match="unknown chunk encoder"):
         StreamingEngine(dnn, device="cpu", impl="nope")
 
