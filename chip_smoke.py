@@ -41,12 +41,41 @@ check it end to end.
    device checks; fused_exact's bytes are held against exact's, the
    fused fleet against 8 single-stream runs, and the overlapped against
    the serialized loop.
-5. AccGrad kernel: ``accgrad_reduce`` at the label batch's shape (4
+5. Closed-loop fleet: ``MultiStreamEngine.serve_loop`` under churn over 12
+   dashcam streams (the fleet's seeds and four more) of 60 frames of
+   384x640, a segmentation FinalDNN of width 32 (random, seeded) as server
+   and the fleet's AccModel; the churn is ``make_workload``'s (seed 15, at
+   most 8 streams at once), with joins and leaves that move the padded
+   shape between 8 and 2 lanes. Run 1: ``fused_exact``,
+   ``detail="windowed"`` (the accuracy reduced on the card), a constant
+   uplink, ``sim_encode_s``. Run 2: the same schedule under ``exact`` and
+   under ``fused_exact``, per-chunk results scored on the host. Run 3:
+   ``fused`` on an lte trace that recovers after a slow half second, with
+   the ``RateController`` (budget 0.2 s), the ``FleetAutoscaler`` (its
+   buffer depth held at 2, which fixes the controller's feedback lag) and
+   the telemetry plane on. Run 4: a second
+   schedule through run 3's engine over the same shapes in another order.
+   Runs 1, 3 and 4 are audited: their ``mbcodec_chunk_scores`` launches
+   must be exactly one a served interval plus the warm-ups of each newly
+   admitted shape (none in run 4, where the engine builds nothing new),
+   every op on the card, the lane masks and knob tensors set under sync
+   debug mode "error". Padded lanes must send 0 bytes and never reach the
+   aggregator; run 1's bytes must be within rtol 1e-3 of exact's per
+   stream-chunk, its accuracy within 1e-2 of exact's per stream-chunk and
+   5e-4 pooled (exact's frames differ where a round-half flip moves a
+   block), and its windowed mean accuracy within 1e-5 of the host-scored
+   mean of the ``fused_exact`` run, which decodes the same frames; run 3
+   must give finite results, SLO attainment in [0, 1], a controller that
+   both cuts and raises its level (qp_hi moves at least twice, both ways)
+   and telemetry counters equal to ``FleetTiming``'s sums. It logs the shapes, decisions, knob
+   path, stage summaries, the device-stage share of wall and the host stage
+   ms an interval, windowed against chunks, from unaudited runs.
+6. AccGrad kernel: ``accgrad_reduce`` at the label batch's shape (4
    frames of 384x640x3) against its plain version, relative error at most
    1e-5 of each macroblock's sum. Both are timed as above and, since the
    35 MB of inputs fit in the L2 cache, also with L2 flushed before each
    call; the flushed times go into the kernels line.
-6. Training path at full size: 16 dashcam frames of 384x640 and the same
+7. Training path at full size: 16 dashcam frames of 384x640 and the same
    detection FinalDNN. ``make_labels`` (batch 4) must make exactly 4
    ``accgrad_reduce`` launches with every op on the card, and its labels
    may differ from labels built from the same gradients through the plain
@@ -57,12 +86,12 @@ check it end to end.
    untimed epoch of each on one batch has warmed the kernels. Last,
    ``train_final_dnn`` (detection, 1000 steps, width 32, no cache, under
    ``torch.use_deterministic_algorithms``) must lower the detection loss
-   on a held batch; 7 drives this detector.
-7. Baselines path: the same 30 frames through ``StreamingEngine.run``
+   on a held batch; 8 drives this detector.
+8. Baselines path: the same 30 frames through ``StreamingEngine.run``
    for uniform QP 38, DDS, EAAR, Reducto, Vigil, SiEVE, Reducto+AccMPEG
    and the rate-controlled AccMPEG (an lte trace, budget 0.2 s), each
    under exact, pallas, fused and fused_exact, with the detector trained
-   in 6 as the server, Vigil's camera and SiEVE's model. Reducto's and
+   in 7 as the server, Vigil's camera and SiEVE's model. Reducto's and
    SiEVE's thresholds are the first chunk's median change feature and
    presence delta, so that frames are both kept and dropped. Each audited
    run must make exactly its kernel launches (one chunk kernel a chunk
@@ -78,7 +107,7 @@ check it end to end.
    full. It logs each RoI encode's high-QP share, the
    controller's knob path and every run's per-chunk encode and overhead
    times from a second, unaudited run.
-8. LM kernels: ``decode_attn`` at the smollm decode path's shape (B=16,
+9. LM kernels: ``decode_attn`` at the smollm decode path's shape (B=16,
    a 2048-token cache, KV=5, G=3, hd=64, pos=1087; bf16 and fp32) and at
    one smollm layer of the reference's decode_32k cell (B=128, S=32768,
    bf16) against its plain version (atol 1e-5, rtol 1e-4), with
@@ -98,7 +127,7 @@ check it end to end.
    a row with S >= 2 takes its operations at the TF32 tensor-core rate
    over three (the kernel's products), of a decode row at the CUDA-core
    rate.
-9. LM serving at full width, random bf16 weights from a seeded generator:
+10. LM serving at full width, random bf16 weights from a seeded generator:
    smollm-360m and rwkv6-1.6b each prefill 16 prompts of 1024 tokens
    (``make_prefill_step`` with room for 2048) and take 64 greedy
    ``make_decode_step`` steps. The audited run must make exactly
@@ -109,7 +138,7 @@ check it end to end.
    of a prefill and of 8 decode steps. Then, in fp32, the decode logits
    after a 256-token prefill must match the full forward pass within
    2e-3 of its largest logit for 16 steps (the reference's property).
-10. Prints one JSON line of the rows at shapes or types the paths do not
+11. Prints one JSON line of the rows at shapes or types the paths do not
    run (launches 0), then the ``{"kernels": [...]}`` line: one row for
    each kernel at each shape and type its path runs, with its launches
    there, error and times; then the line ``kernels: ...``, and last
@@ -179,6 +208,37 @@ FLEET_SEEDS = range(300, 308)  # as benchmarks/multistream.py
 FLEET_RUNS = (("exact", True), ("fused", True), ("fused_exact", True),
               ("fused", False))
 FLEET_ACC_GAP = 0.05  # fleet vs sequential, per stream-chunk (see below)
+# closed-loop fleet: the fleet's scenes and four more, 60 frames each (6
+# intervals); make_workload's seed 15 at 2.5 arrivals an interval, at most
+# 8 streams at once and 12 ids gives 8, 8, 2, 3, 4, 7 active streams:
+# padded shapes 8, 8, 2, 8, 8, 8 (a leave shrinks the shape, a join grows
+# it). The second schedule (initial ids, then (interval, joins, leaves))
+# serves 2, 1, 6, 8, 5, 2 streams on shapes 2, 2, 8, 8, 8, 2.
+CLOSED_SEEDS, CLOSED_FRAMES = range(300, 312), 60
+CLOSED_WORKLOAD = dict(n_chunks=6, rate_per_chunk=2.5, seed=15,
+                       max_concurrent=8, max_streams=12)
+SECOND_SCHEDULE = ((0, 1), ((1, (), (1,)), (2, (2, 3, 4, 5, 6), ()),
+                            (3, (9, 10), ()), (4, (), (0, 2, 9)),
+                            (5, (), (3, 4, 5))))
+# runs 1 and 2: a constant 40 Mb/s uplink. Run 3: the baselines' lte
+# trace (seed 7, mean 4 Mb/s) for its first half second, then recovered
+# CLOSED_RECOVERY times over: 8 streams' ~1 MB an interval misses the 0.2
+# s budget on the slow start (and queues the next chunk), so the
+# controller cuts its level twice; the recovered uplink carries the next
+# chunks in a few ms, under the budget's headroom, and the controller
+# raises its level again. Run 3's autoscaler keeps the buffer depth at
+# CLOSED_DEPTH: the knobs of interval k answer interval k - depth - 1, so
+# a depth the autoscaler deepened from measured occupancy (3 on a loaded
+# host) would leave the raise past the last of the 6 intervals
+CLOSED_BPS, CLOSED_BUDGET_S, SIM_ENCODE_S = 4e7, 0.2, 0.05
+CLOSED_RECOVERY, CLOSED_DEPTH = 100.0, 2
+# accuracy bounds of run 1: its card reduce against the host scorer on
+# the same fused_exact outputs, pooled; against exact's outputs, pooled
+# and per stream-chunk. Exact and the kernel part at round-half flips
+# that move a block, and near-tie argmax pixels follow (7.7e-05 pooled and
+# 2.5e-03 a stream-chunk at most on the H100); the bounds sit above them
+CLOSED_ACC_GAP = 1e-5
+CLOSED_EXACT_GAP, CLOSED_EXACT_CHUNK_GAP = 5e-4, 1e-2
 BASELINES = ("uniform", "dds", "eaar", "reducto", "vigil", "sieve",
              "reducto_accmpeg", "accmpeg_controlled")
 # the controlled run's trace (lte, mean 4 Mb/s) and delay budget: a chunk
@@ -190,7 +250,7 @@ TRACE_SEED, CONTROL_BUDGET_S = 7, 0.2
 TRAIN_SEED, TRAIN_SCENES, TRAIN_SCENE_FRAMES, HELD_SEED = 200, 2, 8, 210
 # 1000 detector steps: after the reference's default 400 the detector
 # finds no box on the single-stream scene at any decode threshold of the
-# baselines (0.15 to 0.3), and every RoI mask of phase 7 is empty. The
+# baselines (0.15 to 0.3), and every RoI mask of phase 8 is empty. The
 # training wanders (batches of 4, a constant rate), and the convolutions'
 # nondeterministic backward on the card made each run's detector another
 # one: some found no box on the scene and left Vigil's masks empty. So
@@ -735,6 +795,336 @@ def fleet_phase(fleet_frames, rows, dnn, am):
         rows[name]["launches"] = launches.get(name, 0)
         if rows[name]["launches"] < 1:
             raise AssertionError(f"{name} never launched on its path")
+
+
+def _finish_recorder(eng, records):
+    """Wrap ``eng._finish`` (and, in windowed runs, the live aggregator's
+    ``observe``): after each chunk's host stage, record its interval, its
+    active ids, every lane's bytes and its device-reduced accuracies; the
+    aggregator records the ids it was handed."""
+    finish = eng._finish
+
+    def wrapped(p, *args, **kw):
+        agg = eng._agg
+        if agg is not None and "observe" not in vars(agg):
+            observe = agg.observe
+
+            def seen(ci, sids, *rest):
+                records["observed"].append((ci, [int(x) for x in sids]))
+                return observe(ci, sids, *rest)
+
+            agg.observe = seen
+        finish(p, *args, **kw)
+        acc = p.get("acc_dev")
+        records["chunks"].append((p["ci"], list(p["ids"]),
+                                  p["pbytes"].numpy().sum(axis=1),
+                                  None if acc is None else acc.numpy()))
+
+    eng._finish = wrapped
+    return records
+
+
+def _strict_sync(fn):
+    """``fn`` run under sync debug mode "error": it fails if the call
+    synchronises with the card."""
+    def strict(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return strict
+
+
+def _concurrency(initial, events, n_int):
+    from repro_torch.control import apply_churn
+
+    active, counts = list(initial), []
+    for ci in range(n_int):
+        active = apply_churn(active, events, ci)
+        counts.append(len(active))
+    return counts
+
+
+def expected_launches(counts, decisions, overlap, depth, warmed=()):
+    """The loop's rule for the scores kernel: one launch a served
+    interval, plus the warm-up of each (padded shape, overlap) first met:
+    one step, and one timed hot step when overlapped. Admission is
+    replayed through a fresh ``FleetAutoscaler`` (the engines' default
+    admission), and overlap follows the decisions as ``serve_loop``
+    adopts them (one decision a served interval)."""
+    from repro_torch.control import FleetAutoscaler
+
+    scaler, warmed, n, k = FleetAutoscaler(), set(warmed), 0, 0
+    for c in counts:
+        plan = scaler.admit(c)
+        if not plan.n_padded:
+            continue
+        if (plan.n_padded, overlap) not in warmed:
+            warmed.add((plan.n_padded, overlap))
+            n += 2 if overlap else 1
+        n += 1
+        if decisions:
+            d, k = decisions[k], k + 1
+            if d.batch_depth != (depth if overlap else 1):
+                overlap, depth = d.batch_depth >= 2, d.batch_depth
+    return n, warmed
+
+
+def closed_loop_phase(am):
+    """``MultiStreamEngine.serve_loop`` under churn at full size: a seeded
+    ``make_workload`` over 12 dashcam streams of 60 frames of 384x640,
+    with a segmentation FinalDNN of width 32 as server (so the accuracy
+    reduce runs on the card) and the fleet's AccModel."""
+    from repro_torch import obs
+    from repro_torch.control import (ChurnEvent, FleetAutoscaler,
+                                     NetworkTrace, RateController,
+                                     constant_trace, lte_trace,
+                                     make_workload)
+    from repro_torch.core.quality import QualityConfig
+    from repro_torch.data.video import make_scene
+    from repro_torch.engine import EngineConfig, MultiStreamEngine
+    from repro_torch.engine import multistream
+    from repro_torch.kernels.mbcodec.kernel import (LAUNCHES,
+                                                    scores_kernel_name)
+    from repro_torch.obs import CompileCounter
+    from repro_torch.vision.dnn import FinalDNN
+
+    t_phase = time.perf_counter()
+    frames = torch.from_numpy(np.stack([
+        make_scene("dashcam", seed=s, T=CLOSED_FRAMES, H=HEIGHT,
+                   W=WIDTH_PX).frames for s in CLOSED_SEEDS])).cuda()
+    n_int = CLOSED_FRAMES // CHUNK_FRAMES
+    server = FinalDNN("segmentation", width=32, device="cuda",
+                      generator=torch.Generator().manual_seed(1))
+    alpha = median_alpha(am, frames[0, :1])
+    qcfg = QualityConfig(alpha=alpha, gamma=2)
+    wl = make_workload(**CLOSED_WORKLOAD)
+    counts = wl.concurrency()
+    initial2, spec = SECOND_SCHEDULE
+    events2 = [ChurnEvent(c, join=j, leave=lv) for c, j, lv in spec]
+    counts2 = _concurrency(initial2, events2, n_int)
+    agg_cfg = wl.aggregate_config(window=2)
+    lte = lte_trace(seed=TRACE_SEED)
+    lte = NetworkTrace(np.concatenate([lte.bw_bps[:1], lte.bw_bps[1:]
+                                       * CLOSED_RECOVERY]), lte.dt_s,
+                       rtt_s=lte.rtt_s, genre="lte, recovering",
+                       seed=TRACE_SEED)
+    log(f"closed-loop fleet: {len(CLOSED_SEEDS)} dashcam streams (seeds "
+        f"{CLOSED_SEEDS.start}-{CLOSED_SEEDS.stop - 1}) of {CLOSED_FRAMES} "
+        f"frames of {HEIGHT}x{WIDTH_PX}, segmentation FinalDNN width 32, "
+        f"the fleet's AccModel, alpha {alpha:.6f}; workload "
+        f"{CLOSED_WORKLOAD}: active {counts}, events "
+        f"{[(e.chunk, e.join, e.leave) for e in wl.events]}, tiers "
+        f"{wl.tier_fractions()}; second schedule active {counts2}")
+    if max(counts) != 8 or wl.n_streams != len(CLOSED_SEEDS):
+        raise AssertionError("the workload is not the one described")
+
+    def engine(impl, detail, **kw):
+        return MultiStreamEngine(server, am, config=EngineConfig(
+            qcfg=qcfg, impl=impl, detail=detail, aggregate=agg_cfg, **kw))
+
+    def served(res):
+        return len(res.served_cis)
+
+    fixed = dict(trace=constant_trace(CLOSED_BPS, rtt_s=0.02),
+                 sim_encode_s=SIM_ENCODE_S)
+    run_kw = dict(initial=wl.initial, events=wl.events)
+    LAUNCHES.clear()  # every count to 0 just before the path
+    off_card, rec = set(), {}
+
+    # run 1: fused_exact, windowed, no controller
+    eng1 = engine("fused_exact", "windowed", **fixed)
+    rec[1] = _finish_recorder(eng1, {"chunks": [], "observed": []})
+    lane_flags = multistream._lane_flags
+    multistream._lane_flags = _strict_sync(lane_flags)
+    try:
+        res1, moved1, off = audited(lambda: eng1.serve_loop(
+            frames, rescale=False, **run_kw))
+        off_card |= off
+        want1, _ = expected_launches(counts, None, True, 2)
+        got1 = moved1.get(scores_kernel_name(True), 0)
+        log(f"  run 1 (fused_exact, windowed): launches {moved1}; expected "
+            f"{want1} = {served(res1)} served intervals + 2 x "
+            f"{len(res1.shapes)} new padded shapes {res1.shapes}")
+        if moved1 != {scores_kernel_name(True): want1}:
+            raise AssertionError(f"run 1 launched {moved1}, expected "
+                                 f"{want1}")
+
+        # run 3: fused, lte trace, controller, autoscaler, obs on
+        ctrl = RateController(delay_budget_s=CLOSED_BUDGET_S)
+        ctrl.knob_array = _strict_sync(ctrl.knob_array)
+        # depth 2 keeps the loop overlapped, so each padded shape is
+        # warmed once and run 4 can reuse every one of them, and fixes
+        # the controller's feedback lag
+        eng3 = engine("fused", "windowed", trace=lte, controller=ctrl,
+                      autoscaler=FleetAutoscaler(min_depth=CLOSED_DEPTH,
+                                                 max_depth=CLOSED_DEPTH))
+        rec[3] = _finish_recorder(eng3, {"chunks": [], "observed": []})
+        tracer, reg = obs.enable(host=0)
+        try:
+            res3, moved3, off = audited(lambda: eng3.serve_loop(
+                frames, **run_kw))
+        finally:
+            obs.disable()
+        off_card |= off
+        want3, warmed = expected_launches(counts, res3.decisions, True, 2)
+        log(f"  run 3 (fused, lte, controller, autoscaler, windowed, obs "
+            f"on): launches {moved3}; expected {want3} by the loop's rule "
+            f"over the decisions")
+        if moved3 != {scores_kernel_name(False): want3}:
+            raise AssertionError(f"run 3 launched {moved3}, expected "
+                                 f"{want3}")
+
+        # run 4: a second schedule through run 3's engine, same shapes
+        counter = CompileCounter.for_engine(eng3)
+        want4, warmed4 = expected_launches(counts2, None, eng3.overlap,
+                                           eng3.depth, warmed)
+        if warmed4 != warmed:
+            raise AssertionError("the second schedule meets a new shape")
+        res4, moved4, off = audited(lambda: eng3.serve_loop(
+            frames, initial=initial2, events=events2, rescale=False))
+        off_card |= off
+        log(f"  run 4 (second schedule, run 3's engine): launches {moved4}"
+            f", expected {want4} = one a served interval; shapes "
+            f"{res4.shapes}; builds {counter.sizes()}, growth "
+            f"{counter.growth()}")
+        if moved4 != {scores_kernel_name(False): served(res4)} or \
+                want4 != served(res4):
+            raise AssertionError(f"run 4 launched {moved4}")
+        counter.assert_no_recompiles("the second schedule")
+    finally:
+        multistream._lane_flags = lane_flags
+    launches = dict(LAUNCHES)  # read just after the path
+    if off_card:
+        raise AssertionError(f"ops off the card: {sorted(off_card)}")
+    log("  every op of runs 1, 3 and 4 ran on cuda (transfers aside); the "
+        "lane masks and knob tensors were set under sync debug mode "
+        "'error'")
+
+    # padding: padded lanes carry 0 bytes and never reach the aggregator
+    for run in (1, 3):
+        chunks, observed = rec[run]["chunks"], rec[run]["observed"]
+        if any(float(np.abs(b[len(ids):]).sum()) != 0.0
+               for _, ids, b, _ in chunks):
+            raise AssertionError(f"run {run}: a padded lane sent bytes")
+        if observed != [(ci, ids) for ci, ids, _, _ in chunks if ids]:
+            raise AssertionError(f"run {run}: the aggregator saw other "
+                                 f"lanes than the active ones")
+    log(f"  padded lanes: exactly 0 bytes in "
+        f"{sum(len(b) - len(i) for _, i, b, _ in rec[1]['chunks'])} "
+        f"padded lane-chunks of run 1; the aggregator saw only active ids")
+
+    # run 2: exact, per-chunk results scored on the host. Its bytes hold
+    # run 1's; its accuracies differ where a round-half flip between the
+    # exact scan and the kernel moves a block and a near-tie argmax
+    # follows, so the reduce is held against the same host scorer on run
+    # 1's own outputs: fused_exact again (the kernel is deterministic),
+    # per-chunk results scored on the host
+    res2 = engine("exact", "chunks", **fixed).serve_loop(
+        frames, rescale=False, **run_kw)
+    res2b = engine("fused_exact", "chunks", **fixed).serve_loop(
+        frames, rescale=False, **run_kw)
+
+    def per_chunk(res):
+        return {(sid, c.ci): c for sid, r in zip(res.stream_ids, res.streams)
+                for c in r.chunks}
+
+    ref, same = per_chunk(res2), per_chunk(res2b)
+    b1 = {(sid, ci): float(b[i]) for ci, ids, b, _ in rec[1]["chunks"]
+          for i, sid in enumerate(ids)}
+    a1 = {(sid, ci): float(a[i]) for ci, ids, _, a in rec[1]["chunks"]
+          for i, sid in enumerate(ids)}
+    if not set(b1) == set(ref) == set(same) or len(ref) != sum(counts):
+        raise AssertionError("runs 1 and 2 served other stream-chunks")
+    rel = max(abs(b1[k] - ref[k].bytes) / ref[k].bytes for k in ref)
+    gap = max(abs(a1[k] - ref[k].accuracy) for k in ref)
+    if any(b1[k] != same[k].bytes for k in same):
+        raise AssertionError("fused_exact runs differ in bytes")
+    gap_same = max(abs(a1[k] - same[k].accuracy) for k in same)
+    mean2 = float(np.mean([c.accuracy for c in ref.values()]))
+    mean_same = float(np.mean([c.accuracy for c in same.values()]))
+    pooled = abs(res1.aggregate.accuracy - mean_same)
+    pooled2 = abs(res1.aggregate.accuracy - mean2)
+    log(f"  run 1 vs run 2 (exact, host-scored) over {len(ref)} "
+        f"stream-chunks: bytes within {rel:.3e}; accuracy gap max "
+        f"{gap:.3e} per stream-chunk (bound {CLOSED_EXACT_CHUNK_GAP}), "
+        f"windowed mean {res1.aggregate.accuracy:.9f} vs {mean2:.9f} "
+        f"(gap {pooled2:.3e}, bound {CLOSED_EXACT_GAP})")
+    log(f"  run 1's card reduce vs the host scorer on the same fused_exact "
+        f"outputs: windowed mean accuracy {res1.aggregate.accuracy:.9f} vs "
+        f"{mean_same:.9f} (gap {pooled:.3e}, bound {CLOSED_ACC_GAP}); per "
+        f"stream-chunk gap max {gap_same:.3e}; bytes identical")
+    if rel > 1e-3:
+        raise AssertionError("run 1 bytes differ from exact's")
+    if gap > CLOSED_EXACT_CHUNK_GAP or pooled2 > CLOSED_EXACT_GAP:
+        raise AssertionError("run 1 accuracy differs from exact's")
+    if pooled > CLOSED_ACC_GAP:
+        raise AssertionError("the card reduce disagrees with the host")
+
+    # run 3's sanity and its telemetry against FleetTiming
+    agg3 = res3.aggregate
+    att = agg3.attainment()
+    finite = [agg3.accuracy, agg3.sum_bytes, agg3.sum_delay,
+              agg3.max_delay, agg3.p90_delay]
+    qp_path = [round(k.qp_hi, 4) for k, _ in ctrl.history]
+    moves = sum(a != b for a, b in zip(qp_path, qp_path[1:]))
+    log(f"  run 3: shapes {res3.shapes}, decisions "
+        f"{[(d.batch_depth, d.reason) for d in res3.decisions]}; knob path "
+        f"qp_hi {qp_path} ({moves} moves); attainment {att}; "
+        f"{json.dumps(res3.summary())}")
+    if not all(np.isfinite(finite)) or agg3.n != sum(counts) or not all(
+            0.0 <= v <= 1.0 for v in att.values() if v == v):
+        raise AssertionError(f"run 3: malformed result {finite} {att}")
+    richer = sum(b < a for a, b in zip(qp_path, qp_path[1:]))
+    if moves < 2 or not richer or richer == moves:
+        raise AssertionError(f"run 3: the controller moved qp_hi {moves} "
+                             f"times, {richer} of them down: it should "
+                             f"move it at least twice, both ways")
+    t3 = res3.timing
+    for stage, series in (("camera", t3.camera_s), ("server", t3.server_s),
+                          ("host", t3.host_s)):
+        got = reg.get("stage_seconds_total", stage=stage).value
+        if abs(got - float(np.sum(series))) > 1e-9 * max(got, 1e-9):
+            raise AssertionError(f"obs {stage} seconds {got} != timing")
+    if reg.get("chunks_served_total").value != agg3.n or abs(
+            reg.get("wire_bytes_total").value - agg3.sum_bytes) > \
+            1e-9 * agg3.sum_bytes:
+        raise AssertionError("obs counters disagree with the aggregate")
+    actions = {a: reg.get("controller_decisions_total", action=a)
+               for a in ("increase", "decrease", "hold")}
+    made = {a: c.value for a, c in actions.items() if c is not None}
+    log(f"  run 3 telemetry: stage counters equal FleetTiming's sums; "
+        f"{len(tracer.events)} trace events; controller decisions {made}")
+    if not made.get("increase") or not made.get("decrease"):
+        raise AssertionError("run 3: the controller did not both raise and "
+                             "cut its level")
+
+    # timings from runs outside the audit (whose per-op hook would
+    # dominate the host clock): windowed against chunks, then run 3 again
+    timed = {"windowed": engine("fused_exact", "windowed", **fixed),
+             "chunks": engine("fused_exact", "chunks", **fixed)}
+    for name, eng in timed.items():
+        eng.serve_loop(frames, rescale=False, **run_kw)  # warm every shape
+        r = eng.serve_loop(frames, rescale=False, **run_kw)
+        t = r.timing
+        busy = (sum(t.camera_s) + sum(t.server_s)) / t.wall_s
+        log(f"  {name} (fused_exact, {CARD}): host stage "
+            f"{1e3 * float(np.mean(t.host_s)):.4f} ms an interval, "
+            f"{json.dumps(t.summary())}, device-stage share of wall "
+            f"{busy:.4f}")
+    eng = engine("fused", "windowed", trace=lte,
+                 controller=RateController(delay_budget_s=CLOSED_BUDGET_S),
+                 autoscaler=FleetAutoscaler(min_depth=CLOSED_DEPTH,
+                                            max_depth=CLOSED_DEPTH))
+    t = eng.serve_loop(frames, **run_kw).timing
+    busy = (sum(t.camera_s) + sum(t.server_s)) / t.wall_s
+    log(f"  run 3 unaudited ({CARD}): {json.dumps(t.summary())}, "
+        f"device-stage share {busy:.4f}")
+    log(f"  closed-loop phase: {time.perf_counter() - t_phase:.2f} s")
+    del frames
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _recording_encoder(shares):
@@ -1637,6 +2027,8 @@ def main():
     t0 = time.perf_counter()
     fleet_phase(fleet, rows, dnn, am)
     log(f"fleet path: {time.perf_counter() - t0:.2f} s")
+    launches = closed_loop_phase(am)
+    log(f"closed-loop fleet path ({CARD}): launches {launches}")
     t0 = time.perf_counter()
     detector = training_phase(rows, dnn)
     log(f"training path: {time.perf_counter() - t0:.2f} s")

@@ -21,9 +21,8 @@ Knobs travel as one float32 tensor on the policy's device
 (:meth:`RateController.knob_array`), which ``_controlled_prep`` never
 reads on the host: a knob change between chunks costs no synchronisation
 and no new shape (the port's counterpart of the reference's "zero
-recompiles"). The reference's telemetry in ``observe`` (``obs`` counters
-and controller-lane events) comes with the port's ``obs``, in the fleet
-slice (``ROADMAP.md``, module 6).
+recompiles"). ``observe`` reports each decision to the telemetry plane
+(:mod:`repro_torch.obs`) under the reference's names.
 """
 from __future__ import annotations
 
@@ -37,6 +36,8 @@ from repro_torch.core.quality import dilate
 from repro_torch.engine.engine import jit_encode
 from repro_torch.engine.policies import (QPPolicy, soft_drop_previous,
                                          warm_ready)
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,10 +159,27 @@ class RateController:
         budget = self.delay_budget_s
         congested = (obs.total_delay_s > budget
                      or obs.queue_s > self.backlog_tolerance * budget)
+        prev = self.level
         if congested:
             self.level = max(self.level * self.decrease_factor, 0.0)
+            action = "decrease"
         elif obs.total_delay_s < self.headroom * budget:
             self.level = min(self.level + self.increase_step, 1.0)
+            action = "increase"
+        else:
+            action = "hold"
+        reg = obs_metrics.get_metrics()
+        if reg is not None:
+            reg.counter("controller_decisions_total", action=action).inc()
+            reg.gauge("controller_level").set(self.level)
+        tracer = obs_trace.get_tracer()
+        if tracer is not None and action != "hold":
+            # level transitions only (holds would drown the lane), with
+            # the observation that caused them
+            tracer.instant(action, stage="controller", level=self.level,
+                           prev_level=prev, delay_s=obs.total_delay_s,
+                           queue_s=obs.queue_s, budget_s=budget,
+                           congested=congested, n_streams=obs.n_streams)
         return self.knobs()
 
 
@@ -205,7 +223,7 @@ class ControlledAccMPEGPolicy(QPPolicy):
                                                    gamma=self.gamma)
             return jit_encode(engine.impl)(frames_eff, qmap)
 
-        warm_ready(engine.device, scores_prep_encode)
+        warm_ready(self.name, engine.device, scores_prep_encode)
 
     def encode_chunk(self, ctx):
         knobs = self.controller.knob_array(self.accmodel.device)

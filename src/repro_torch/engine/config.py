@@ -1,15 +1,17 @@
 """Typed fleet-engine configuration (port of ``repro.engine.config``).
 
 The same frozen dataclass, field names and defaults as the reference's
-``EngineConfig``. Fields whose subsystem this port does not have yet must
-keep their defaults: setting one raises ``NotImplementedError`` naming
-the slice that brings it (``ROADMAP.md``), rather than being ignored.
+``EngineConfig``. Fields whose subsystem this port does not have yet
+(the stream mesh, tenants) must keep their defaults: setting one raises
+``NotImplementedError`` naming the slice that brings it (``ROADMAP.md``),
+rather than being ignored.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Mapping, Optional, Tuple
 
+from repro_torch.core.aggregate import AggregateConfig
 from repro_torch.core.pipeline import NetworkConfig
 from repro_torch.core.quality import QualityConfig
 
@@ -20,10 +22,6 @@ DETAIL_MODES = ("chunks", "legacy", "windowed")
 #: field -> (its default, the later slice that ports it)
 _LATER = {
     "mesh": (None, "the multi-GPU slice (ROADMAP module 8)"),
-    "trace": (None, "the control-plane slice (ROADMAP module 6)"),
-    "controller": (None, "the control-plane slice (ROADMAP module 6)"),
-    "autoscaler": (None, "the control-plane slice (ROADMAP module 6)"),
-    "aggregate": (None, "the windowed-aggregation slice (ROADMAP module 6)"),
     "tenants": (None, "the tenants slice (ROADMAP module 7)"),
     "tenant_of": (None, "the tenants slice (ROADMAP module 7)"),
 }
@@ -53,7 +51,7 @@ class EngineConfig:
     fps: float = 30.0
     sim_encode_s: Optional[float] = None
     detail: str = "chunks"
-    aggregate: object = None
+    aggregate: Optional[AggregateConfig] = None
     device_reduce: bool = True
     tenants: Optional[Tuple] = None
     tenant_of: Optional[Mapping[int, int]] = None
@@ -67,10 +65,6 @@ class EngineConfig:
                              f"{self.chunk_size}")
         if self.depth < 1:
             raise ValueError(f"depth must be >= 1, got {self.depth}")
-        if self.detail == "windowed":
-            raise NotImplementedError(
-                "detail='windowed' is not ported yet: it comes with the "
-                "windowed-aggregation slice (ROADMAP module 6)")
         for name, (default, slice_) in _LATER.items():
             if getattr(self, name) is not default:
                 raise NotImplementedError(

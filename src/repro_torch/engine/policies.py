@@ -31,6 +31,8 @@ device in one copy.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -40,6 +42,8 @@ from repro_torch.codec.dct import MB
 from repro_torch.core.quality import QualityConfig, dilate, qp_map_from_scores
 from repro_torch.engine.engine import (ChunkContext, StreamingEngine,
                                        jit_encode, synchronize)
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.vision.dnn import decode_detections
 
 
@@ -56,14 +60,28 @@ def boxes_to_mask(boxes, mb_h: int, mb_w: int, grow: int = 0,
     return torch.as_tensor(m, device=resolve_device(device))
 
 
-def warm_ready(device: torch.device, *thunks):
+def warm_ready(name: str, device: torch.device, *thunks):
     """Run each warm-up thunk and wait for the device; returns the last
     result. On CUDA the first call of a kernel-backed encoder builds the
-    kernel library, so nvcc time stays out of every measured chunk."""
+    kernel library, so nvcc time stays out of every measured chunk. The
+    whole warm-up is one ``warm_compile`` span on the telemetry plane's
+    warmup lane, labelled with the policy's ``name``, and counts in
+    ``warm_compiles_total`` / ``warmup_seconds`` (the reference's
+    names)."""
+    t0 = time.perf_counter()
     out = None
     for thunk in thunks:
         out = thunk()
     synchronize(device)
+    dur = time.perf_counter() - t0
+    tracer = obs_trace.get_tracer()
+    if tracer is not None:
+        tracer.complete("warm_compile", "warmup", t0, dur, policy=name,
+                        n_programs=len(thunks))
+    reg = obs_metrics.get_metrics()
+    if reg is not None:
+        reg.counter("warm_compiles_total", policy=name).inc()
+        reg.histogram("warmup_seconds").observe(dur)
     return out
 
 
@@ -153,7 +171,7 @@ class AccMPEGPolicy(QPPolicy):
         n_maps = cs if k < cs else 1
         shape = (n_maps,) + tuple(s // MB for s in chunk.shape[1:3])
         warm_ready(
-            engine.device,
+            self.name, engine.device,
             lambda: self.accmodel.scores(chunk[:1]),
             lambda: jit_encode(engine.impl)(
                 chunk, torch.full(shape, 35.0, device=chunk.device)))
@@ -183,7 +201,8 @@ class UniformPolicy(QPPolicy):
         self.name = name or f"uniform_qp{qp}"
 
     def warm(self, engine, chunk):
-        warm_ready(engine.device, lambda: encode_chunk_uniform(chunk, self.qp))
+        warm_ready(self.name, engine.device,
+                   lambda: encode_chunk_uniform(chunk, self.qp))
 
     def encode_chunk(self, ctx):
         return ctx.encode_uniform(self.qp)
@@ -223,7 +242,7 @@ class DDSPolicy(QPPolicy):
 
     def warm(self, engine, chunk):
         warm_ready(
-            engine.device,
+            self.name, engine.device,
             lambda: encode_chunk_uniform(chunk, self.qp_lo),
             lambda: jit_encode(engine.impl)(chunk,
                                             _full_qp(chunk, self.qp_lo)))
@@ -254,7 +273,7 @@ class EAARPolicy(QPPolicy):
         self.prev_mask = None
 
     def warm(self, engine, chunk):
-        warm_ready(engine.device,
+        warm_ready(self.name, engine.device,
                    lambda: jit_encode(engine.impl)(
                        chunk, _full_qp(chunk, self.qp_hi)))
 
@@ -287,7 +306,7 @@ class ReductoPolicy(QPPolicy):
         self.qp, self.thresh = qp, thresh
 
     def warm(self, engine, chunk):
-        warm_ready(engine.device,
+        warm_ready(self.name, engine.device,
                    lambda: frame_diff_feature(chunk),
                    lambda: encode_chunk_uniform(chunk, self.qp))
 
@@ -324,7 +343,7 @@ class SiEVEPolicy(QPPolicy):
         self.delta = delta
 
     def warm(self, engine, chunk):
-        warm_ready(engine.device,
+        warm_ready(self.name, engine.device,
                    lambda: self.camera.predict(chunk),
                    lambda: encode_chunk_uniform(chunk, self.qp))
 
@@ -363,7 +382,7 @@ class ReductoAccMPEGPolicy(QPPolicy):
 
     def warm(self, engine, chunk):
         warm_ready(
-            engine.device,
+            self.name, engine.device,
             lambda: frame_diff_feature(chunk),
             lambda: self.accmodel.scores(chunk[:1]),
             lambda: jit_encode(engine.impl)(chunk, _full_qp(chunk, 35.0)))
@@ -389,7 +408,7 @@ class VigilPolicy(QPPolicy):
 
     def warm(self, engine, chunk):
         warm_ready(
-            engine.device,
+            self.name, engine.device,
             lambda: self.camera.predict(chunk)["heat"],
             lambda: jit_encode(engine.impl)(chunk,
                                             _full_qp(chunk, self.qp_lo)))

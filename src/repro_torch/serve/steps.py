@@ -1,5 +1,6 @@
 """The fleet's per-chunk steps (port of ``repro.serve.steps``): the whole
-camera side of N AccMPEG streams, and the server DNN batched across them.
+camera side of N AccMPEG streams, the server DNN batched across them, and
+the per-lane accuracy reduce of windowed serving.
 
 The reference lowers each step into one jitted XLA program with the
 stream axis leading. PyTorch runs eagerly, so here each step is a plain
@@ -23,7 +24,7 @@ from repro_torch.core.quality import (dilate_scores,
                                       qp_maps_from_knobs_batched,
                                       qp_maps_from_scores_batched)
 from repro_torch.kernels.mbcodec.ops import encode_chunk_fused_scores_batched
-from repro_torch.vision.dnn import detection_keep_heat
+from repro_torch.vision.dnn import detection_keep_heat, device_lane_accuracy
 
 
 def _no_mesh(mesh, step: str):
@@ -52,8 +53,8 @@ def make_camera_fleet_step(accmodel, qcfg, impl: str = "fast", mesh=None,
     with ``encode_chunk_batched``.
 
     ``knobs=True`` builds ``step(chunks, knob_array)``: alpha, qp_hi,
-    qp_lo and drop_thresh arrive as a tensor on the device (the rate
-    controller's, in a later slice) instead of ``qcfg``'s constants, and
+    qp_lo and drop_thresh arrive as a tensor on the device (the fleet
+    engine's ``RateController``'s) instead of ``qcfg``'s constants, and
     frames whose change feature falls below drop_thresh are replaced by
     the previous kept frame (``soft_drop_previous``); ``qcfg.gamma`` stays
     fixed. ``mask=True`` builds ``step(chunks, active[, knob_array])``
@@ -118,6 +119,27 @@ def make_server_fleet_step(final_dnn, mesh=None):
                 for k, v in out.items()}
 
     return server
+
+
+def make_accuracy_reduce_step(final_dnn, mesh=None):
+    """Device-side per-lane accuracy reduction for windowed aggregation.
+
+    Returns ``acc(outs, ref_outs) -> (N,)`` float32, where both arguments
+    are the (N, T, ...) output dicts of :func:`make_server_fleet_step`.
+    With this step in the pipeline only N accuracy scalars (plus the
+    (N, T) byte matrix) cross to the host per chunk; the dense output
+    trees stay on the device. Plain PyTorch, as the reference computes it
+    in jnp outside any Pallas kernel. Only for tasks
+    :func:`~repro_torch.vision.dnn.device_lane_accuracy` supports
+    (segmentation, keypoint); the engine scores detection on the host."""
+    _no_mesh(mesh, "make_accuracy_reduce_step")
+    task = final_dnn.task
+
+    @torch.no_grad()
+    def acc(outs, ref_outs):
+        return device_lane_accuracy(task, outs, ref_outs)
+
+    return acc
 
 
 # ---------------------------------------------------------------------------

@@ -389,6 +389,47 @@ def keypoint_accuracy_batched(out, ref_out, radius=2.0):
     return (d <= radius).mean(axis=(1, 2)).astype(np.float64)
 
 
+def device_lane_accuracy(task, out, ref_out) -> torch.Tensor:
+    """Per-lane accuracy (N,) float32 for (N, T, ...) lane trees of
+    tensors, computed where the outputs lie, so that the fleet reduces
+    accuracy on the card and only N scalars cross to the host.
+
+    Only segmentation (IoU pooled over the lane's frames, per class) and
+    keypoint (PCK at radius 2 in output cells) reduce here; detection's
+    greedy F1 matching is data-dependent and stays on the (batched numpy)
+    host path. The math is float32, so results track the float64 host
+    path to ~1e-6 rather than bit for bit."""
+    if task == "segmentation":
+        a = torch.argmax(out["seg"], -1)
+        b = torch.argmax(ref_out["seg"], -1)
+        axes = tuple(range(1, a.dim()))
+        iou_sum = torch.zeros(a.shape[0], dtype=torch.float32,
+                              device=a.device)
+        n_valid = torch.zeros_like(iou_sum)
+        for cls in (0, 1):
+            inter = ((a == cls) & (b == cls)).sum(dim=axes)
+            union = ((a == cls) | (b == cls)).sum(dim=axes)
+            valid = union > 0
+            iou = torch.where(valid, inter.to(torch.float32)
+                              / union.clamp_min(1).to(torch.float32), 0.0)
+            iou_sum = iou_sum + iou
+            n_valid = n_valid + valid.to(torch.float32)
+        return torch.where(n_valid > 0, iou_sum / n_valid.clamp_min(1.0),
+                           1.0)
+    if task == "keypoint":
+        def peaks(o):
+            h = torch.sigmoid(o["kp"])
+            n, t, hs, ws, k = h.shape
+            flat = h.reshape(n, t, hs * ws, k).argmax(dim=2)
+            return torch.stack([flat // ws, flat % ws], dim=-1)
+
+        pa, pb = peaks(out), peaks(ref_out)
+        d = torch.sqrt(((pa - pb) ** 2).sum(-1).to(torch.float32))
+        return (d <= 2.0).to(torch.float32).mean(dim=(1, 2))
+    raise ValueError(f"no device accuracy reduction for task {task!r} "
+                     f"(detection decodes on host)")
+
+
 # ---------------------------------------------------------------------------
 # the black-box wrapper used by AccMPEG
 # ---------------------------------------------------------------------------
@@ -460,9 +501,9 @@ class FinalDNN(nn.Module):
 
     @property
     def supports_device_accuracy(self) -> bool:
-        """Whether the task's accuracy can be reduced on the device in the
-        windowed serving mode of a later slice (detection cannot: greedy
-        box matching stays on the host)."""
+        """Whether :func:`device_lane_accuracy` can reduce this task's
+        accuracy on the device in windowed fleet serving (detection
+        cannot: greedy box matching stays on the host)."""
         return self.task in ("segmentation", "keypoint")
 
 

@@ -306,10 +306,13 @@ def test_trace_mode_dds_matches_reference(impl, ref_models, port_models,
     assert max(c.queue_s for c in got.chunks) > 0.0
 
 
-def test_trace_mode_charges_two_transmissions_once(port_models, frames):
+def test_trace_mode_charges_two_transmissions_once(port_models, frames,
+                                                   _frozen_clocks):
     """Two transmissions of one chunk (DDS's two passes) on an idle, fast
     uplink: the second starts when the first ends, which stream_s already
-    prices, so queue_s stays 0; each pass pays its own RTT/2."""
+    prices, so queue_s stays 0; each pass pays its own RTT/2. The clocks
+    are frozen: a measured encode slower than a chunk interval (a loaded
+    host) would queue the next chunk behind it."""
     bw, rtt = 1e9, 0.1
     trace = ttr.constant_trace(bw, rtt_s=rtt)
     r = StreamingEngine(port_models[0], net=NetworkConfig(bw, rtt_s=0.7),

@@ -853,3 +853,101 @@ def test_baseline_policies_launch_the_engines_kernel(cuda, impl):
         ControlledAccMPEGPolicy(am, ctrl), frames)
     assert tk.LAUNCHES[name] - before == 3 * per_chunk
     assert len(ctrl.history) == 2 and all(c.bytes > 0 for c in run.chunks)
+
+
+def _segmentation_models(device):
+    from repro_torch.core.accmodel import AccModel
+    from repro_torch.vision.dnn import FinalDNN
+
+    g = torch.Generator().manual_seed(1)
+    return (FinalDNN("segmentation", 8, generator=g, device=device),
+            AccModel(8, generator=g, device=device))
+
+
+@pytest.mark.parametrize("n_padded", [2, 4])
+def test_masked_knob_camera_step_on_the_card(cuda, n_padded):
+    """The closed loop's camera step (lane mask and knobs as device
+    tensors) at two padded shapes: one scores launch a call, the mask and
+    knobs set without a sync, padded lanes exactly 0 bytes, active lanes'
+    bytes within rtol 1e-3 of the CPU's plain path."""
+    from repro_torch.control import RateController
+    from repro_torch.core.quality import QualityConfig
+    from repro_torch.engine.multistream import _lane_flags
+    from repro_torch.serve.steps import make_camera_fleet_step
+
+    qcfg = QualityConfig(alpha=0.5, gamma=1)
+    ctrl = RateController()
+    ctrl.level = 0.3
+    active = np.arange(n_padded) < n_padded - 1  # the last lane is padding
+    chunks = np.stack([_frames(T=10, seed=s) for s in range(n_padded)])
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        am = _segmentation_models(dev)[1]
+        step = make_camera_fleet_step(am, qcfg, impl="fused", knobs=True,
+                                      mask=True)
+        x = torch.from_numpy(chunks).to(dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        mask, knobs = _lane_flags(active, torch.device(dev)), \
+            ctrl.knob_array(dev)
+        if dev == "cuda":
+            torch.cuda.set_sync_debug_mode(0)
+        name = tk.scores_kernel_name(False)
+        before = tk.LAUNCHES[name]
+        outs[dev] = [t.cpu() for t in step(x, mask, knobs)]
+        assert tk.LAUNCHES[name] - before == (dev == "cuda")
+    got, want = outs["cuda"], outs["cpu"]
+    assert torch.equal(got[1][-1], torch.zeros_like(got[1][-1]))
+    np.testing.assert_allclose(got[1][:-1].numpy(), want[1][:-1].numpy(),
+                               rtol=1e-3)
+    np.testing.assert_allclose(got[2].numpy(), want[2].numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("task", ["segmentation", "keypoint"])
+def test_device_lane_accuracy_on_the_card_matches_the_cpu(cuda, task):
+    from repro_torch.vision.dnn import device_lane_accuracy
+
+    rng = np.random.RandomState(4)
+    key, c = {"segmentation": ("seg", 2), "keypoint": ("kp", 5)}[task]
+    a = rng.randn(4, 10, 48, 80, c).astype(np.float32)
+    b = a + 0.5 * rng.randn(*a.shape).astype(np.float32)
+    got = device_lane_accuracy(task, {key: torch.from_numpy(a).to(cuda)},
+                               {key: torch.from_numpy(b).to(cuda)})
+    want = device_lane_accuracy(task, {key: torch.from_numpy(a)},
+                                {key: torch.from_numpy(b)})
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-6)
+
+
+def test_serve_loop_launches_exactly_on_the_card(cuda):
+    """Three intervals of windowed serving under churn (1, then 3 streams
+    on 4 lanes, then 2 on the same 4): one scores launch an interval plus
+    two for each new padded shape's warm-up (a step and a timed hot
+    step), and a second schedule over the same shapes adds only its
+    intervals' launches."""
+    from repro_torch.control import ChurnEvent
+    from repro_torch.core.quality import QualityConfig
+    from repro_torch.engine import EngineConfig, MultiStreamEngine
+    from repro_torch.obs import CompileCounter
+
+    dnn, am = _segmentation_models("cuda")
+    frames = np.stack([_frames(T=30, seed=s) for s in range(3)])
+    eng = MultiStreamEngine(dnn, am, config=EngineConfig(
+        qcfg=QualityConfig(alpha=0.5, gamma=1), impl="fused",
+        detail="windowed", sim_encode_s=0.05))
+    name = tk.scores_kernel_name(False)
+    before = tk.LAUNCHES[name]
+    res = eng.serve_loop(frames, initial=(0,), events=[
+        ChurnEvent(1, join=(1, 2)), ChurnEvent(2, leave=(0,))],
+        rescale=False)
+    assert res.shapes == [1, 4] and res.served_cis == [0, 1, 2]
+    assert tk.LAUNCHES[name] - before == 3 + 2 * 2
+    assert res.aggregate.n == 1 + 3 + 2
+    assert 0.0 <= res.accuracy <= 1.0 and res.aggregate.sum_bytes > 0
+    counter = CompileCounter.for_engine(eng)
+    before = tk.LAUNCHES[name]
+    eng.serve_loop(frames, initial=(0, 1, 2), events=[
+        ChurnEvent(1, leave=(1, 2))], rescale=False)
+    assert tk.LAUNCHES[name] - before == 3
+    counter.assert_no_recompiles("second schedule")

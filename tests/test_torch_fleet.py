@@ -541,14 +541,21 @@ def test_fleet_result_summary_and_sim_encode(port_models, fleet_frames,
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mesh", "auto"), ("trace", object()), ("controller", object()),
-    ("autoscaler", object()), ("aggregate", object()),
-    ("tenants", (object(),)), ("tenant_of", {0: 0}),
-    ("detail", "windowed"),
+    ("mesh", "auto"), ("tenants", (object(),)), ("tenant_of", {0: 0}),
 ])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         EngineConfig(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("trace", tp.UplinkClock), ("controller", object()),
+    ("autoscaler", object()), ("aggregate", object()),
+    ("detail", "windowed"),
+])
+def test_lifted_config_fields_are_accepted(field, value):
+    """The fleet half of module 6 takes these; the config stores them."""
+    assert getattr(EngineConfig(**{field: value}), field) is value
 
 
 def test_engine_config_mirrors_the_reference():

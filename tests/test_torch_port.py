@@ -62,7 +62,10 @@ def test_port_files_exist():
                    "models/layers.py", "models/rwkv6.py",
                    "models/transformer.py", "control/__init__.py",
                    "control/traces.py", "control/controller.py",
-                   "baselines/__init__.py", "baselines/baselines.py"):
+                   "baselines/__init__.py", "baselines/baselines.py",
+                   "core/aggregate.py", "control/autoscaler.py",
+                   "control/workload.py", "obs/__init__.py",
+                   "obs/metrics.py", "obs/trace.py", "obs/compile.py"):
         assert f"src/repro_torch/{module}" in names
     assert "chip_smoke.py" in names
     for source in ("mbcodec/csrc/mbcodec.cu",
@@ -176,13 +179,17 @@ def test_lm_rejects_unported_archs_and_layers():
 
 
 def test_engine_rejects_unported_modes_and_unknown_backends():
-    """The single-stream engine takes a trace and a controller; the fleet's
-    config still refuses them (and the autoscaler), which come with the
-    fleet's control plane (ROADMAP module 6)."""
+    """Both engines take a trace and a controller, the fleet the
+    autoscaler too (ROADMAP module 6); the fleet's config still refuses
+    the stream mesh (module 8) and tenants (module 7)."""
     dnn = FinalDNN("detection", 8, device="cpu")
     for field in ("trace", "controller", "autoscaler"):
-        with pytest.raises(NotImplementedError, match="module 6"):
-            EngineConfig(**{field: object()})
+        assert getattr(EngineConfig(**{field: dnn}), field) is dnn
+    for field, value, module in (("mesh", "auto", "module 8"),
+                                 ("tenants", (dnn,), "module 7"),
+                                 ("tenant_of", {0: 0}, "module 7")):
+        with pytest.raises(NotImplementedError, match=module):
+            EngineConfig(**{field: value})
     with pytest.raises(ValueError, match="unknown chunk encoder"):
         StreamingEngine(dnn, device="cpu", impl="nope")
 
