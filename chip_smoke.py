@@ -70,12 +70,42 @@ check it end to end.
    and telemetry counters equal to ``FleetTiming``'s sums. It logs the shapes, decisions, knob
    path, stage summaries, the device-stage share of wall and the host stage
    ms an interval, windowed against chunks, from unaudited runs.
-6. AccGrad kernel: ``accgrad_reduce`` at the label batch's shape (4
+6. Multi-tenant fleet: server DNNs of width 32 and AccModels of width 16
+   (seeded), 384x640, alpha by the median rule. Calibration:
+   ``calibrate_tenant`` onboards a segmentation server on 16 surf frames
+   into a temporary cache, twice: the first call trains (exactly 4
+   ``accgrad_reduce`` launches, every op on the card but the AccModel's
+   seeded initial weights, drawn on the host as every module of the port
+   draws them), the second restores (no launch) bit for bit the same
+   weights. Run A (``benchmarks/multitenant.py``'s settings): a detection
+   tenant (the fleet's models, 5 dashcam streams, seeds 300-304) and the
+   calibrated segmentation tenant (3 surf streams) share one quality
+   config on one 8-lane fleet under ``fused_exact`` (``serve_loop``,
+   ``FleetAutoscaler``, ``sim_encode_s`` 0.05, a 2.5 Mb/s uplink), against
+   the two dedicated fleets (8 + 4 lanes) at the pro-rata uplink: per
+   tenant accuracy within 5e-4 pooled and 1e-2 a stream-chunk, bytes
+   within rtol 1e-3 a stream-chunk; exactly one ``mbcodec_chunk_scores``
+   launch a served interval plus the warm-ups; every op on the card, the
+   tenant ids and lane masks set under sync debug mode "error"; every
+   decision's ``tenant_share`` (0.625, 0.375). Run B: segmentation (QP 30
+   / 40) and keypoint (30 / 51) tenants under ``pallas``, windowed with
+   the tenant accuracy reduce on the card, 8 streams of 40 frames under
+   mixed-tenant churn on padded shapes 8 and 4, then a second schedule
+   over the same shapes: ``mbcodec_frame`` launches exactly one a padded
+   lane-frame served plus the warm-ups', the second schedule builds and
+   warms nothing, per-tenant windowed accuracy within 1e-5 of the
+   tenant-grouped host scorer on the same outputs, padded lanes 0 bytes
+   and never aggregated. It logs server seconds and lanes shared against
+   dedicated, the largest score difference and QP flips between them,
+   and the server seconds of each interval of a serialized run B, where a
+   new tenant mix first meets its per-tenant batch sizes, beside a
+   second, steady pass.
+7. AccGrad kernel: ``accgrad_reduce`` at the label batch's shape (4
    frames of 384x640x3) against its plain version, relative error at most
    1e-5 of each macroblock's sum. Both are timed as above and, since the
    35 MB of inputs fit in the L2 cache, also with L2 flushed before each
    call; the flushed times go into the kernels line.
-7. Training path at full size: 16 dashcam frames of 384x640 and the same
+8. Training path at full size: 16 dashcam frames of 384x640 and the same
    detection FinalDNN. ``make_labels`` (batch 4) must make exactly 4
    ``accgrad_reduce`` launches with every op on the card, and its labels
    may differ from labels built from the same gradients through the plain
@@ -86,12 +116,12 @@ check it end to end.
    untimed epoch of each on one batch has warmed the kernels. Last,
    ``train_final_dnn`` (detection, 1000 steps, width 32, no cache, under
    ``torch.use_deterministic_algorithms``) must lower the detection loss
-   on a held batch; 8 drives this detector.
-8. Baselines path: the same 30 frames through ``StreamingEngine.run``
+   on a held batch; 9 drives this detector.
+9. Baselines path: the same 30 frames through ``StreamingEngine.run``
    for uniform QP 38, DDS, EAAR, Reducto, Vigil, SiEVE, Reducto+AccMPEG
    and the rate-controlled AccMPEG (an lte trace, budget 0.2 s), each
    under exact, pallas, fused and fused_exact, with the detector trained
-   in 7 as the server, Vigil's camera and SiEVE's model. Reducto's and
+   in 8 as the server, Vigil's camera and SiEVE's model. Reducto's and
    SiEVE's thresholds are the first chunk's median change feature and
    presence delta, so that frames are both kept and dropped. Each audited
    run must make exactly its kernel launches (one chunk kernel a chunk
@@ -107,7 +137,7 @@ check it end to end.
    full. It logs each RoI encode's high-QP share, the
    controller's knob path and every run's per-chunk encode and overhead
    times from a second, unaudited run.
-9. LM kernels: ``decode_attn`` at the smollm decode path's shape (B=16,
+10. LM kernels: ``decode_attn`` at the smollm decode path's shape (B=16,
    a 2048-token cache, KV=5, G=3, hd=64, pos=1087; bf16 and fp32) and at
    one smollm layer of the reference's decode_32k cell (B=128, S=32768,
    bf16) against its plain version (atol 1e-5, rtol 1e-4), with
@@ -127,7 +157,7 @@ check it end to end.
    a row with S >= 2 takes its operations at the TF32 tensor-core rate
    over three (the kernel's products), of a decode row at the CUDA-core
    rate.
-10. LM serving at full width, random bf16 weights from a seeded generator:
+11. LM serving at full width, random bf16 weights from a seeded generator:
    smollm-360m and rwkv6-1.6b each prefill 16 prompts of 1024 tokens
    (``make_prefill_step`` with room for 2048) and take 64 greedy
    ``make_decode_step`` steps. The audited run must make exactly
@@ -138,7 +168,7 @@ check it end to end.
    of a prefill and of 8 decode steps. Then, in fp32, the decode logits
    after a 256-token prefill must match the full forward pass within
    2e-3 of its largest logit for 16 steps (the reference's property).
-11. Prints one JSON line of the rows at shapes or types the paths do not
+12. Prints one JSON line of the rows at shapes or types the paths do not
    run (launches 0), then the ``{"kernels": [...]}`` line: one row for
    each kernel at each shape and type its path runs, with its launches
    there, error and times; then the line ``kernels: ...``, and last
@@ -239,6 +269,25 @@ CLOSED_RECOVERY, CLOSED_DEPTH = 100.0, 2
 # 2.5e-03 a stream-chunk at most on the H100); the bounds sit above them
 CLOSED_ACC_GAP = 1e-5
 CLOSED_EXACT_GAP, CLOSED_EXACT_CHUNK_GAP = 5e-4, 1e-2
+# multi-tenant fleet (phase 6). Run A: benchmarks/multitenant.py's pair,
+# 5 detection (dashcam) + 3 segmentation (surf) streams of 30 frames on
+# one fleet, its uplink and sim_encode_s; the dedicated fleets take the
+# uplink pro rata. Calibration: 16 surf frames. Run B: 4 segmentation
+# (surf, ids 0-3) and 4 keypoint (driving, ids 4-7) streams of 40
+# frames; the schedules (initial ids, then (interval, joins, leaves))
+# serve, as (segmentation, keypoint) streams: 2/2, 4/4, 2/3, 1/3 on
+# shapes 4, 8, 8, 4; then 0/4, 4/4, 4/0, 2/2 on shapes 4, 8, 4, 4 (a
+# shape admitted once is reused by every count it fits within twice)
+MT_DET_SEEDS, MT_SEG_SEEDS, MT_FRAMES = range(300, 305), range(800, 803), 30
+MT_UPLINK_BPS, MT_CALIB_SEED, MT_CALIB_FRAMES = 2.5e6, 830, 16
+MT_B_SEG_SEEDS, MT_B_KP_SEEDS, MT_B_FRAMES = (range(810, 814),
+                                              range(820, 824), 40)
+MT_B_SCHEDULES = (((0, 3, 4, 7), ((1, (1, 2, 5, 6), ()),
+                                  (2, (), (1, 2, 5)), (3, (5,), (0, 6)))),
+                  ((4, 5, 6, 7), ((1, (0, 1, 2, 3), ()),
+                                  (2, (), (4, 5, 6, 7)),
+                                  (3, (4, 5), (0, 1)))))
+MT_ACC_GAP = 1e-5  # the card reduce against the host scorer, same outputs
 BASELINES = ("uniform", "dds", "eaar", "reducto", "vigil", "sieve",
              "reducto_accmpeg", "accmpeg_controlled")
 # the controlled run's trace (lte, mean 4 Mb/s) and delay budget: a chunk
@@ -846,13 +895,16 @@ def _concurrency(initial, events, n_int):
     return counts
 
 
-def expected_launches(counts, decisions, overlap, depth, warmed=()):
+def expected_launches(counts, decisions, overlap, depth, warmed=(),
+                      per_step=lambda n_padded: 1):
     """The loop's rule for the scores kernel: one launch a served
     interval, plus the warm-up of each (padded shape, overlap) first met:
     one step, and one timed hot step when overlapped. Admission is
     replayed through a fresh ``FleetAutoscaler`` (the engines' default
     admission), and overlap follows the decisions as ``serve_loop``
-    adopts them (one decision a served interval)."""
+    adopts them (one decision a served interval). ``per_step`` gives a
+    camera step's launches at a padded shape (the frame kernel's: one a
+    lane-frame)."""
     from repro_torch.control import FleetAutoscaler
 
     scaler, warmed, n, k = FleetAutoscaler(), set(warmed), 0, 0
@@ -862,8 +914,8 @@ def expected_launches(counts, decisions, overlap, depth, warmed=()):
             continue
         if (plan.n_padded, overlap) not in warmed:
             warmed.add((plan.n_padded, overlap))
-            n += 2 if overlap else 1
-        n += 1
+            n += (2 if overlap else 1) * per_step(plan.n_padded)
+        n += per_step(plan.n_padded)
         if decisions:
             d, k = decisions[k], k + 1
             if d.batch_depth != (depth if overlap else 1):
@@ -1125,6 +1177,322 @@ def closed_loop_phase(am):
     del frames
     torch.cuda.empty_cache()
     return launches
+
+
+def _unaudited(fn):
+    """``fn`` run outside any dispatch mode (the device audit): for the
+    AccModel's seeded initial weights, which every module of the port
+    draws on the host from a CPU generator and then moves to the card."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    def run(*args, **kw):
+        with _disable_current_modes():
+            return fn(*args, **kw)
+    return run
+
+
+def _pooled(res, tenant_of):
+    """Per-tenant mean accuracy pooled over stream-chunks, and the
+    per-chunk {(stream, ci): chunk} map, of a per-chunk result."""
+    chunks = {(sid, c.ci): c for sid, r in zip(res.stream_ids, res.streams)
+              for c in r.chunks}
+    n_t = max(tenant_of.values()) + 1
+    pooled = tuple(float(np.mean([c.accuracy for (sid, _), c in
+                                  chunks.items() if tenant_of[sid] == t]))
+                   for t in range(n_t))
+    return pooled, chunks
+
+
+def multitenant_phase(rows, dnn, am):
+    """Multi-tenant fleet serving at full size: ``calibrate_tenant`` with
+    its cache, run A (one quality config, the scores kernel, against
+    dedicated fleets) and run B (per-tenant QP ladders, the frame kernel,
+    windowed with the tenant reduce on the card, mixed-tenant churn)."""
+    import tempfile
+
+    from repro_torch.control import (ChurnEvent, FleetAutoscaler, apply_churn,
+                                     pad_streams)
+    from repro_torch.core import training
+    from repro_torch.core.pipeline import NetworkConfig
+    from repro_torch.core.quality import QualityConfig, dilate_scores
+    from repro_torch.data.video import make_scene
+    from repro_torch.engine import EngineConfig, MultiStreamEngine
+    from repro_torch.engine import multistream
+    from repro_torch.kernels.accgrad_reduce.kernel import \
+        LAUNCHES as ACC_LAUNCHES
+    from repro_torch.kernels.mbcodec.kernel import (LAUNCHES,
+                                                    scores_kernel_name)
+    from repro_torch.obs import CompileCounter
+    from repro_torch.serve.tenants import TenantSpec, calibrate_tenant
+    from repro_torch.vision.dnn import FinalDNN
+
+    t_phase = time.perf_counter()
+
+    def scenes(genre, seeds, T):
+        return [make_scene(genre, seed=s, T=T, H=HEIGHT, W=WIDTH_PX).frames
+                for s in seeds]
+
+    seg_dnn = FinalDNN("segmentation", width=32, device="cuda",
+                       generator=torch.Generator().manual_seed(1))
+    kp_dnn = FinalDNN("keypoint", width=32, device="cuda",
+                      generator=torch.Generator().manual_seed(2))
+    kp_am = training.accmodel_init(3, 16, "cuda")
+    calib = make_scene("surf", seed=MT_CALIB_SEED, T=MT_CALIB_FRAMES,
+                       H=HEIGHT, W=WIDTH_PX).frames
+    n_det = len(MT_DET_SEEDS)
+    frames_a = torch.from_numpy(np.stack(
+        scenes("dashcam", MT_DET_SEEDS, MT_FRAMES)
+        + scenes("surf", MT_SEG_SEEDS, MT_FRAMES))).cuda()
+    n_a = frames_a.shape[0]
+    frames_b = torch.from_numpy(np.stack(
+        scenes("surf", MT_B_SEG_SEEDS, MT_B_FRAMES)
+        + scenes("driving", MT_B_KP_SEEDS, MT_B_FRAMES))).cuda()
+    alpha = median_alpha(am, frames_a[0, :1])
+    qcfg = QualityConfig(alpha=alpha, gamma=2)
+    log(f"multi-tenant fleet: server DNNs width 32, AccModels width 16, "
+        f"{HEIGHT}x{WIDTH_PX}, alpha {alpha:.6f}, gamma 2")
+
+    # -- calibration: onboard the segmentation server, twice ---------------
+    init = training.accmodel_init
+    training.accmodel_init = _unaudited(init)
+    try:
+        with tempfile.TemporaryDirectory() as cache:
+            ACC_LAUNCHES.clear()  # every count to 0 just before the path
+            t0 = time.perf_counter()
+            seg_spec, moved, off = audited(lambda: calibrate_tenant(
+                "segmentation", seg_dnn, calib, qcfg=qcfg, cache_dir=cache))
+            first_s = time.perf_counter() - t0
+            calib_launches = ACC_LAUNCHES.get("accgrad_reduce", 0)
+            t0 = time.perf_counter()
+            again, moved2, off2 = audited(lambda: calibrate_tenant(
+                "segmentation", seg_dnn, calib, qcfg=qcfg, cache_dir=cache))
+            again_s = time.perf_counter() - t0
+            cached = sorted(os.listdir(cache))
+    finally:
+        training.accmodel_init = init
+    log(f"  calibrate_tenant on {MT_CALIB_FRAMES} surf frames: first call "
+        f"{first_s:.3f} s, launches {moved}; second call {again_s:.3f} s, "
+        f"launches {moved2}; cache {cached}")
+    if moved != {"accgrad_reduce": MT_CALIB_FRAMES // LABEL_BATCH} or \
+            calib_launches != MT_CALIB_FRAMES // LABEL_BATCH or moved2:
+        raise AssertionError("calibrate_tenant: wrong launches")
+    if off | off2:
+        raise AssertionError(f"ops off the card: {sorted(off | off2)}")
+    sd1, sd2 = seg_spec.accmodel.state_dict(), again.accmodel.state_dict()
+    if len(cached) != 1 or not all(torch.equal(sd1[k], sd2[k])
+                                   for k in sd1):
+        raise AssertionError("the cached AccModel differs from the trained")
+    log("  every op of both calls on cuda (transfers and the AccModel's "
+        "seeded host-drawn initial weights aside); the restore equals the "
+        "trained AccModel bit for bit")
+
+    # -- run A: one quality config, the scores kernel ------------------------
+    det_spec = TenantSpec("detection", dnn, am, qcfg=qcfg)
+    tenant_of = {i: int(i >= n_det) for i in range(n_a)}
+    fixed = dict(impl="fused_exact", sim_encode_s=SIM_ENCODE_S)
+
+    def shared_engine():
+        return MultiStreamEngine(config=EngineConfig(
+            net=NetworkConfig.shared(MT_UPLINK_BPS, n_a),
+            autoscaler=FleetAutoscaler(), tenants=(det_spec, seg_spec),
+            tenant_of=tenant_of, **fixed))
+
+    def dedicated(spec, n):
+        return MultiStreamEngine(spec.dnn, spec.accmodel, config=EngineConfig(
+            qcfg=qcfg, net=NetworkConfig.shared(MT_UPLINK_BPS * n / n_a, n),
+            autoscaler=FleetAutoscaler(), **fixed))
+
+    name_a = scores_kernel_name(True)
+    lane_flags, tenant_lanes = multistream._lane_flags, \
+        multistream.TenantLanes
+    multistream._lane_flags = _strict_sync(lane_flags)
+    multistream.TenantLanes = _strict_sync(tenant_lanes)
+    try:
+        LAUNCHES.clear()  # every count to 0 just before the path
+        eng_a = shared_engine()
+        res_a, moved_a, off = audited(lambda: eng_a.serve_loop(frames_a))
+        want_a, _ = expected_launches([n_a] * (MT_FRAMES // CHUNK_FRAMES),
+                                      res_a.decisions, True, 2)
+        launches_a = LAUNCHES.get(name_a, 0)
+    finally:
+        multistream._lane_flags = lane_flags
+        multistream.TenantLanes = tenant_lanes
+    log(f"  run A (shared, fused_exact): launches {moved_a}, expected "
+        f"{want_a} by the loop's rule; shapes {res_a.shapes}; decisions "
+        f"{[(d.batch_depth, d.tenant_share) for d in res_a.decisions]}")
+    if moved_a != {name_a: want_a} or launches_a != want_a:
+        raise AssertionError(f"run A launched {moved_a}")
+    if off:
+        raise AssertionError(f"ops off the card: {sorted(off)}")
+    share = (n_det / n_a, 1 - n_det / n_a)
+    if not res_a.decisions or any(d.tenant_share != share
+                                  for d in res_a.decisions):
+        raise AssertionError("run A: tenant_share is not 5/8, 3/8")
+    ded = [dedicated(det_spec, n_det), dedicated(seg_spec, n_a - n_det)]
+    res_d = [ded[0].serve_loop(frames_a[:n_det]),
+             ded[1].serve_loop(frames_a[n_det:])]
+    pooled_a, ch_a = _pooled(res_a, tenant_of)
+    ch_d = {}
+    for t, r in enumerate(res_d):
+        off_id = 0 if t == 0 else n_det
+        ch_d.update({(sid + off_id, c.ci): c
+                     for sid, r_s in zip(r.stream_ids, r.streams)
+                     for c in r_s.chunks})
+    pooled_d = (float(np.mean([c.accuracy for (sid, _), c in ch_d.items()
+                               if sid < n_det])),
+                float(np.mean([c.accuracy for (sid, _), c in ch_d.items()
+                               if sid >= n_det])))
+    if set(ch_a) != set(ch_d):
+        raise AssertionError("run A and the dedicated fleets served other "
+                             "stream-chunks")
+    gap = max(abs(ch_a[k].accuracy - ch_d[k].accuracy) for k in ch_a)
+    rel = max(abs(ch_a[k].bytes - ch_d[k].bytes) / ch_d[k].bytes
+              for k in ch_a)
+    pooled_gap = max(abs(a - b) for a, b in zip(pooled_a, pooled_d))
+    log(f"  run A vs dedicated fleets: per-tenant accuracy {pooled_a} vs "
+        f"{pooled_d} (gap {pooled_gap:.3e}, bound {CLOSED_EXACT_GAP}); per "
+        f"stream-chunk gap max {gap:.3e} (bound {CLOSED_EXACT_CHUNK_GAP}); "
+        f"bytes within {rel:.3e}")
+    if pooled_gap > CLOSED_EXACT_GAP or gap > CLOSED_EXACT_CHUNK_GAP \
+            or rel > 1e-3:
+        raise AssertionError("run A differs from the dedicated fleets")
+
+    # scores and QP maps: the shared camera step against the dedicated
+    # ones, each at its fleet's padded shape
+    def scores(engine, batch, n_padded, *lanes):
+        n = batch.shape[0]
+        active = torch.arange(n_padded, device=batch.device) < n
+        step = engine._steps[(False, True)][0]
+        return step(pad_streams(batch, n_padded), *lanes, active)[2][:n]
+
+    lanes = eng_a._tenant_lane_ids(range(n_a), res_a.shapes[0])
+    score_gap, flips, blocks = 0.0, 0, 0
+    for s in range(0, MT_FRAMES, CHUNK_FRAMES):
+        batch = frames_a[:, s:s + CHUNK_FRAMES]
+        got = scores(eng_a, batch, res_a.shapes[0], lanes)
+        want = torch.cat([scores(ded[0], batch[:n_det], res_d[0].shapes[0]),
+                          scores(ded[1], batch[n_det:], res_d[1].shapes[0])])
+        score_gap = max(score_gap, float((got - want).abs().max()))
+        flips += int(((dilate_scores(got, 2) >= alpha)
+                      != (dilate_scores(want, 2) >= alpha)).sum())
+        blocks += got.numel()
+    log(f"  run A scores, shared vs dedicated camera steps: max abs "
+        f"difference {score_gap:.3e}; QP flips {flips} of {blocks} blocks")
+
+    # server seconds and lanes, from runs outside the audit (each warm)
+    shared_t = shared_engine()
+    shared_t.serve_loop(frames_a)
+    t_sh = shared_t.serve_loop(frames_a).timing
+    t_de = [e.serve_loop(f).timing for e, f in
+            ((ded[0], frames_a[:n_det]), (ded[1], frames_a[n_det:]))]
+    srv_sh = float(np.sum(t_sh.server_s))
+    srv_de = sum(float(np.sum(t.server_s)) for t in t_de)
+    log(f"  run A server seconds ({CARD}): shared {srv_sh:.6f} s on "
+        f"{sum(res_a.shapes)} lanes, dedicated {srv_de:.6f} s on "
+        f"{sum(r.shapes[0] for r in res_d)} lanes "
+        f"({srv_de / srv_sh:.3f}x); shared stages "
+        f"{json.dumps(t_sh.summary())}")
+
+    # -- run B: per-tenant QP ladders, the frame kernel, windowed ----------
+    n_seg_b = len(MT_B_SEG_SEEDS)
+    n_b = frames_b.shape[0]
+    tenants_b = (TenantSpec("segmentation", seg_dnn, seg_spec.accmodel,
+                            qcfg=QualityConfig(alpha=alpha, gamma=2,
+                                               qp_hi=30, qp_lo=40)),
+                 TenantSpec("keypoint", kp_dnn, kp_am,
+                            qcfg=QualityConfig(alpha=alpha, gamma=2,
+                                               qp_hi=30, qp_lo=51)))
+    tenant_of_b = {i: int(i >= n_seg_b) for i in range(n_b)}
+    n_int_b = MT_B_FRAMES // CHUNK_FRAMES
+    scheds = [(init_ids, [ChurnEvent(c, join=j, leave=lv)
+                          for c, j, lv in spec])
+              for init_ids, spec in MT_B_SCHEDULES]
+    counts_b = [_concurrency(i, ev, n_int_b) for i, ev in scheds]
+
+    def engine_b(detail, **kw):
+        return MultiStreamEngine(config=EngineConfig(
+            impl="pallas", detail=detail, sim_encode_s=SIM_ENCODE_S,
+            tenants=tenants_b, tenant_of=tenant_of_b, **kw))
+
+    per_step = lambda n_padded: n_padded * CHUNK_FRAMES  # noqa: E731
+    eng_b = engine_b("windowed")
+    rec = _finish_recorder(eng_b, {"chunks": [], "observed": []})
+    multistream._lane_flags = _strict_sync(lane_flags)
+    multistream.TenantLanes = _strict_sync(tenant_lanes)
+    try:
+        LAUNCHES.clear()  # every count to 0 just before the path
+        res_b, moved_b, off = audited(lambda: eng_b.serve_loop(
+            frames_b, initial=scheds[0][0], events=scheds[0][1],
+            rescale=False))
+        want_b, warmed = expected_launches(counts_b[0], None, True, 2,
+                                           per_step=per_step)
+        counter = CompileCounter.for_engine(eng_b)
+        res_b2, moved_b2, off2 = audited(lambda: eng_b.serve_loop(
+            frames_b, initial=scheds[1][0], events=scheds[1][1],
+            rescale=False))
+        want_b2, warmed2 = expected_launches(counts_b[1], None, True, 2,
+                                             warmed, per_step=per_step)
+        launches_b = LAUNCHES.get("mbcodec_frame", 0)
+    finally:
+        multistream._lane_flags = lane_flags
+        multistream.TenantLanes = tenant_lanes
+    log(f"  run B (pallas, windowed, tenant reduce on the card): active "
+        f"{counts_b[0]} on shapes {res_b.shapes}, launches {moved_b}, "
+        f"expected {want_b}; second schedule active {counts_b[1]}, "
+        f"launches {moved_b2}, expected {want_b2}; builds "
+        f"{counter.sizes()}, growth {counter.growth()}")
+    if moved_b != {"mbcodec_frame": want_b} or \
+            moved_b2 != {"mbcodec_frame": want_b2} or warmed2 != warmed \
+            or launches_b != want_b + want_b2:
+        raise AssertionError("run B launched other than its rule")
+    counter.assert_no_recompiles("run B's second schedule")
+    if off | off2:
+        raise AssertionError(f"ops off the card: {sorted(off | off2)}")
+    if eng_b._acc_step is None:
+        raise AssertionError("run B did not reduce accuracy on the card")
+    chunks, observed = rec["chunks"], rec["observed"]
+    if any(float(np.abs(b[len(ids):]).sum()) != 0.0
+           for _, ids, b, _ in chunks):
+        raise AssertionError("run B: a padded lane sent bytes")
+    if observed != [(ci, ids) for ci, ids, _, _ in chunks if ids]:
+        raise AssertionError("run B: the aggregator saw other lanes than "
+                             "the active ones")
+    host_b = engine_b("chunks").serve_loop(
+        frames_b, initial=scheds[0][0], events=scheds[0][1], rescale=False)
+    pooled_b, ch_b = _pooled(host_b, tenant_of_b)
+    card_b = res_b.aggregate.accuracy_by_tenant()
+    gap_b = max(abs(a - b) for a, b in zip(card_b, pooled_b))
+    log(f"  run B per-tenant windowed accuracy (card reduce) {card_b} vs "
+        f"the tenant-grouped host scorer on the same outputs {pooled_b} "
+        f"(gap {gap_b:.3e}, bound {MT_ACC_GAP}); "
+        f"{sum(len(b) - len(i) for _, i, b, _ in chunks)} padded "
+        f"lane-chunks sent 0 bytes and were never aggregated")
+    if gap_b > MT_ACC_GAP or res_b.aggregate.n != sum(counts_b[0]) or \
+            len(ch_b) != sum(counts_b[0]):
+        raise AssertionError("run B's card reduce disagrees with the host")
+
+    # per-interval server seconds, serialized: where a tenant mix first
+    # meets its per-tenant batch sizes, beside a second, steady pass
+    timed = engine_b("windowed", overlap=False)
+    passes = [timed.serve_loop(frames_b, initial=scheds[0][0],
+                               events=scheds[0][1], rescale=False).timing
+              for _ in range(2)]
+    active = list(scheds[0][0])
+    for ci in range(n_int_b):
+        active = apply_churn(active, scheds[0][1], ci)
+        n_seg = sum(1 for sid in active if not tenant_of_b[sid])
+        log(f"    run B interval {ci} ({n_seg} segmentation + "
+            f"{len(active) - n_seg} keypoint streams; {CARD}): server "
+            f"{passes[0].server_s[ci] * 1e3:.4f} ms, steady "
+            f"{passes[1].server_s[ci] * 1e3:.4f} ms")
+    log(f"  multi-tenant phase: {time.perf_counter() - t_phase:.2f} s")
+    del frames_a, frames_b
+    torch.cuda.empty_cache()
+    for name, n in ((name_a, launches_a), ("mbcodec_frame", launches_b),
+                    ("accgrad_reduce", calib_launches)):
+        rows[name]["launches"] = rows[name].get("launches", 0) + n
+    return {name_a: launches_a, "mbcodec_frame": launches_b,
+            "accgrad_reduce": calib_launches}
 
 
 def _recording_encoder(shares):
@@ -1466,11 +1834,12 @@ def training_phase(rows, dnn):
     if not after < before:
         raise AssertionError("train_final_dnn did not lower the held loss")
     # read just after the path: make_labels' and train_accmodel's labels
-    rows["accgrad_reduce"]["launches"] = LAUNCHES["accgrad_reduce"]
-    if rows["accgrad_reduce"]["launches"] != 2 * (n // LABEL_BATCH):
-        raise AssertionError(f"accgrad_reduce launched "
-                             f"{rows['accgrad_reduce']['launches']} times "
-                             f"on the training path")
+    made = LAUNCHES["accgrad_reduce"]
+    if made != 2 * (n // LABEL_BATCH):
+        raise AssertionError(f"accgrad_reduce launched {made} times on the "
+                             f"training path")
+    rows["accgrad_reduce"]["launches"] = \
+        rows["accgrad_reduce"].get("launches", 0) + made
     return net
 
 
@@ -2029,6 +2398,8 @@ def main():
     log(f"fleet path: {time.perf_counter() - t0:.2f} s")
     launches = closed_loop_phase(am)
     log(f"closed-loop fleet path ({CARD}): launches {launches}")
+    launches = multitenant_phase(rows, dnn, am)
+    log(f"multi-tenant fleet path ({CARD}): launches {launches}")
     t0 = time.perf_counter()
     detector = training_phase(rows, dnn)
     log(f"training path: {time.perf_counter() - t0:.2f} s")

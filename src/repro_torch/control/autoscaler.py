@@ -100,12 +100,21 @@ def apply_churn(active: Sequence[int], events: Sequence[ChurnEvent],
 @dataclasses.dataclass(frozen=True)
 class ScaleDecision:
     """What the fleet should look like for the next serving interval.
-    (The reference's per-tenant ``tenant_share`` comes with tenants,
-    ROADMAP module 7.)"""
+
+    ``tenant_share`` (multi-tenant fleets only) is the capacity split:
+    tenant t's fraction of the fleet's serving lanes for the next
+    interval, proportional to its occupancy. ``None`` on fleets without
+    tenants."""
 
     mesh_width: int
     batch_depth: int  # chunks in flight; 1 = serialized, >=2 = overlapped
     reason: str
+    tenant_share: Optional[Tuple[float, ...]] = None
+
+    def __post_init__(self):
+        if self.tenant_share is not None:
+            object.__setattr__(self, "tenant_share",
+                               tuple(float(x) for x in self.tenant_share))
 
     @property
     def overlap(self) -> bool:
@@ -180,13 +189,27 @@ class FleetAutoscaler:
     # -- scaling --------------------------------------------------------------
     def decide(self, timing: FleetTiming, n_streams: int,
                mesh_width: int = 1, batch_depth: int = 2,
-               n_devices: Optional[int] = None) -> ScaleDecision:
+               n_devices: Optional[int] = None,
+               tenant_streams: Optional[Sequence[int]] = None,
+               ) -> ScaleDecision:
         """Pick the next (mesh_width, batch_depth) from measured timing.
         One record point for the telemetry plane: every decision — from
         any of the policy's exit paths, and from a subclass via
-        ``super().decide`` — lands here exactly once."""
+        ``super().decide`` — lands here exactly once.
+
+        ``tenant_streams`` (multi-tenant fleets): per-tenant active stream
+        counts for the interval; the decision then carries
+        ``tenant_share``, each tenant's fraction of the serving lanes in
+        proportion to its occupancy (0.0 for a tenant with no active
+        stream)."""
         d = self._decide(timing, n_streams, mesh_width=mesh_width,
                          batch_depth=batch_depth, n_devices=n_devices)
+        if tenant_streams is not None:
+            counts = np.asarray(list(tenant_streams), np.float64)
+            total = float(counts.sum())
+            share = tuple(counts / total) if total > 0 else \
+                tuple(0.0 for _ in counts)
+            d = dataclasses.replace(d, tenant_share=share)
         changed = (d.mesh_width, d.batch_depth) != (mesh_width, batch_depth)
         reg = obs_metrics.get_metrics()
         if reg is not None:

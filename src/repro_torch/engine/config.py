@@ -1,10 +1,10 @@
 """Typed fleet-engine configuration (port of ``repro.engine.config``).
 
 The same frozen dataclass, field names and defaults as the reference's
-``EngineConfig``. Fields whose subsystem this port does not have yet
-(the stream mesh, tenants) must keep their defaults: setting one raises
-``NotImplementedError`` naming the slice that brings it (``ROADMAP.md``),
-rather than being ignored.
+``EngineConfig``, the multi-tenant plane (``tenants`` / ``tenant_of``)
+included. The stream mesh, which this port does not have yet, must keep
+its default: setting it raises ``NotImplementedError`` naming the slice
+that brings it (``ROADMAP.md``), rather than being ignored.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from typing import Mapping, Optional, Tuple
 from repro_torch.core.aggregate import AggregateConfig
 from repro_torch.core.pipeline import NetworkConfig
 from repro_torch.core.quality import QualityConfig
+from repro_torch.serve.tenants import TenantSpec, validate_tenants
 
 #: the accounting modes ``detail=`` accepts (validated here so a typo
 #: fails at config build, before any engine exists)
@@ -22,8 +23,6 @@ DETAIL_MODES = ("chunks", "legacy", "windowed")
 #: field -> (its default, the later slice that ports it)
 _LATER = {
     "mesh": (None, "the multi-GPU slice (ROADMAP module 8)"),
-    "tenants": (None, "the tenants slice (ROADMAP module 7)"),
-    "tenant_of": (None, "the tenants slice (ROADMAP module 7)"),
 }
 
 
@@ -36,7 +35,18 @@ class EngineConfig:
     ``detail`` the host accounting ("chunks" or "legacy" here),
     ``sim_encode_s`` a fixed accounted camera time. ``fps`` and
     ``device_reduce`` only matter with a trace and with
-    ``detail="windowed"``, which come later."""
+    ``detail="windowed"``.
+
+    ``tenants``
+        optional tuple of :class:`~repro_torch.serve.tenants.TenantSpec`.
+        One tenant: the engine takes its DNN, AccModel and QualityConfig
+        and serves the single-tenant path unchanged. Several: the fleet
+        steps become tenant-routed (``serve.steps.make_tenant_*``).
+    ``tenant_of``
+        stream id -> index into ``tenants`` (default: tenant 0). It rides
+        the engine as data, so a change of tenant mix at an admitted
+        padded shape builds nothing new.
+    """
 
     qcfg: QualityConfig = QualityConfig()
     net: Optional[NetworkConfig] = None
@@ -53,7 +63,7 @@ class EngineConfig:
     detail: str = "chunks"
     aggregate: Optional[AggregateConfig] = None
     device_reduce: bool = True
-    tenants: Optional[Tuple] = None
+    tenants: Optional[Tuple[TenantSpec, ...]] = None
     tenant_of: Optional[Mapping[int, int]] = None
 
     def __post_init__(self):
@@ -70,3 +80,25 @@ class EngineConfig:
                 raise NotImplementedError(
                     f"EngineConfig.{name} is not ported yet: it comes with "
                     f"{slice_}; leave it at {default!r}")
+        if self.tenants is not None:
+            object.__setattr__(self, "tenants",
+                               validate_tenants(self.tenants, self.impl))
+        if self.tenant_of is not None:
+            if self.tenants is None:
+                raise ValueError("tenant_of without tenants: declare the "
+                                 "TenantSpec tuple the ids index")
+            n = len(self.tenants)
+            tof = {}
+            for sid, t in dict(self.tenant_of).items():
+                if not 0 <= int(t) < n:
+                    raise ValueError(f"tenant_of maps stream {sid} to "
+                                     f"tenant {t}; config has {n} "
+                                     f"tenants")
+                tof[int(sid)] = int(t)
+            object.__setattr__(self, "tenant_of", tof)
+
+    @property
+    def tenanted(self) -> bool:
+        """True when the engine runs the tenant-routed fleet steps (two or
+        more tenants; a single tenant folds into the single-DNN path)."""
+        return self.tenants is not None and len(self.tenants) > 1

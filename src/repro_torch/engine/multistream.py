@@ -35,9 +35,15 @@ every step runs synchronously.
 Accounting follows the reference: per-stream ``encode_s`` is the fleet
 camera step's time (under overlap, one hot step timed after warm-up);
 server inference stays out of per-stream delay and is tracked in
-``FleetResult.timing`` for serving-tier capacity only. The stream mesh
+``FleetResult.timing`` for serving-tier capacity only.
+
+Tenants (``EngineConfig(tenants=, tenant_of=)``): with two or more, the
+fleet steps become tenant-routed (``serve.steps.make_tenant_*``), each
+interval's tenant-id lane goes to the card beside the lane mask (from
+pinned memory, no wait), host scoring groups lanes by tenant, and
+scale decisions carry each tenant's share of the lanes. The stream mesh
 and multi-host suspend/resume come with the multi-GPU slice (ROADMAP
-module 8), tenants with module 7.
+module 8).
 """
 from __future__ import annotations
 
@@ -60,9 +66,13 @@ from repro_torch.engine.config import EngineConfig
 from repro_torch.engine.engine import synchronize
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
-from repro_torch.serve.steps import (make_accuracy_reduce_step,
+from repro_torch.serve.steps import (TenantLanes, make_accuracy_reduce_step,
                                      make_camera_fleet_step,
-                                     make_server_fleet_step)
+                                     make_server_fleet_step,
+                                     make_tenant_accuracy_reduce_step,
+                                     make_tenant_camera_fleet_step,
+                                     make_tenant_server_fleet_step,
+                                     to_device_async)
 from repro_torch.vision.dnn import detection_keep_heat
 
 _MODULE_8 = "the multi-GPU slice (ROADMAP module 8)"
@@ -160,13 +170,32 @@ class _EngineObs:
             self.reg.counter("churn_joins_total").inc(len(event.join))
             self.reg.counter("churn_leaves_total").inc(len(event.leave))
 
-    def slo_attainment(self, aggregate) -> None:
+    def slo_attainment(self, aggregate, tenants=None) -> None:
         """Windowed runs: export the aggregator's per-tier SLO attainment
-        as gauges at run end."""
+        as gauges at run end, and on tenanted fleets the per-tenant
+        attainment and volume (labelled by tenant name)."""
         if self.reg is not None and aggregate is not None:
             for tier, frac in aggregate.attainment().items():
                 if frac == frac:  # skip empty tiers (NaN)
                     self.reg.gauge("slo_attainment", tier=tier).set(frac)
+            if tenants is not None and aggregate.tenanted:
+                for t, atts in enumerate(aggregate.attainment_by_tenant()):
+                    name = tenants[t].name
+                    self.reg.gauge("tenant_chunks_served",
+                                   tenant=name).set(int(aggregate.t_n[t]))
+                    for tier, frac in atts.items():
+                        if frac == frac:
+                            self.reg.gauge("tenant_slo_attainment",
+                                           tenant=name,
+                                           tier=tier).set(frac)
+
+    def tenant_lanes(self, tenants, counts) -> None:
+        """Per-interval active lanes of each tenant (the occupancy the
+        capacity split divides by)."""
+        if self.reg is not None:
+            for t, spec in enumerate(tenants):
+                self.reg.gauge("tenant_lanes_active",
+                               tenant=spec.name).set(int(counts[t]))
 
 
 @dataclasses.dataclass
@@ -178,9 +207,10 @@ class FleetResult:
     back to its fleet lane id (churn means not every stream serves every
     chunk), ``decisions`` is the per-interval ``ScaleDecision`` record,
     and ``shapes`` the padded fleet shapes admission ever warmed up.
-    Windowed runs return ``aggregate`` in place of ``streams``. (The
-    reference's multi-host ``hosts`` and tenants' ``tenant_ids`` come
-    with their slices.)"""
+    Windowed runs return ``aggregate`` in place of ``streams``. Tenanted
+    fleets carry ``tenant_ids``, the tenant of each entry of ``streams``
+    (windowed runs keep the split in ``aggregate``). (The reference's
+    multi-host ``hosts`` comes with module 8.)"""
 
     streams: List[RunResult]
     camera_s: List[float]     # fleet camera-step time per chunk
@@ -191,6 +221,8 @@ class FleetResult:
     aggregate: Optional[AggregateResult] = None  # detail="windowed"
     served_cis: Optional[List[int]] = None  # chunk interval of each
     # ``camera_s`` entry (all-quiet intervals append neither)
+    tenant_ids: Optional[List[int]] = None  # tenanted: tenant of each
+    # entry of ``streams``
 
     @property
     def n_streams(self):
@@ -212,6 +244,25 @@ class FleetResult:
     def chunks_per_s(self):
         """Fleet camera throughput: stream-chunks processed per second."""
         return self.n_streams / max(self.mean_camera_s, 1e-12)
+
+    def accuracy_by_tenant(self):
+        """Per-tenant mean accuracy, a tuple indexed by tenant id.
+        Windowed runs read the aggregate's per-tenant sums; per-chunk
+        runs group ``streams`` by ``tenant_ids`` and mean the per-stream
+        accuracies (as a dedicated fleet's ``accuracy`` does)."""
+        if not self.streams and self.aggregate is not None \
+                and self.aggregate.tenanted:
+            return self.aggregate.accuracy_by_tenant()
+        if self.tenant_ids is None:
+            raise ValueError("untenanted result has no per-tenant "
+                             "accuracy; serve with EngineConfig(tenants"
+                             "=...)")
+        by_t: dict = {}
+        for t, r in zip(self.tenant_ids, self.streams):
+            by_t.setdefault(int(t), []).append(r.accuracy)
+        n = max(by_t) + 1 if by_t else 0
+        return tuple(float(np.mean(by_t[t])) if t in by_t
+                     else float("nan") for t in range(n))
 
     def _delay_percentile(self, q: float) -> float:
         if not self.streams and self.aggregate is not None:
@@ -276,10 +327,7 @@ def _lane_flags(active: np.ndarray, device: torch.device) -> torch.Tensor:
     """The admission plan's (n_padded,) lane mask as a tensor on
     ``device``, copied from pinned memory without waiting, as
     ``ControlKnobs.as_array`` copies the knobs."""
-    host = torch.from_numpy(np.ascontiguousarray(active, bool))
-    if device.type != "cuda":
-        return host
-    return host.pin_memory().to(device, non_blocking=True)
+    return to_device_async(np.asarray(active, bool), device)
 
 
 def _chunk_source(frames, device: torch.device):
@@ -341,16 +389,43 @@ class MultiStreamEngine:
     lane by lane (bit-identical), "windowed" folds them into an
     ``aggregate`` summary; ``sim_encode_s`` replaces the accounted camera
     time with a constant (the measured ``FleetTiming`` stays).
+
+    A config with ``tenants`` takes ``MultiStreamEngine(None, None,
+    config=...)``: each tenant brings its DNN and AccModel (on
+    ``device``). One tenant serves the single-DNN path; two or more the
+    tenant-routed one, which refuses a ``controller`` (its knobs are
+    fleet-wide, the tenants' quality configs are not).
     """
 
-    def __init__(self, final_dnn, accmodel, *,
+    def __init__(self, final_dnn=None, accmodel=None, *,
                  config: Optional[EngineConfig] = None, device="cuda"):
         config = config or EngineConfig()
         self.config = config
+        # one tenant folds into the single-DNN engine (its DNN, AccModel
+        # and QualityConfig); two or more take the tenant-routed steps
+        self.tenants = config.tenants
+        self._tenanted = config.tenanted
+        self._tenant_of = dict(config.tenant_of or {})
+        if self.tenants is not None:
+            if final_dnn is not None or accmodel is not None:
+                raise ValueError(
+                    "EngineConfig(tenants=...) declares the served "
+                    "DNN/AccModel per tenant; do not also pass "
+                    "final_dnn/accmodel")
+            if self._tenanted and config.controller is not None:
+                raise ValueError(
+                    "multi-tenant fleets do not support the rate "
+                    "controller yet: its knob array is fleet-wide while "
+                    "tenants carry per-tenant quality configs")
+            final_dnn = self.tenants[0].dnn
+            accmodel = self.tenants[0].accmodel
         self.final_dnn = final_dnn
         self.accmodel = accmodel
         self.device = resolve_device(device)
-        self.qcfg = config.qcfg
+        # a tenanted engine keeps per-lane configs in its camera step and
+        # never reads self.qcfg on the data path
+        self.qcfg = self.tenants[0].qcfg if self.tenants is not None \
+            and not self._tenanted else config.qcfg
         # mutable runtime attributes seeded from the frozen config:
         # apply_scale and serve_loop move overlap / depth at run time
         self.net = config.net
@@ -380,35 +455,83 @@ class MultiStreamEngine:
         raise NotImplementedError(
             f"serve_loop's exported resume state comes with {_MODULE_8}")
 
+    # -- tenancy helpers ------------------------------------------------------
+    def _tenant_idx(self, sid: int) -> int:
+        return self._tenant_of.get(sid, 0)
+
+    def _dnn_for_sid(self, sid: int):
+        """The server DNN that scores stream ``sid``."""
+        if self._tenanted:
+            return self.tenants[self._tenant_idx(sid)].dnn
+        return self.final_dnn
+
+    def _tenant_lane_ids(self, sids, n_lanes: int) -> TenantLanes:
+        """The (n_lanes,) tenant-id lane of a batch whose active prefix
+        serves ``sids``; padded lanes route to tenant 0 (their bytes are
+        zeroed and they are never scored, like every padding lane)."""
+        lane = np.zeros(n_lanes, np.int64)
+        for i, sid in enumerate(sids):
+            lane[i] = self._tenant_idx(sid)
+        return TenantLanes(lane, len(self.tenants), self.device)
+
+    def _tenant_counts(self, sids) -> List[int]:
+        """Active streams per tenant: the occupancy the autoscaler's
+        capacity split divides by."""
+        counts = [0] * len(self.tenants)
+        for sid in sids:
+            counts[self._tenant_idx(sid)] += 1
+        return counts
+
     # -- step construction ---------------------------------------------------
     def _steps_for(self, masked: bool = False):
         """The camera and server steps. The camera step's arity depends on
         the controller's presence and on the lane mask, so both key the
-        cache; a knob or membership change reuses the entry."""
+        cache; a knob, membership or tenant-mix change reuses the
+        entry."""
         key = (self.controller is not None, masked)
         if key not in self._steps:
-            self._steps[key] = (
-                make_camera_fleet_step(self.accmodel, self.qcfg,
-                                       impl=self.impl,
-                                       knobs=self.controller is not None,
-                                       mask=masked),
-                make_server_fleet_step(self.final_dnn))
+            if self._tenanted:
+                self._steps[key] = (
+                    make_tenant_camera_fleet_step(self.tenants,
+                                                  impl=self.impl,
+                                                  mask=masked),
+                    make_tenant_server_fleet_step(self.tenants))
+            else:
+                self._steps[key] = (
+                    make_camera_fleet_step(self.accmodel, self.qcfg,
+                                           impl=self.impl,
+                                           knobs=self.controller is not None,
+                                           mask=masked),
+                    make_server_fleet_step(self.final_dnn))
         return self._steps[key]
 
     def _build_agg(self):
-        return (self.aggregate or AggregateConfig()).build()
+        """The windowed run's aggregator; a tenanted fleet threads its
+        stream -> tenant map and the tenants' SLO ladders through, so the
+        result carries per-tenant attainment."""
+        cfg = self.aggregate or AggregateConfig()
+        if not self._tenanted:
+            return cfg.build()
+        return cfg.build(tenant_of=dict(self._tenant_of),
+                         tenant_tiers=tuple(t.tiers for t in self.tenants))
 
     def _use_device_reduce(self, refs) -> bool:
         """Device accuracy reduction applies only when the run is windowed
         (no per-chunk results wanted), references are computed in-loop
         (precomputed refs live on the host), and the task has a
-        device-reducible metric (not detection)."""
+        device-reducible metric (not detection; on a tenanted fleet, every
+        tenant's task)."""
+        dnns = [t.dnn for t in self.tenants] if self._tenanted \
+            else [self.final_dnn]
         return (self.detail == "windowed" and self.device_reduce
-                and refs is None and self.final_dnn.supports_device_accuracy)
+                and refs is None
+                and all(d.supports_device_accuracy for d in dnns))
 
     def _acc_step_for(self):
         if self._acc_step is None:
-            self._acc_step = make_accuracy_reduce_step(self.final_dnn)
+            self._acc_step = make_tenant_accuracy_reduce_step(self.tenants) \
+                if self._tenanted else \
+                make_accuracy_reduce_step(self.final_dnn)
         return self._acc_step
 
     # -- steady-state timing --------------------------------------------------
@@ -480,13 +603,15 @@ class MultiStreamEngine:
             return None
         if self._refs_prepared is not None and self._refs_prepared[0] is refs:
             return self._refs_prepared[1]
-        detection = self.final_dnn.task == "detection"
         prepared = []
-        for stream_refs in refs:
+        for sid, stream_refs in enumerate(refs):
+            # each stream's references through its own tenant's DNN
+            dnn = self._dnn_for_sid(sid)
+            detection = dnn.task == "detection"
             row = []
             for r in stream_refs:
                 if not isinstance(r, dict):  # raw frames -> D(ref)
-                    r = self.final_dnn.predict(r)
+                    r = dnn.predict(r)
                 r = {k: torch.as_tensor(v) for k, v in r.items()}
                 if detection and "keep" not in r:
                     r["keep"] = detection_keep_heat(r)
@@ -553,7 +678,8 @@ class MultiStreamEngine:
                 ref = refs[sid][ci] if refs is not None else {
                     k: v[i] for k, v in ref_outs.items()}
                 per_stream[sid].append(ChunkResult(
-                    self.final_dnn.accuracy(out_i, ref), lane_bytes[i],
+                    self._dnn_for_sid(sid).accuracy(out_i, ref),
+                    lane_bytes[i],
                     encode_s=p["cam_dt"], overhead_s=0.0,
                     stream_s=delays[i], queue_s=queue_s, ci=ci))
         elif n_active:
@@ -561,13 +687,22 @@ class MultiStreamEngine:
             if acc_dev is not None:
                 accs = np.asarray(acc_dev, np.float64)[:n_active]
             else:
-                outs_a = {k: v[:n_active] for k, v in outs.items()}
-                if refs is not None:
-                    ref_a = {k: np.stack([refs[sid][ci][k] for sid in sids])
-                             for k in refs[sids[0]][ci]}
-                else:
-                    ref_a = {k: v[:n_active] for k, v in ref_outs.items()}
-                accs = self.final_dnn.accuracy_batched(outs_a, ref_a)
+                # host scoring grouped by tenant (one group without
+                # tenants): each DNN scores its own lanes in one batched
+                # call, reading only its task's keys of the outputs
+                accs = np.zeros(n_active, np.float64)
+                lane_t = np.asarray([self._tenant_idx(sid) for sid in sids])
+                for t in np.unique(lane_t):
+                    rows = np.flatnonzero(lane_t == t)
+                    o_t = {k: v[rows] for k, v in outs.items()}
+                    if refs is not None:
+                        ref_t = {k: np.stack([refs[sids[i]][ci][k]
+                                              for i in rows])
+                                 for k in refs[sids[rows[0]]][ci]}
+                    else:
+                        ref_t = {k: v[rows] for k, v in ref_outs.items()}
+                    accs[rows] = self._dnn_for_sid(
+                        sids[rows[0]]).accuracy_batched(o_t, ref_t)
             if self.detail == "windowed":
                 total = (np.asarray(delays[:n_active], np.float64)
                          + p["cam_dt"] + queue_s)
@@ -690,8 +825,17 @@ class MultiStreamEngine:
         controlled = self.controller is not None
         put = _chunk_source(frames, self.device)
         dev = self.device
+        tids = None
+        if self._tenanted:
+            # stream i is lane i in run(); every step takes the lane
+            tids = self._tenant_lane_ids(range(N), N)
+            server_step = (lambda d, _s=server_step: _s(d, tids))
+            if acc_step is not None:
+                acc_step = (lambda o, r, _a=acc_step: _a(o, r, tids))
 
         def camera(batch):
+            if tids is not None:  # the tenant-routed step
+                return cam_step(batch, tids)
             if controlled:  # the knob tensor rides along: same step
                 return cam_step(batch, self.controller.knob_array(dev))
             return cam_step(batch)
@@ -719,20 +863,27 @@ class MultiStreamEngine:
             finish(pending.pop(0), self.overlap)
         timing.wall_s = time.perf_counter() - t_run
         if self.autoscaler is not None:
+            # tenant_streams only when tenanted: an autoscaler without the
+            # argument still serves the single-DNN engine
+            tkw = ({"tenant_streams": self._tenant_counts(range(N))}
+                   if self._tenanted else {})
             self.last_scale = self.autoscaler.decide(
                 timing, N, mesh_width=_MESH_WIDTH,
-                batch_depth=self.depth if self.overlap else 1)
+                batch_depth=self.depth if self.overlap else 1, **tkw)
         served_cis = list(range(len(starts)))  # run(): ci == position
         if self.detail == "windowed":
             agg, self._agg = self._agg.result(), None
             if self._obs is not None:
-                self._obs.slo_attainment(agg)
+                self._obs.slo_attainment(
+                    agg, self.tenants if self._tenanted else None)
             return FleetResult([], timing.camera_s, timing=timing,
                                aggregate=agg, served_cis=served_cis)
         streams = [RunResult(f"accmpeg_fleet[{i}]", per_stream[i])
                    for i in range(N)]
         return FleetResult(streams, timing.camera_s, timing=timing,
-                           served_cis=served_cis)
+                           served_cis=served_cis,
+                           tenant_ids=[self._tenant_idx(i) for i in range(N)]
+                           if self._tenanted else None)
 
     # -- the closed-loop churn serving loop -----------------------------------
     def serve_loop(self, frames, events=(), refs=None, initial=None,
@@ -854,8 +1005,23 @@ class MultiStreamEngine:
             cam_step, server_step = self._steps_for(masked=True)
             mask_dev = _lane_flags(plan.active, dev)
             ids = list(active_ids)
+            tids = t_counts = None
+            srv, acc = server_step, acc_step
+            if self._tenanted:
+                # the tenant-id lane rides beside the lane mask: padded
+                # lanes route to tenant 0 and are masked as ever, so a new
+                # tenant mix at an admitted shape builds nothing
+                tids = self._tenant_lane_ids(ids, plan.n_padded)
+                srv = (lambda d, _s=server_step, _t=tids: _s(d, _t))
+                if acc_step is not None:
+                    acc = (lambda o, r, _a=acc_step, _t=tids: _a(o, r, _t))
+                t_counts = self._tenant_counts(ids)
+                if self._obs is not None:
+                    self._obs.tenant_lanes(self.tenants, t_counts)
 
-            def camera(batch, _mask=mask_dev):
+            def camera(batch, _mask=mask_dev, _tids=tids):
+                if _tids is not None:  # the tenant-routed masked step
+                    return cam_step(batch, _tids, _mask)
                 if controlled:  # fresh knob values, the same step
                     return cam_step(batch, _mask,
                                     self.controller.knob_array(dev))
@@ -867,18 +1033,17 @@ class MultiStreamEngine:
             if steady is None:  # a new padded shape: warm it up
                 t_warm = time.perf_counter()
                 steady = self._steady_times(
-                    camera, server_step,
+                    camera, srv,
                     pad_streams(put(s, s + cs, ids), plan.n_padded),
-                    refs is None, self.overlap, warm_key,
-                    acc_step=acc_step)
+                    refs is None, self.overlap, warm_key, acc_step=acc)
                 warm_s += time.perf_counter() - t_warm
 
             host_before = len(timing.host_s)
             t_int = time.perf_counter()
             cam_dt = self._serve_interval(
                 ci, pad_streams(put(s, s + cs, ids), plan.n_padded), camera,
-                server_step, acc_step, refs is None, steady, pending, finish,
-                timing, plan.n_padded, ids)
+                srv, acc, refs is None, steady, pending, finish, timing,
+                plan.n_padded, ids)
             served_cis.append(ci)
             if rescale and (ci + 1) % max(decide_every, 1) == 0:
                 # decide on the freshest interval window only: stale
@@ -889,8 +1054,11 @@ class MultiStreamEngine:
                     camera_s=[cam_dt], server_s=[srv_est],
                     host_s=list(timing.host_s[host_before:]),
                     wall_s=time.perf_counter() - t_int)
+                tkw = ({"tenant_streams": t_counts}
+                       if t_counts is not None else {})
                 d = scaler.decide(window, plan.n_padded,
-                                  mesh_width=_MESH_WIDTH, batch_depth=depth)
+                                  mesh_width=_MESH_WIDTH, batch_depth=depth,
+                                  **tkw)
                 decisions.append(d)
                 self.last_scale = d
                 if (d.mesh_width, d.batch_depth) != (_MESH_WIDTH, depth):
@@ -905,7 +1073,8 @@ class MultiStreamEngine:
         if self.detail == "windowed":
             agg, self._agg = self._agg.result(), None
             if self._obs is not None:
-                self._obs.slo_attainment(agg)
+                self._obs.slo_attainment(
+                    agg, self.tenants if self._tenanted else None)
             return FleetResult([], timing.camera_s, timing=timing,
                                stream_ids=list(agg.stream_ids),
                                decisions=decisions,
@@ -917,4 +1086,7 @@ class MultiStreamEngine:
         return FleetResult(streams, timing.camera_s, timing=timing,
                            stream_ids=served, decisions=decisions,
                            shapes=list(scaler.compiled_shapes),
-                           served_cis=served_cis)
+                           served_cis=served_cis,
+                           tenant_ids=[self._tenant_idx(sid)
+                                       for sid in served]
+                           if self._tenanted else None)

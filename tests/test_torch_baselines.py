@@ -59,6 +59,18 @@ POLICIES = ("uniform", "dds", "eaar", "reducto", "vigil", "sieve",
             "reducto_accmpeg")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch calls: the suite's
+    workers share the machine's cores, and torch's default of a thread
+    per core makes these small eager ops wait on each other's spinning
+    pools (tens of times slower under the full suite). Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(params):
     return jax.tree_util.tree_map(np.asarray, params)
 

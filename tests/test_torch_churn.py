@@ -142,9 +142,17 @@ def test_autoscaler_decide_matches_reference(seed, n_devices):
                            n_devices=n_devices)
         d_j = want_s.decide(tj, n, mesh_width=width, batch_depth=depth,
                             n_devices=n_devices)
-        # the reference's tenant_share stays None on a fleet of no tenants
-        assert dataclasses.astuple(d_t) + (None,) == \
-            dataclasses.astuple(d_j)
+        # tenant_share stays None on a fleet of no tenants
+        assert dataclasses.astuple(d_t) == dataclasses.astuple(d_j)
+        assert d_t.tenant_share is d_j.tenant_share is None
+        # with per-tenant occupancies, the reference's capacity split
+        counts = [n - n // 3, n // 3, 0]
+        assert got_s.decide(tg, n, mesh_width=width, batch_depth=depth,
+                            n_devices=n_devices,
+                            tenant_streams=counts).tenant_share == \
+            want_s.decide(tj, n, mesh_width=width, batch_depth=depth,
+                          n_devices=n_devices,
+                          tenant_streams=counts).tenant_share
         assert tas.stage_occupancy(tg) == jas.stage_occupancy(tj)
         width, depth = d_t.mesh_width, d_t.batch_depth
     if n_devices == 1:  # one card: never a wider mesh

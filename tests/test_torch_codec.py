@@ -18,6 +18,18 @@ from repro_torch.codec import dct as td
 DEC_ATOL, BYTES_RTOL = 1e-5, 1e-3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch calls: the suite's
+    workers share the machine's cores, and torch's default of a thread
+    per core makes these small eager ops wait on each other's spinning
+    pools (tens of times slower under the full suite). Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _frames(T=4, H=32, W=48, seed=3, lo=0.0, hi=1.0, drift=0.04):
     """Drifting scene in [lo, hi]: consecutive frames differ enough that
     the P-frame reference chain matters. lo/hi inside (0, 1) keep every

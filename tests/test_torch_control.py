@@ -55,6 +55,18 @@ REL = 1e-3
 MARGIN = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch calls: the suite's
+    workers share the machine's cores, and torch's default of a thread
+    per core makes these small eager ops wait on each other's spinning
+    pools (tens of times slower under the full suite). Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def weights():
     acc = _np_tree(jam.accmodel_init(jax.random.PRNGKey(1), WIDTH))

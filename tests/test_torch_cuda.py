@@ -951,3 +951,94 @@ def test_serve_loop_launches_exactly_on_the_card(cuda):
         ChurnEvent(1, leave=(1, 2))], rescale=False)
     assert tk.LAUNCHES[name] - before == 3
     counter.assert_no_recompiles("second schedule")
+
+
+def _tenant_models(device):
+    """Three tenants (detection, segmentation, keypoint) of width 8, each
+    with its own AccModel, and their quality configs."""
+    from repro_torch.core.accmodel import AccModel
+    from repro_torch.core.quality import QualityConfig
+    from repro_torch.serve.tenants import TenantSpec
+    from repro_torch.vision.dnn import FinalDNN
+
+    g = torch.Generator().manual_seed(7)
+    q = QualityConfig(alpha=0.5, gamma=1)
+    return tuple(TenantSpec(task, FinalDNN(task, 8, generator=g,
+                                           device=device),
+                            AccModel(8, generator=g, device=device), qcfg=q)
+                 for task in ("detection", "segmentation", "keypoint"))
+
+
+def test_tenant_server_step_on_the_card_matches_sequential(exact_convs):
+    """The grouped server step (each tenant's DNN once over its own lanes)
+    against each lane's own tenant's DNN run alone, on the card, TF32 off:
+    within 1e-5; the tenant-id lane set without a sync, foreign keys 0."""
+    from repro_torch.serve.steps import (TenantLanes,
+                                         make_tenant_server_fleet_step)
+    from repro_torch.serve.tenants import TASK_KEYS
+    from repro_torch.vision.dnn import detection_keep_heat
+
+    tenants = _tenant_models("cuda")
+    decoded = torch.from_numpy(np.stack([_frames(T=10, seed=s)
+                                         for s in range(6)])).cuda()
+    ids = np.array([2, 0, 1, 0, 2, 2])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    lanes = TenantLanes(ids, len(tenants), torch.device("cuda"))
+    torch.cuda.set_sync_debug_mode(0)
+    out = make_tenant_server_fleet_step(tenants)(decoded, lanes)
+    assert set(out) == {"heat", "wh", "off", "keep", "seg", "kp"}
+    for lane, t in enumerate(ids):
+        spec = tenants[t]
+        seq = spec.dnn.predict(decoded[lane])
+        if spec.task == "detection":
+            seq["keep"] = detection_keep_heat(seq)
+        for k in TASK_KEYS[spec.task]:
+            np.testing.assert_allclose(out[k][lane].cpu().numpy(),
+                                       seq[k].cpu().numpy(), atol=1e-5,
+                                       err_msg=k)
+        for k in set(out) - set(TASK_KEYS[spec.task]):
+            assert float(out[k][lane].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("impl", ["fused", "pallas"])
+def test_mixed_tenant_churn_on_the_card_builds_nothing_new(cuda, impl):
+    """Two tenants under churn on the card: one kernel launch an interval
+    per padded shape's rule (the scores kernel under fused, one frame
+    launch a padded lane-frame under pallas), and a second schedule with
+    other tenant mixes on the same shapes builds and warms nothing."""
+    from repro_torch.control import ChurnEvent
+    from repro_torch.core.quality import QualityConfig
+    from repro_torch.engine import EngineConfig, MultiStreamEngine
+    from repro_torch.obs import CompileCounter
+    from repro_torch.serve.tenants import TenantSpec
+
+    seg, kp = _tenant_models("cuda")[1:]
+    if impl == "pallas":  # its own QP ladder per tenant
+        kp = TenantSpec(kp.name, kp.dnn, kp.accmodel,
+                        qcfg=QualityConfig(alpha=0.5, gamma=1, qp_lo=51))
+    frames = np.stack([_frames(T=30, seed=s) for s in range(4)])
+    eng = MultiStreamEngine(config=EngineConfig(
+        impl=impl, detail="windowed", sim_encode_s=0.05, tenants=(seg, kp),
+        tenant_of={0: 0, 1: 1, 2: 0, 3: 1}))
+    name = tk.scores_kernel_name(False) if impl == "fused" \
+        else "mbcodec_frame"
+    per_step = {2: 1, 4: 1} if impl == "fused" else {2: 20, 4: 40}
+    before = tk.LAUNCHES[name]
+    res = eng.serve_loop(frames, initial=(0, 1), events=[
+        ChurnEvent(1, join=(2, 3)), ChurnEvent(2, leave=(1, 3))],
+        rescale=False)
+    assert res.shapes == [2, 4]
+    # 3 intervals on shapes 2, 4, 2, and two warm-up steps for each shape
+    assert tk.LAUNCHES[name] - before == \
+        3 * per_step[2] + 3 * per_step[4] + per_step[2]
+    assert res.aggregate.n == 2 + 4 + 2 and eng._acc_step is not None
+    acc = res.accuracy_by_tenant()
+    assert all(0.0 <= a <= 1.0 for a in acc)
+    counter = CompileCounter.for_engine(eng)
+    before = tk.LAUNCHES[name]
+    eng.serve_loop(frames, initial=(1, 3), events=[
+        ChurnEvent(1, join=(0, 2)), ChurnEvent(2, leave=(0, 2))],
+        rescale=False)
+    assert tk.LAUNCHES[name] - before == 2 * per_step[2] + per_step[4]
+    counter.assert_no_recompiles("a second tenant mix")

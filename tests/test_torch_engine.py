@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.codec.codec import encode_chunk
 from repro.core import accmodel as jam
@@ -42,6 +43,18 @@ SEED = 34
 ALPHA, GAMMA, QP_LO = 0.7, 1, 46
 QCFG = dict(alpha=ALPHA, gamma=GAMMA, qp_lo=QP_LO)
 BYTES_RTOL, ACC_ATOL, MARGIN = 1e-3, 1e-6, 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch calls: the suite's
+    workers share the machine's cores, and torch's default of a thread
+    per core makes these small eager ops wait on each other's spinning
+    pools (tens of times slower under the full suite). Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np_tree(params):

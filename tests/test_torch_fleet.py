@@ -43,6 +43,7 @@ from repro.kernels.mbcodec import ops as jops
 from repro.serve import steps as jsteps
 from repro.vision import dnn as jv
 from repro_torch.codec import codec as tc
+from repro_torch.core import accmodel as tam
 from repro_torch.core import pipeline as tp
 from repro_torch.core import quality as tq
 from repro_torch.core.pipeline import make_reference
@@ -51,6 +52,7 @@ from repro_torch.engine import (AccMPEGPolicy, EngineConfig, FleetResult,
 from repro_torch.engine import policies as tpol
 from repro_torch.kernels.mbcodec import ops as tops
 from repro_torch.serve import steps as tsteps
+from repro_torch.serve.tenants import TenantSpec
 from repro_torch.vision import dnn as tv
 from repro_torch.weights import accmodel_from_numpy, final_dnn_from_numpy
 
@@ -64,6 +66,18 @@ SEEDS = (41, 43, 44)
 ALPHA, GAMMA, QP_LO = 0.7, 1, 46
 QCFG = dict(alpha=ALPHA, gamma=GAMMA, qp_lo=QP_LO)
 ACC_ATOL, BYTES_RTOL, DEC_ATOL, MARGIN = 1e-6, 1e-3, 1e-5, 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch calls: the suite's
+    workers share the machine's cores, and torch's default of a thread
+    per core makes these small eager ops wait on each other's spinning
+    pools (tens of times slower under the full suite). Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np_tree(params):
@@ -540,22 +554,34 @@ def test_fleet_result_summary_and_sim_encode(port_models, fleet_frames,
     assert s["p95_delay_s"] >= res.p90_delay > 0.25
 
 
-@pytest.mark.parametrize("field,value", [
-    ("mesh", "auto"), ("tenants", (object(),)), ("tenant_of", {0: 0}),
-])
+@pytest.mark.parametrize("field,value", [("mesh", "auto")])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         EngineConfig(**{field: value})
 
 
+def _one_tenant():
+    return (TenantSpec("t", tv.FinalDNN("detection", 8, device="cpu"),
+                       tam.AccModel(8, device="cpu")),)
+
+
 @pytest.mark.parametrize("field,value", [
     ("trace", tp.UplinkClock), ("controller", object()),
     ("autoscaler", object()), ("aggregate", object()),
-    ("detail", "windowed"),
+    ("detail", "windowed"), ("tenants", _one_tenant), ("tenant_of", {0: 0}),
 ])
 def test_lifted_config_fields_are_accepted(field, value):
-    """The fleet half of module 6 takes these; the config stores them."""
-    assert getattr(EngineConfig(**{field: value}), field) is value
+    """The fleet half of module 6 takes these, module 7 the tenants (a
+    tuple of ``TenantSpec``) and ``tenant_of`` (with them); the config
+    stores them."""
+    if field == "tenants":
+        value = value()
+        assert getattr(EngineConfig(tenants=value), field) is value
+    elif field == "tenant_of":
+        cfg = EngineConfig(tenants=_one_tenant(), tenant_of=value)
+        assert cfg.tenant_of == value and not cfg.tenanted
+    else:
+        assert getattr(EngineConfig(**{field: value}), field) is value
 
 
 def test_engine_config_mirrors_the_reference():

@@ -22,6 +22,7 @@ from repro_torch.engine import EngineConfig, StreamingEngine
 from repro_torch.models import DecoderLM, Stack
 from repro_torch.models import layers as L
 from repro_torch.models.rwkv6 import RWKV6ChannelMix, RWKV6TimeMix
+from repro_torch.serve.tenants import TenantSpec
 from repro_torch.vision.dnn import FinalDNN, render_detection_targets
 from repro_torch.vision.train import train_final_dnn
 
@@ -65,7 +66,9 @@ def test_port_files_exist():
                    "baselines/__init__.py", "baselines/baselines.py",
                    "core/aggregate.py", "control/autoscaler.py",
                    "control/workload.py", "obs/__init__.py",
-                   "obs/metrics.py", "obs/trace.py", "obs/compile.py"):
+                   "obs/metrics.py", "obs/trace.py", "obs/compile.py",
+                   "serve/tenants.py", "checkpoint/__init__.py",
+                   "checkpoint/manager.py"):
         assert f"src/repro_torch/{module}" in names
     assert "chip_smoke.py" in names
     for source in ("mbcodec/csrc/mbcodec.cu",
@@ -180,16 +183,21 @@ def test_lm_rejects_unported_archs_and_layers():
 
 def test_engine_rejects_unported_modes_and_unknown_backends():
     """Both engines take a trace and a controller, the fleet the
-    autoscaler too (ROADMAP module 6); the fleet's config still refuses
-    the stream mesh (module 8) and tenants (module 7)."""
+    autoscaler too (ROADMAP module 6) and tenants (module 7); the fleet's
+    config still refuses the stream mesh (module 8), and a tenant that is
+    not a ``TenantSpec`` or a ``tenant_of`` without tenants."""
     dnn = FinalDNN("detection", 8, device="cpu")
     for field in ("trace", "controller", "autoscaler"):
         assert getattr(EngineConfig(**{field: dnn}), field) is dnn
-    for field, value, module in (("mesh", "auto", "module 8"),
-                                 ("tenants", (dnn,), "module 7"),
-                                 ("tenant_of", {0: 0}, "module 7")):
+    for field, value, module in (("mesh", "auto", "module 8"),):
         with pytest.raises(NotImplementedError, match=module):
             EngineConfig(**{field: value})
+    spec = TenantSpec("t", dnn, AccModel(8, device="cpu"))
+    assert EngineConfig(tenants=(spec,)).tenants == (spec,)
+    with pytest.raises(AttributeError):
+        EngineConfig(tenants=(dnn,))
+    with pytest.raises(ValueError, match="without tenants"):
+        EngineConfig(tenant_of={0: 0})
     with pytest.raises(ValueError, match="unknown chunk encoder"):
         StreamingEngine(dnn, device="cpu", impl="nope")
 
