@@ -149,25 +149,40 @@ check it end to end.
    ``pos`` in a device tensor is captured in a CUDA graph at the path's
    shape (bf16) and replayed at pos 0, 255, 256, 1087 and 2047: each
    output within the same bound of the plain version and bit for bit an
-   eager call with the int. ``wkv6`` at the rwkv6 path's prefill (B=16,
-   S=1024, H=32) and decode (S=1) shapes, r, k and v in bf16 (as the path
-   passes them) and in fp32, against the reference model's chunked form,
+   eager call with the int. ``decode_attn`` also at stablelm-3b's decode
+   shape (B=16, S=2048, KV=32, G=1, hd=80, pos=1087) with a bf16, an fp32
+   and an int8 cache (bf16 q, the int8 values and fp32 scales read by the
+   kernel itself), each L2-flushed with its byte bound, SDPA timed on the
+   bf16 and fp32 caches (no library call reads the int8 one), and the
+   graph check repeated on the int8 cache. ``wkv6`` at the rwkv6 path's
+   prefill (B=16, S=1024, H=32) and decode (S=1) shapes, r, k and v in
+   bf16 (as the path passes them) and in fp32, against the reference
+   model's chunked form,
    and on a ragged slice with log-decays down to -8 and s0 != 0 against
    the sequential oracle (atol 2e-4, rtol 1e-3, all finite); the bound of
    a row with S >= 2 takes its operations at the TF32 tensor-core rate
    over three (the kernel's products), of a decode row at the CUDA-core
    rate.
 11. LM serving at full width, random bf16 weights from a seeded generator:
-   smollm-360m and rwkv6-1.6b each prefill 16 prompts of 1024 tokens
-   (``make_prefill_step`` with room for 2048) and take 64 greedy
-   ``make_decode_step`` steps. The audited run must make exactly
-   32 x 64 ``decode_attn`` launches in the decode steps, and 24 ``wkv6``
-   launches in the prefill and 24 x 64 in the decode steps, with every
-   op on the card and finite logits; a second run gives prefill tokens/s
-   and decode ms per step, and ``torch.profiler`` the card's busy share
-   of a prefill and of 8 decode steps. Then, in fp32, the decode logits
-   after a 256-token prefill must match the full forward pass within
-   2e-3 of its largest logit for 16 steps (the reference's property).
+   smollm-360m, rwkv6-1.6b and stablelm-3b (its int8 K/V cache) each
+   prefill 16 prompts of 1024 tokens (``make_prefill_step`` with room for
+   2048) and take 64 greedy ``make_decode_step`` steps. The audited run
+   must make exactly 32 x 64 ``decode_attn`` launches in the decode steps
+   (smollm, stablelm), and 24 ``wkv6`` launches in the prefill and 24 x
+   64 in the decode steps, with every op on the card and finite logits.
+   Then the serving launcher's loop (``repro_torch.launch.serve.
+   serve_tokens``) serves the same prompts with the decode step captured
+   once as a CUDA graph and replayed at every position, audited over its
+   warm-up and capture: the capture must record exactly one port kernel
+   launch per layer, every op on the card, finite logits and greedy
+   tokens identical to the eager steps'. Second runs give prefill
+   tokens/s and decode ms per step, eager and graph, against the step's
+   byte bound, and ``torch.profiler`` the card's busy share of a prefill,
+   of 8 eager decode steps and of 8 graph replays (the replays also timed
+   between CUDA events). Then, in fp32, the decode logits after a
+   256-token prefill must match the full forward pass for 16 steps within
+   2e-3 of its largest logit (the reference's property), or 5e-2 with
+   stablelm's int8 cache, which is checked with an fp32 cache too.
 12. Prints one JSON line of the rows at shapes or types the paths do not
    run (launches 0), then the ``{"kernels": [...]}`` line: one row for
    each kernel at each shape and type its path runs, with its launches
@@ -222,10 +237,12 @@ DECODE_ATTN_SOURCE = "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu"
 WKV6_SOURCE = "src/repro_torch/kernels/wkv6/csrc/wkv6.cu"
 # LM serving: batch 16, prompts of 1024 tokens, cache room for 2048, 64
 # greedy steps; decode against forward in fp32 after a 256-token prefill
-LM_ARCHS = ("smollm-360m", "rwkv6-1.6b")
+LM_ARCHS = ("smollm-360m", "rwkv6-1.6b", "stablelm-3b")
 LM_BATCH, LM_PROMPT, LM_MAX_SEQ, LM_STEPS = 16, 1024, 2048, 64
 LM_CHECK_BATCH, LM_CHECK_PREFILL, LM_CHECK_STEPS = 4, 256, 16
 LM_DECODE_REL = 2e-3  # tests/test_models.py's bound
+LM_INT8_REL = 5e-2  # its bound with the int8 cache (test_int8_kv_cache_decode)
+LM_PROFILE_STEPS = 8  # decode steps of each profiled window
 DECODE_32K = (128, 32768)  # the reference's decode_32k cell: batch, length
 ATTN_TOL = (1e-5, 1e-4)  # atol, rtol: the reference's kernel bounds
 # device positions of the decode_attn graph check: the first, 255 and 256,
@@ -1859,30 +1876,41 @@ def _check_close(name, got, want, tol):
 
 def decode_attn_kernel_phase():
     """``decode_attn`` against its plain version at the smollm decode
-    path's shape (bf16 and fp32) and at one smollm layer of the
-    reference's decode_32k cell (bf16), with ``scaled_dot_product_attention``
-    on the same inputs timed as the library call."""
+    path's shape (bf16 and fp32), at one smollm layer of the reference's
+    decode_32k cell (bf16), and at stablelm-3b's decode shape (hd 80) with
+    a bf16, an fp32 and an int8 cache (q bf16), with
+    ``scaled_dot_product_attention`` on the same inputs timed as the
+    library call (no library call reads the int8 cache)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
     from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+    from repro_torch.models.layers import cache_read, quantize_kv
 
-    cfg_kv, cfg_g, hd = 5, 3, 64  # smollm-360m: 15 heads over 5 KV heads
-    cases = (("path,bf16", LM_BATCH, LM_MAX_SEQ, LM_PROMPT + 63,
-              torch.bfloat16),
-             ("path,fp32", LM_BATCH, LM_MAX_SEQ, LM_PROMPT + 63,
-              torch.float32),
-             ("decode_32k,bf16", *DECODE_32K, DECODE_32K[1] - 1,
-              torch.bfloat16))
+    bf16, fp32 = torch.bfloat16, torch.float32
+    path, last = (LM_BATCH, LM_MAX_SEQ), LM_PROMPT + 63
+    # (tag, B, S, KV, G, hd, pos, q's type, int8 cache): smollm-360m's 15
+    # heads over 5 KV heads; stablelm-3b's 32 over 32, hd 80
+    cases = (("path,bf16", *path, 5, 3, 64, last, bf16, False),
+             ("path,fp32", *path, 5, 3, 64, last, fp32, False),
+             ("decode_32k,bf16", *DECODE_32K, 5, 3, 64, DECODE_32K[1] - 1,
+              bf16, False),
+             ("stablelm,bf16", *path, 32, 1, 80, last, bf16, False),
+             ("stablelm,fp32", *path, 32, 1, 80, last, fp32, False),
+             ("stablelm,int8", *path, 32, 1, 80, last, bf16, True))
     rows = {}
-    for tag, B, S, pos, dtype in cases:
-        gen = torch.Generator(device="cuda").manual_seed(S + pos)
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    for tag, B, S, cfg_kv, cfg_g, hd, pos, dtype, int8 in cases:
+        gen = torch.Generator(device="cuda").manual_seed(S + pos + hd)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                    for shape in ((B, cfg_kv, cfg_g, hd), (B, S, cfg_kv, hd),
                                  (B, S, cfg_kv, hd)))
+        q = q.to(dtype)
+        k, v = ((quantize_kv(k), quantize_kv(v)) if int8
+                else (k.to(dtype), v.to(dtype)))
         name = f"decode_attn[{tag}]"
         log(f"decode_attn kernel phase {tag}: B={B}, S={S}, KV={cfg_kv}, "
-            f"G={cfg_g}, hd={hd}, pos={pos}, {dtype}")
+            f"G={cfg_g}, hd={hd}, pos={pos}, q {dtype}, cache "
+            + ("int8 with fp32 scales" if int8 else str(dtype)))
 
         def kern():
             return decode_attn_cuda(q, k, v, pos)
@@ -1891,7 +1919,8 @@ def decode_attn_kernel_phase():
             return decode_attn_ref(q, k, v, pos)
 
         qh = q.reshape(B, cfg_kv * cfg_g, 1, hd)
-        kh, vh = (t[:, :pos + 1].transpose(1, 2) for t in (k, v))
+        kh, vh = (t[:, :pos + 1].transpose(1, 2) for t in (
+            (cache_read(k, dtype), cache_read(v, dtype)) if int8 else (k, v)))
 
         def library():  # GQA over the valid positions, never on the path
             return F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True)
@@ -1900,21 +1929,32 @@ def decode_attn_kernel_phase():
         max_err = _check_close(name, kern(), want, ATTN_TOL)
         lib_err = float((library().float().reshape(q.shape)
                          - want).abs().max())
-        log(f"  {name}: library call vs plain, max abs {lib_err:.3e}")
-        # each valid K and V row read once, q read and the output written;
-        # per position and query row a dot and a weighted add of hd
-        # (4 hd operations) and an exponential
-        moved = (2 * B * (pos + 1) * cfg_kv * hd * k.element_size()
+        log(f"  {name}: library call"
+            + (" (on the dequantized bf16 cache)" if int8 else "")
+            + f" vs plain, max abs {lib_err:.3e}")
+        # each valid K and V row read once (an int8 row with its fp32
+        # scale), q read and the output written; per position and query
+        # row a dot and a weighted add of hd (4 hd operations) and an
+        # exponential, and per int8 value a multiply and a rounding
+        row_bytes = hd + 4 if int8 else hd * k.element_size()
+        moved = (2 * B * (pos + 1) * cfg_kv * row_bytes
                  + q.numel() * q.element_size() + 4 * q.numel())
-        flop = B * cfg_kv * cfg_g * (pos + 1) * (4 * hd + 2)
+        flop = B * cfg_kv * (pos + 1) * (cfg_g * (4 * hd + 2)
+                                         + (4 * hd if int8 else 0))
         # the path's 22 MB would sit in L2 between calls, where on the path
         # each layer reads its own cache from device memory: L2 flushed
         big = S > LM_MAX_SEQ  # the plain version's fp32 copies: 21 GB
         rows[name] = timed_row(name, kern, plain, max_err,
                                roofline_ms(moved, flop), DECODE_ATTN_SOURCE,
-                               cold=not big, library=library,
+                               cold=not big,
+                               library=None if int8 else library,
                                reps=1 if big else 10, moved=moved)
-        if tag == "path,bf16":
+        if int8:  # SDPA has no int8 cache: its bf16-cache time beside it
+            log(f"  {name}: kernel {rows[name]['ms']:.4f} ms on the int8 "
+                f"cache against SDPA "
+                f"{rows['decode_attn[stablelm,bf16]']['library_ms']:.4f} ms "
+                f"on the bf16 cache, L2 flushed ({CARD})")
+        if tag in ("path,bf16", "stablelm,int8"):
             _decode_attn_graph_check(q, k, v)
         del q, k, v, qh, kh, vh, want
         torch.cuda.empty_cache()
@@ -1924,7 +1964,8 @@ def decode_attn_kernel_phase():
 def _decode_attn_graph_check(q, k, v):
     """One call captured in a CUDA graph with pos in a device tensor,
     replayed at several positions: each output within ``ATTN_TOL`` of the
-    plain version at that pos and bit for bit an eager call with the int."""
+    plain version at that pos and bit for bit an eager call with the int
+    (k and v tensors, or the int8 form)."""
     from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
     from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 
@@ -2214,14 +2255,22 @@ def _profile_serving(model, prompt, steps=8):
     _profiled(f"{steps} decode steps", decode_steps, ("step", steps))
 
 
-def _decode_matches_forward(arch):
+def _decode_matches_forward(arch, kv_cache_dtype=None):
     """fp32 at full width: decode logits after a prefill of
     LM_CHECK_PREFILL tokens against ``hidden`` + ``logits`` over the whole
-    sequence, relative to its largest |logit| (the reference's property)."""
+    sequence, relative to its largest |logit| (the reference's property:
+    within LM_DECODE_REL, or LM_INT8_REL with the int8 cache), with the
+    config's cache or ``kv_cache_dtype``."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.models import DecoderLM
 
     cfg = get_config(arch)
+    if kv_cache_dtype is not None:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_cache_dtype)
+    int8 = cfg.kv_cache_dtype == "int8" and not cfg.attn_free
+    bound = LM_INT8_REL if int8 else LM_DECODE_REL
     model = DecoderLM(cfg, torch.float32, torch.float32, device="cuda",
                       generator=torch.Generator(device="cuda").manual_seed(1))
     S = LM_CHECK_PREFILL + LM_CHECK_STEPS
@@ -2234,23 +2283,63 @@ def _decode_matches_forward(arch):
         cache, lg = model.decode(cache, tokens[:, t:t + 1], t)
         errs.append((lg[:, 0] - full[:, t]).abs().max())
     rel = float(torch.stack(errs).max() / full.abs().max())
-    log(f"  {arch} fp32 decode vs forward (batch {LM_CHECK_BATCH}, prefill "
-        f"{LM_CHECK_PREFILL}, {LM_CHECK_STEPS} steps): max error "
-        f"{rel:.3e} of max |logit| (bound {LM_DECODE_REL})")
-    if not rel < LM_DECODE_REL:
+    log(f"  {arch} fp32 decode vs forward ({'int8' if int8 else 'fp32'} "
+        f"cache; batch {LM_CHECK_BATCH}, prefill {LM_CHECK_PREFILL}, "
+        f"{LM_CHECK_STEPS} steps): max error {rel:.3e} of max |logit| "
+        f"(bound {bound})")
+    if not rel < bound:
         raise AssertionError(f"{arch}: decode disagrees with the forward "
                              f"pass")
 
 
+def _step_bytes(model, cfg, pos):
+    """Bytes a decode step at ``pos`` must move: every weight but the
+    untied embedding's table (only its B rows are read), and the K/V cache
+    up to ``pos`` (an int8 row with its fp32 scale) or each layer's state
+    (read and written)."""
+    step = _param_bytes(model) - (0 if cfg.tie_embeddings else
+                                  model.embed.emb.numel() * 2)
+    if cfg.attn_free:
+        H, hd = cfg.rwkv_n_heads, cfg.rwkv_head_size
+        return step + 2 * cfg.n_layers * LM_BATCH * (H * hd * hd * 4
+                                                     + 2 * cfg.d_model * 2)
+    row = cfg.hd + 4 if cfg.kv_cache_dtype == "int8" else cfg.hd * 2
+    return step + cfg.n_layers * 2 * LM_BATCH * (pos + 1) * cfg.n_kv_heads \
+        * row
+
+
+def _profile_graph_steps(step, first_pos):
+    """LM_PROFILE_STEPS replays of the captured decode step under
+    ``torch.profiler`` (the card's busy share) and between CUDA events (its
+    device ms per step)."""
+    def replays():
+        for i in range(LM_PROFILE_STEPS):
+            step.replay(first_pos + i)
+
+    _profiled(f"{LM_PROFILE_STEPS} graph decode steps", replays,
+              ("step", LM_PROFILE_STEPS))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    replays()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / LM_PROFILE_STEPS
+
+
 def lm_serving_phase(rows):
-    """Both LM configurations at full width, bf16 weights and compute,
+    """The LM configurations at full width, bf16 weights and compute,
     random weights from a seeded generator: batch 16, 1024-token prompts,
-    prefill with room for 2048, then 64 greedy decode steps. The first run
-    is audited (launches, ops off the card); a second, outside the audit,
-    gives prefill tokens/s and decode ms per step."""
+    prefill with room for 2048, then 64 greedy decode steps, each model
+    served twice: through the eager steps (``make_prefill_step``,
+    ``make_decode_step``) and through ``repro_torch.launch.serve``'s
+    ``serve_tokens``, the step captured once as a CUDA graph. The first
+    run of each is audited (launches, or the capture's launches, and ops
+    off the card); second runs give prefill tokens/s and decode ms per
+    step. Then fp32 decode against the forward pass."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attn import kernel as dk
     from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.launch.serve import serve_tokens
     from repro_torch.models import DecoderLM
 
     # the kernel each model's serving run launches, and the kernels-line
@@ -2258,7 +2347,9 @@ def lm_serving_phase(rows):
     stages = {"smollm-360m": ("decode_attn",
                               {"decode": "decode_attn[path,bf16]"}),
               "rwkv6-1.6b": ("wkv6", {"prefill": "wkv6[prefill,bf16]",
-                                      "decode": "wkv6[decode,bf16]"})}
+                                      "decode": "wkv6[decode,bf16]"}),
+              "stablelm-3b": ("decode_attn",
+                              {"decode": "decode_attn[stablelm,int8]"})}
     for arch in LM_ARCHS:
         cfg = get_config(arch)
         model = DecoderLM(cfg, torch.bfloat16, torch.bfloat16, device="cuda",
@@ -2267,10 +2358,13 @@ def lm_serving_phase(rows):
         prompt = torch.from_numpy(np.random.default_rng(0).integers(
             0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(torch.int32).cuda()
         weights = _param_bytes(model)
+        cache_kind = ("state" if cfg.attn_free else
+                      "int8 K/V cache" if cfg.kv_cache_dtype == "int8"
+                      else "bf16 K/V cache")
         log(f"LM serving {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
             f"vocab {cfg.vocab_size}, {weights / 1e9:.3f} GB of bf16 "
-            f"weights; batch {LM_BATCH}, prompt {LM_PROMPT}, cache room "
-            f"{LM_MAX_SEQ}, {LM_STEPS} greedy steps")
+            f"weights, {cache_kind}; batch {LM_BATCH}, prompt {LM_PROMPT}, "
+            f"cache room {LM_MAX_SEQ}, {LM_STEPS} greedy steps")
         _serve(model, prompt[:, :8], 16, 2)  # loads cuBLAS and the kernels
 
         kernel, row_of = stages[arch]
@@ -2284,52 +2378,83 @@ def lm_serving_phase(rows):
         at_prefill = marks["prefill"].get(kernel, 0)
         split = {"prefill": at_prefill,
                  "decode": moved.get(kernel, 0) - at_prefill}
-        log(f"  launches {moved}: {split['prefill']} in the prefill, "
-            f"{split['decode']} in the decode steps")
+        log(f"  eager: launches {moved}: {split['prefill']} in the "
+            f"prefill, {split['decode']} in the decode steps")
         if set(moved) != {kernel} or split != expect:
             raise AssertionError(f"{arch} launched {moved} ({split}), "
                                  f"expected {kernel} {expect}")
         if off:
             raise AssertionError(f"ops off the card: {sorted(off)}")
-        log("  every op of the serving run ran on cuda (transfers aside)")
+        log("  every op of the eager serving run ran on cuda (transfers "
+            "aside)")
         if not finite or tokens.shape != (LM_BATCH, LM_STEPS + 1):
             raise AssertionError(f"{arch}: non-finite logits or malformed "
                                  f"tokens {tuple(tokens.shape)}")
         for stage, name in row_of.items():
             rows[name]["launches"] = split[stage]
 
-        # the timed run, outside the audit (whose hook on every op would
+        # the graph: the launcher's loop, audited over the prefill, the
+        # warm-up, the capture and the replays (which dispatch no op)
+        dk.LAUNCHES.clear()
+        wk.LAUNCHES.clear()
+        graphed, moved, off = audited(lambda: serve_tokens(
+            model, prompt, LM_STEPS + 1, max_seq=LM_MAX_SEQ, graph=True))
+        captured = graphed.graph.launches
+        log(f"  graph: captured in {graphed.capture_s:.4f} s (warm-up "
+            f"included), {captured} kernel launches recorded in the "
+            f"capture, one per layer; launches of the whole call {moved}")
+        if captured != {kernel: cfg.n_layers}:
+            raise AssertionError(f"{arch}: the captured step holds "
+                                 f"{captured}, expected {kernel} "
+                                 f"{cfg.n_layers}")
+        if off:
+            raise AssertionError(f"ops off the card: {sorted(off)}")
+        if not graphed.finite:
+            raise AssertionError(f"{arch}: non-finite logits in the graph")
+        if not torch.equal(graphed.tokens, tokens):
+            diff = (graphed.tokens != tokens).nonzero()
+            raise AssertionError(f"{arch}: the graph's greedy tokens differ "
+                                 f"from the eager steps' at {diff[:8]}")
+        log(f"  graph: every op on cuda, logits finite, greedy tokens "
+            f"identical to the eager steps' ({tuple(tokens.shape)})")
+        del graphed
+        torch.cuda.empty_cache()
+
+        # the timed runs, outside the audit (whose hook on every op would
         # dominate the host clock)
         again, _, t_prefill, t_decode = _serve(model, prompt, LM_MAX_SEQ,
                                                LM_STEPS)
-        same = bool((again == tokens).all())
-        # a decode step reads every weight but the untied embedding's
-        # table (only its B rows), and the cache up to the step's position
-        # or each layer's state (read and written)
-        step_bytes = weights - (0 if cfg.tie_embeddings else
-                                model.embed.emb.numel() * 2)
+        timed = serve_tokens(model, prompt, LM_STEPS + 1, max_seq=LM_MAX_SEQ,
+                             graph=True)
+        same = bool((again == tokens).all()) and bool(
+            torch.equal(timed.tokens, tokens))
+        g_mean = statistics.fmean(timed.step_s)
+        g_p50 = statistics.median(timed.step_s)
         last_pos = LM_PROMPT + LM_STEPS - 1
-        if cfg.attn_free:
-            H, hd = cfg.rwkv_n_heads, cfg.rwkv_head_size
-            state = cfg.n_layers * LM_BATCH * (H * hd * hd * 4
-                                               + 2 * cfg.d_model * 2)
-            step_bytes += 2 * state
-        else:
-            step_bytes += cfg.n_layers * 2 * LM_BATCH * (last_pos + 1) \
-                * cfg.n_kv_heads * cfg.hd * 2
+        step_bytes = _step_bytes(model, cfg, last_pos)
+        bound = step_bytes / H100_BYTES_PER_S * 1e3
         log(f"  {arch} ({CARD}): prefill {LM_BATCH}x{LM_PROMPT} tokens in "
             f"{t_prefill:.4f} s, {LM_BATCH * LM_PROMPT / t_prefill:.1f} "
-            f"tokens/s; decode {t_decode * 1e3:.4f} ms per step (batch "
-            f"{LM_BATCH}), "
-            f"{LM_BATCH / t_decode:.1f} tokens/s; a step moves at least "
-            f"{step_bytes / 1e9:.4f} GB (weights and cache or state at "
-            f"position {last_pos}): {step_bytes / H100_BYTES_PER_S * 1e3:.4f}"
-            f" ms at 3.35 TB/s; second run's tokens identical: {same}")
-        _profile_serving(model, prompt)
-        del model
+            f"tokens/s (graph run's prefill {timed.prefill_s:.4f} s); decode "
+            f"per step (batch {LM_BATCH}): eager {t_decode * 1e3:.4f} ms, "
+            f"graph {g_mean * 1e3:.4f} ms (p50 {g_p50 * 1e3:.4f}, host clock "
+            f"with a synchronize each step), {LM_BATCH / g_mean:.1f} "
+            f"tokens/s; a step moves at least {step_bytes / 1e9:.4f} GB "
+            f"(weights and {cache_kind} at position {last_pos}): "
+            f"{bound:.4f} ms at 3.35 TB/s; second runs' tokens identical: "
+            f"{same}")
+        _profile_serving(model, prompt, LM_PROFILE_STEPS)
+        device_ms = _profile_graph_steps(timed.graph, LM_PROMPT + 1)
+        log(f"  {arch} graph step on the card ({CARD}): {device_ms:.4f} ms "
+            f"between CUDA events over {LM_PROFILE_STEPS} replays, "
+            f"{bound / device_ms:.3f} of the byte bound")
+        del model, timed
         torch.cuda.empty_cache()
         _decode_matches_forward(arch)
         torch.cuda.empty_cache()
+        if cfg.kv_cache_dtype == "int8" and not cfg.attn_free:
+            _decode_matches_forward(arch, kv_cache_dtype="bfloat16")
+            torch.cuda.empty_cache()
 
 
 def main():

@@ -5,14 +5,21 @@
 //   (body _kernel): one query token per sequence, in GQA layout q (B, KV,
 //   G, hd), against the KV cache k, v (B, S, KV, hd); positions after pos
 //   are masked; the output (B, KV, G, hd) is fp32. Like the TPU kernel's
-//   (1,) int32 array, pos may be read from device memory.
+//   (1,) int32 array, pos may be read from device memory. The cache is q's
+//   type (bf16 or fp32), or the int8 form of the reference's
+//   kv_cache_dtype="int8" (src/repro/models/layers.py:164-194): int8
+//   values (B, S, KV, hd) and an fp32 scale per position (B, S, KV, 1),
+//   read as cache_read(c, T) = T(float(q) * s), T being q's type.
 //
 // Bound on an H100 SXM (data sheet: 3.35 TB/s, 67 TFLOP/s fp32): bytes.
 // Each valid K and V row is read once and serves G query heads, about 6 G
 // operations per 4 hd bytes of bf16 cache, far below the ~20 operations
 // per byte where fp32 arithmetic would limit. On the smollm decode path
 // (B=16, KV=5, hd=64, pos=1087, bf16) that is 22.3 MB of valid K/V, 6.65
-// us; at the decode_32k shape (B=128, S=32768) 5.37 GB, 1.60 ms.
+// us; at the decode_32k shape (B=128, S=32768) 5.37 GB, 1.60 ms. On
+// stablelm-3b's (B=16, KV=32, G=1, hd=80, pos=1087) int8 cache, 84 bytes
+// a row with its scale: 93.6 MB, 27.9 us (a dequantize adds 2 operations
+// a value, still far below the bytes).
 //
 // Design. The TPU kernel walks S in blocks of 512 on one core, one (b, kv)
 // per grid row, with the running max, denominator and accumulator in VMEM,
@@ -34,8 +41,9 @@
 //    fp32), filled by 16-byte cp.async.cg copies. The whole ring is in
 //    flight before the first tile is consumed, and each slot is refilled
 //    as soon as every warp is done with it. bf16 is widened to fp32 in
-//    registers where it is used. A lane reads 16 (or 8) bytes of a row, so
-//    the unpadded rows of a tile are read without bank conflicts.
+//    registers where it is used. At hd 32 and 64 a lane reads 16 (or 8)
+//    bytes of a row, so the unpadded rows of a tile are read without bank
+//    conflicts.
 // 3. Warps that do not wait for each other inside the loop: each warp takes
 //    its own positions of every tile and keeps its own online softmax (m,
 //    l, accumulator) for all G query rows; the lanes of a warp split each
@@ -43,9 +51,18 @@
 //    merge once, after the split, with the same log-sum-exp weights as the
 //    merge across splits. The only block-wide wait in the loop is the
 //    ring's hand-off, one __syncthreads per tile.
-// 4. G is a template parameter (1..8), as hd is (32, 64): no guards and no
-//    dead accumulators. The channels of a lane shrink as G grows, so q and
-//    the accumulator stay within 2 x QA_REGS registers.
+// 4. G is a template parameter (1..8), as hd is (32, 64, 80): no guards and
+//    no dead accumulators. The channels of a lane shrink as G grows, so q
+//    and the accumulator stay within about 2 x QA_REGS registers. At hd 80
+//    (5 x 16 channels) 8 or 16 lanes share a position, 10 or 5 channels a
+//    lane, read in 8-, 4- or 1-byte pieces (rows stay 16-byte multiples,
+//    so the ring's copies are unchanged).
+// 6. The int8 cache: the ring holds the int8 rows (a quarter of fp32's
+//    bytes per position) and, beside each tile, its K and V scales, copied
+//    4 bytes a position by cp.async.ca. A lane widens its int8 values,
+//    multiplies by the position's scale and rounds to T (bf16 with
+//    round-to-nearest-even, as PyTorch's cast), then goes on as for a
+//    cache of type T. No dequantized copy of the cache is ever made.
 // 5. The grid and the scratch depend on (B*KV, S) only, never on pos: the
 //    wrapper's split plan is a function of S. A block whose split starts
 //    after pos leaves at once, and the merge covers splits 0..pos/split_len
@@ -63,6 +80,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int NW = 4;  // warps of a block
@@ -76,31 +95,52 @@ constexpr int QA_REGS = 32;       // G x a lane's channels, at most
 constexpr int MAX_GROUP = 8;
 constexpr int MERGE_GROUP = 8;   // splits merged per round of loads
 constexpr int MAX_ROWS = 65535;  // B * KV: grid.y, and the tickets
+constexpr int MAX_TILE = 64;     // positions: the wrapper's split alignment
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ unsigned int g_tickets[MAX_ROWS];
 
-template <typename T, int HD, int G>
+constexpr int pow2_floor(int x) { return x < 2 ? 1 : 2 * pow2_floor(x / 2); }
+constexpr int cmin(int a, int b) { return a < b ? a : b; }
+
+// channels of a lane, for cache elements of ES bytes. hd 32, 64: 16 bytes
+// of a row, halved until G * CL is within QA_REGS; a quarter-warp then
+// reads 128 contiguous bytes of a tile (a half-warp with 8-byte reads), so
+// unpadded rows do not conflict. hd 80: 10 (8 lanes a position), or 5 (16
+// lanes) where G * 10 would pass QA_REGS
+constexpr int lane_channels(int HD, int ES, int G) {
+  if (HD % 5 == 0) return G * 10 <= QA_REGS ? 10 : 5;
+  int cl = 16 / ES;
+  while (G * cl > QA_REGS) cl /= 2;
+  return cl;
+}
+
+// T: q's type and the compute type; E: the cache's element type, T or
+// int8_t (the int8 form, with an fp32 scale per position)
+template <typename T, typename E, int HD, int G>
 struct Plan {
-  static constexpr int ES = sizeof(T);
-  // channels of a lane: 16 bytes of a row, or 8 where G * CL would pass
-  // QA_REGS; a quarter-warp then reads 128 contiguous bytes of a tile (a
-  // half-warp, with 8-byte reads), so unpadded rows do not conflict
-  static constexpr int C1 = 16 / ES;
-  static constexpr int CL = G * C1 <= QA_REGS ? C1 : C1 / 2;
+  static constexpr bool QUANT = std::is_same<E, int8_t>::value;
+  static constexpr int ES = sizeof(E);
+  static constexpr int CL = lane_channels(HD, ES, G);
   static constexpr int NS = HD / CL;  // lanes sharing one position
   static constexpr int LP = 32 / NS;  // positions of one warp pass
   static constexpr int RB = HD * ES;  // bytes of a cache row
   static constexpr int R0 = TILE_BYTES / (RB * NW * LP);
-  static constexpr int R = R0 > 0 ? R0 : 1;  // passes of a warp per tile
+  // passes of a warp per tile: a power of two, a tile of at most MAX_TILE
+  // positions, and R x G scores a lane at most QA_REGS
+  static constexpr int R = pow2_floor(
+      cmin(cmin(R0, MAX_TILE / (NW * LP)), QA_REGS / G));
   static constexpr int TP = NW * LP * R;     // positions of a tile
   static constexpr int CPR = RB / 16;        // 16-byte chunks of a row
-  static constexpr int STAGE = 2 * TP * RB;  // K tile, then V tile
+  static constexpr int NCOPY = (TP * CPR + NT - 1) / NT;  // a thread's
+  static constexpr int SB = QUANT ? 4 * TP : 0;  // a tile's K (V) scales
+  static constexpr int STAGE = 2 * TP * RB + 2 * SB;  // K, V, their scales
   static constexpr int SMEM = NSTAGE * STAGE;
-  static_assert(CL * ES >= 8 && (CL * ES) % 8 == 0, "lane reads");
-  static_assert(NS <= 32 && 32 % NS == 0, "lanes per position");
-  static_assert(TP * CPR % NT == 0, "copies per thread");
+  static_assert(HD % CL == 0 && NS <= 32 && 32 % NS == 0,
+                "lanes per position");
+  static_assert(RB % 16 == 0, "16-byte row copies");
+  static_assert(2 * TP <= NT, "one scale copy per thread");
   static_assert(NW * G * (HD + 2) * 4 <= SMEM, "merge area fits the ring");
   static_assert(SMEM <= 48 * 1024, "static shared memory");
 };
@@ -111,37 +151,76 @@ __device__ __forceinline__ void widen(uint32_t w, float& lo, float& hi) {
   hi = __uint_as_float(w & 0xffff0000u);
 }
 
-// N consecutive elements at p (8- or 16-byte aligned), as fp32
-template <int N>
-__device__ __forceinline__ void read_row(const float* p, float (&x)[N]) {
+// the 4 / sizeof(E) values of a 4-byte word, as fp32
+__device__ __forceinline__ void unpack(uint32_t w, float* x, float) {
+  x[0] = __uint_as_float(w);
+}
+
+__device__ __forceinline__ void unpack(uint32_t w, float* x, __nv_bfloat16) {
+  widen(w, x[0], x[1]);
+}
+
+__device__ __forceinline__ void unpack(uint32_t w, float* x, int8_t) {
 #pragma unroll
-  for (int i = 0; i < N; i += 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p + i);
-    x[i] = t.x;
-    x[i + 1] = t.y;
-    x[i + 2] = t.z;
-    x[i + 3] = t.w;
+  for (int i = 0; i < 4; ++i)  // sign-extend byte i
+    x[i] = static_cast<float>(static_cast<int>(w << (24 - 8 * i)) >> 24);
+}
+
+__device__ __forceinline__ float value(float e) { return e; }
+__device__ __forceinline__ float value(__nv_bfloat16 e) {
+  return __bfloat162float(e);
+}
+__device__ __forceinline__ float value(int8_t e) {
+  return static_cast<float>(e);
+}
+
+// N consecutive elements at p, as fp32: 16-, 8- or 4-byte loads where N
+// elements make a multiple of those bytes (p is then aligned to it), else
+// one element a load
+template <typename E, int N>
+__device__ __forceinline__ void read_row(const E* p, float (&x)[N]) {
+  constexpr int BYTES = N * sizeof(E), PER = 4 / sizeof(E);
+  const unsigned char* b = reinterpret_cast<const unsigned char*>(p);
+  if constexpr (BYTES % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i) {
+      const uint4 t = *reinterpret_cast<const uint4*>(b + 16 * i);
+      unpack(t.x, x + 4 * PER * i, E());
+      unpack(t.y, x + 4 * PER * i + PER, E());
+      unpack(t.z, x + 4 * PER * i + 2 * PER, E());
+      unpack(t.w, x + 4 * PER * i + 3 * PER, E());
+    }
+  } else if constexpr (BYTES % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < BYTES / 8; ++i) {
+      const uint2 t = *reinterpret_cast<const uint2*>(b + 8 * i);
+      unpack(t.x, x + 2 * PER * i, E());
+      unpack(t.y, x + 2 * PER * i + PER, E());
+    }
+  } else if constexpr (BYTES % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < BYTES / 4; ++i)
+      unpack(*reinterpret_cast<const uint32_t*>(b + 4 * i), x + PER * i, E());
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = value(p[i]);
   }
 }
 
-template <int N>
-__device__ __forceinline__ void read_row(const __nv_bfloat16* p,
-                                         float (&x)[N]) {
-  if constexpr (N % 8 == 0) {
+// an fp32 value rounded to T, as PyTorch's cast (round to nearest even)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
+// a row of the int8 cache read as cache_read(c, T): T(float(q) * s)
+template <typename T, int N>
+__device__ __forceinline__ void dequantize(float (&x)[N], float s) {
 #pragma unroll
-    for (int i = 0; i < N; i += 8) {
-      const uint4 t = *reinterpret_cast<const uint4*>(p + i);
-      widen(t.x, x[i], x[i + 1]);
-      widen(t.y, x[i + 2], x[i + 3]);
-      widen(t.z, x[i + 4], x[i + 5]);
-      widen(t.w, x[i + 6], x[i + 7]);
-    }
-  } else {
-    static_assert(N == 4, "a lane reads 4, 8 or 16 bf16");
-    const uint2 t = *reinterpret_cast<const uint2*>(p);
-    widen(t.x, x[0], x[1]);
-    widen(t.y, x[2], x[3]);
-  }
+  for (int i = 0; i < N; ++i) x[i] = round_to<T>(__fmul_rn(x[i], s));
 }
 
 // 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
@@ -149,6 +228,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared (through L1, the only route for 4 bytes)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(src), "r"(src_bytes)
                : "memory");
 }
@@ -174,15 +262,19 @@ __device__ __forceinline__ unsigned ticket_add(unsigned* counter) {
 
 // One block per (split, b * KV + kv). part_acc (B*KV, nsplit, G, HD) and
 // part_ml (B*KV, nsplit, G, 2) hold the splits' unnormalised accumulators
-// and (max, denominator), in log2 units; out (B*KV, G, HD).
-template <typename T, int HD, int G>
+// and (max, denominator), in log2 units; out (B*KV, G, HD). k_scale and
+// v_scale (B, S, KV) are the int8 form's scales (unused otherwise).
+template <typename T, typename E, int HD, int G>
 __global__ void __launch_bounds__(NT, min_blocks(G))
-decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const int* __restrict__ pos_dev,
-                   int pos_host, int S, int KV, int split_len,
-                   float* __restrict__ out, float* __restrict__ part_acc,
+decode_attn_kernel(const T* __restrict__ q, const E* __restrict__ k,
+                   const E* __restrict__ v,
+                   const float* __restrict__ k_scale,
+                   const float* __restrict__ v_scale,
+                   const int* __restrict__ pos_dev, int pos_host, int S,
+                   int KV, int split_len, float* __restrict__ out,
+                   float* __restrict__ part_acc,
                    float* __restrict__ part_ml) {
-  using P = Plan<T, HD, G>;
+  using P = Plan<T, E, HD, G>;
   constexpr int CL = P::CL, NS = P::NS, LP = P::LP, R = P::R, TP = P::TP;
   __shared__ __align__(16) unsigned char smem[P::SMEM];
   __shared__ bool is_last;
@@ -204,8 +296,9 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ntile = (end - begin + TP - 1) / TP;
   const int b = row / KV, kv = row % KV;
   const size_t step = static_cast<size_t>(KV) * HD;  // between positions
-  const T* kb = k + (static_cast<size_t>(b) * S * KV + kv) * HD;
-  const T* vb = v + (static_cast<size_t>(b) * S * KV + kv) * HD;
+  const size_t row0 = static_cast<size_t>(b) * S * KV + kv;  // position 0
+  const E* kb = k + row0 * HD;
+  const E* vb = v + row0 * HD;
 
   // tile t of the split into slot t % NSTAGE of the ring, as commit group
   // t (empty past the last tile, so that the count stays in step)
@@ -215,12 +308,23 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       unsigned char* vs = ks + TP * P::RB;
       const int t0 = begin + t * TP;
 #pragma unroll
-      for (int j = 0; j < TP * P::CPR / NT; ++j) {
+      for (int j = 0; j < P::NCOPY; ++j) {
         const int c = tid + j * NT, p = c / P::CPR, e = c % P::CPR;
+        if (TP * P::CPR % NT != 0 && c >= TP * P::CPR) break;
         const bool in = t0 + p < end;
         const size_t off = (in ? t0 + p : begin) * step + e * (16 / P::ES);
         cp_async16(ks + p * P::RB + e * 16, kb + off, in ? 16 : 0);
         cp_async16(vs + p * P::RB + e * 16, vb + off, in ? 16 : 0);
+      }
+      if constexpr (P::QUANT) {  // K's scales, then V's, after the V tile
+        if (tid < 2 * TP) {
+          const int p = tid % TP;
+          const bool in = t0 + p < end;
+          const float* sc = tid < TP ? k_scale : v_scale;
+          cp_async4(vs + TP * P::RB + 4 * tid,
+                    sc + row0 + static_cast<size_t>(in ? t0 + p : begin) * KV,
+                    in ? 4 : 0);
+        }
       }
     }
     cp_async_commit();
@@ -234,8 +338,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qr[G][CL];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    read_row<CL>(q + (static_cast<size_t>(row) * G + g) * HD + sl * CL,
-                 qr[g]);
+    read_row<T, CL>(q + (static_cast<size_t>(row) * G + g) * HD + sl * CL,
+                    qr[g]);
 #pragma unroll
     for (int c = 0; c < CL; ++c) qr[g][c] *= qscale;
   }
@@ -259,6 +363,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (t0 + wbase >= end) continue;  // the warp's positions lie past pos
     const unsigned char* ks = smem + (t % NSTAGE) * P::STAGE;
     const unsigned char* vs = ks + TP * P::RB;
+    const float* ksc = reinterpret_cast<const float*>(vs + TP * P::RB);
 
     float s[R][G], mx[G];
 #pragma unroll
@@ -267,7 +372,9 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < R; ++r) {
       const int p = wbase + r * LP + pg;
       float kx[CL];
-      read_row<CL>(reinterpret_cast<const T*>(ks + p * P::RB) + sl * CL, kx);
+      read_row<E, CL>(reinterpret_cast<const E*>(ks + p * P::RB) + sl * CL,
+                      kx);
+      if constexpr (P::QUANT) dequantize<T>(kx, ksc[p]);
       const bool valid = t0 + p < end;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
@@ -305,7 +412,9 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < R; ++r) {
       const int p = wbase + r * LP + pg;
       float vx[CL];  // zeros past pos
-      read_row<CL>(reinterpret_cast<const T*>(vs + p * P::RB) + sl * CL, vx);
+      read_row<E, CL>(reinterpret_cast<const E*>(vs + p * P::RB) + sl * CL,
+                      vx);
+      if constexpr (P::QUANT) dequantize<T>(vx, ksc[TP + p]);
 #pragma unroll
       for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -421,70 +530,82 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 struct Args {
   const void *q, *k, *v;
+  const float *k_scale, *v_scale;
   const int* pos_dev;
   int pos, S, KV, rows, split_len, nsplit;
   float *out, *part_acc, *part_ml;
   cudaStream_t stream;
 };
 
-template <typename T, int HD, int G>
+template <typename T, typename E, int HD, int G>
 int launch(const Args& a) {
-  decode_attn_kernel<T, HD, G>
+  decode_attn_kernel<T, E, HD, G>
       <<<dim3(a.nsplit, a.rows), NT, 0, a.stream>>>(
-          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-          static_cast<const T*>(a.v), a.pos_dev, a.pos, a.S, a.KV,
-          a.split_len, a.out, a.part_acc, a.part_ml);
+          static_cast<const T*>(a.q), static_cast<const E*>(a.k),
+          static_cast<const E*>(a.v), a.k_scale, a.v_scale, a.pos_dev, a.pos,
+          a.S, a.KV, a.split_len, a.out, a.part_acc, a.part_ml);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
+template <typename T, typename E, int HD>
 int by_group(int G, const Args& a) {
   switch (G) {
-    case 1: return launch<T, HD, 1>(a);
-    case 2: return launch<T, HD, 2>(a);
-    case 3: return launch<T, HD, 3>(a);
-    case 4: return launch<T, HD, 4>(a);
-    case 5: return launch<T, HD, 5>(a);
-    case 6: return launch<T, HD, 6>(a);
-    case 7: return launch<T, HD, 7>(a);
-    case 8: return launch<T, HD, 8>(a);
+    case 1: return launch<T, E, HD, 1>(a);
+    case 2: return launch<T, E, HD, 2>(a);
+    case 3: return launch<T, E, HD, 3>(a);
+    case 4: return launch<T, E, HD, 4>(a);
+    case 5: return launch<T, E, HD, 5>(a);
+    case 6: return launch<T, E, HD, 6>(a);
+    case 7: return launch<T, E, HD, 7>(a);
+    case 8: return launch<T, E, HD, 8>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T, typename E>
+int by_head_dim(int HD, int G, const Args& a) {
+  switch (HD) {
+    case 32: return by_group<T, E, 32>(G, a);
+    case 64: return by_group<T, E, 64>(G, a);
+    case 80: return by_group<T, E, 80>(G, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename T>
-int by_head_dim(int HD, int G, const Args& a) {
-  switch (HD) {
-    case 32: return by_group<T, 32>(G, a);
-    case 64: return by_group<T, 64>(G, a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+int by_cache(bool is_int8, int HD, int G, const Args& a) {
+  return is_int8 ? by_head_dim<T, int8_t>(HD, G, a)
+                 : by_head_dim<T, T>(HD, G, a);
 }
 
 }  // namespace
 
 // q (B, KV, G, HD), k, v (B, S, KV, HD), all bf16 (is_bf16) or all fp32,
-// contiguous, 16-byte aligned; positions 0..pos attend, pos being *pos_dev
+// or, with is_int8, k and v int8 with fp32 scales k_scale, v_scale (B, S,
+// KV) and q bf16 or fp32; contiguous, 16-byte aligned (the scales 4-byte
+// aligned); positions 0..pos attend, pos being *pos_dev
 // (an int32 in device memory) when pos_dev is not null, else pos. Splits of
 // split_len positions cover 0..S-1: nsplit = ceil(S / split_len). Scratch
 // part_acc (B*KV*nsplit*G*HD) and part_ml (B*KV*nsplit*G*2) fp32; out (B,
 // KV, G, HD) fp32, NaN throughout if a device pos lies outside 0..S-1.
 // One launch on `stream`, nothing else; returns its CUDA error, or 0.
 extern "C" int decode_attn(const void* q, const void* k, const void* v,
+                           const float* k_scale, const float* v_scale,
                            const int* pos_dev, float* out, float* part_acc,
                            float* part_ml, int B, int S, int KV, int G,
                            int HD, int pos, int split_len, int nsplit,
-                           int is_bf16, void* stream) {
+                           int is_bf16, int is_int8, void* stream) {
   const long long rows = static_cast<long long>(B) * KV;
   if (G < 1 || G > MAX_GROUP || S < 1 || rows < 1 || rows > MAX_ROWS ||
       split_len < 1 || nsplit < 1 ||
       static_cast<long long>(nsplit - 1) * split_len >= S ||
       static_cast<long long>(nsplit) * split_len < S ||
-      (pos_dev == nullptr && (pos < 0 || pos >= S)))
+      (pos_dev == nullptr && (pos < 0 || pos >= S)) ||
+      (is_int8 && (k_scale == nullptr || v_scale == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, pos_dev, pos, S, KV, static_cast<int>(rows),
-               split_len, nsplit, out, part_acc, part_ml,
-               static_cast<cudaStream_t>(stream)};
-  return is_bf16 ? by_head_dim<__nv_bfloat16>(HD, G, a)
-                 : by_head_dim<float>(HD, G, a);
+  const Args a{q, k, v, k_scale, v_scale, pos_dev, pos, S, KV,
+               static_cast<int>(rows), split_len, nsplit, out, part_acc,
+               part_ml, static_cast<cudaStream_t>(stream)};
+  return is_bf16 ? by_cache<__nv_bfloat16>(is_int8, HD, G, a)
+                 : by_cache<float>(is_int8, HD, G, a);
 }

@@ -3,10 +3,12 @@
 ``decode_attn_cuda`` launches ``decode_attn_kernel`` once per call over
 splits of the cache, the last block of each (b, kv) merging its splits
 (it replaces ``repro/kernels/decode_attn/kernel.py::decode_attn_pallas``).
-It takes CUDA tensors, q, k and v all bf16 or all fp32, reads the cache
-in its own type, allocates its output and scratch, launches on the
-current stream without synchronising, and raises on any CUDA error the
-launch reports. ``pos`` is a Python int, or an int32 CUDA tensor of one
+It takes CUDA tensors, q, k and v all bf16 or all fp32, or k and v in the
+int8 form ``{"q": int8, "s": fp32 (..., 1)}`` beside a bf16 or fp32 q
+(read as ``cache_read(c, q.dtype)``, without a dequantized copy). It
+reads the cache as stored, allocates its output and scratch, launches on
+the current stream without synchronising, and raises on any CUDA error
+the launch reports. ``pos`` is a Python int, or an int32 CUDA tensor of one
 element that the kernel reads on the card: the grid and scratch depend
 on the cache's length only, so one captured CUDA graph serves every
 ``pos``. :data:`LAUNCHES` counts its calls, so a run can show that it went
@@ -27,7 +29,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 MAX_GROUP = 8  # query heads per KV head (the kernel's MAX_GROUP)
 MAX_ROWS = 65535  # B * KV: grid.y and the kernel's tickets
-HEAD_DIMS = (32, 64)
+HEAD_DIMS = (32, 64, 80)
 SPLIT_ALIGN = 64  # positions: a whole number of the kernel's tiles
 MIN_SPLIT, MAX_SPLIT = 128, 1024  # positions of a split
 # blocks over the whole cache, per SM: with the cache half full, about 4
@@ -41,7 +43,7 @@ _I = ctypes.c_int
 @functools.lru_cache()
 def _lib():
     lib = build.load("decode_attn")
-    lib.decode_attn.argtypes = [_P] * 7 + [_I] * 9 + [_P]
+    lib.decode_attn.argtypes = [_P] * 9 + [_I] * 10 + [_P]
     lib.decode_attn.restype = _I
     return lib
 
@@ -63,21 +65,41 @@ def split_plan(rows: int, S: int, sms: int):
     return split_len, -(-S // split_len)
 
 
+def _check_tensor(name, t, q, dtype, align=16):
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.device != q.device:
+        raise ValueError("q, k and v lie on different devices")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype} (q is {q.dtype}), got "
+                         f"{t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % align:  # the kernel reads rows in 16-byte vectors
+        raise ValueError(f"{name} must start on a {align}-byte boundary")
+
+
 def _check(q, k, v, pos):
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.device != q.device:
-            raise ValueError("q, k and v lie on different devices")
-        if t.dtype not in (torch.bfloat16, torch.float32):
-            raise ValueError(f"{name} must be bfloat16 or float32, got "
-                             f"{t.dtype}")
-        if t.dtype != q.dtype:
-            raise ValueError(f"q is {q.dtype} but {name} is {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:  # the kernel reads rows in 16-byte vectors
-            raise ValueError(f"{name} must start on a 16-byte boundary")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"q must be bfloat16 or float32, got {q.dtype}")
+    _check_tensor("q", q, q, q.dtype)
+    if isinstance(k, dict) != isinstance(v, dict):
+        raise ValueError("k and v must both be tensors or both the int8 "
+                         "form {'q', 's'}")
+    if isinstance(k, dict):
+        for name, c in (("k", k), ("v", v)):
+            if set(c) != {"q", "s"}:
+                raise ValueError(f"the int8 form of {name} holds 'q' and "
+                                 f"'s', got {sorted(c)}")
+            _check_tensor(f"{name}['q']", c["q"], q, torch.int8)
+            _check_tensor(f"{name}['s']", c["s"], q, torch.float32, 4)
+        k, v, scales = k["q"], v["q"], (k["s"], v["s"])
+    else:
+        _check_tensor("k", k, q, q.dtype)
+        _check_tensor("v", v, q, q.dtype)
+        scales = None
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"expected q (B, KV, G, hd) and k (B, S, KV, hd), "
                          f"got {tuple(q.shape)} and {tuple(k.shape)}")
@@ -86,6 +108,11 @@ def _check(q, k, v, pos):
     if tuple(k.shape) != (B, S, KV, hd) or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)} as (B, S, KV, hd)")
+    if scales is not None and any(tuple(t.shape) != (B, S, KV, 1)
+                                  for t in scales):
+        raise ValueError(f"the int8 form's scales must be (B, S, KV, 1) = "
+                         f"{(B, S, KV, 1)}, got "
+                         f"{[tuple(t.shape) for t in scales]}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     if not 1 <= G <= MAX_GROUP:
@@ -106,13 +133,18 @@ def _check(q, k, v, pos):
         raise ValueError(f"pos {pos} outside the cache's 0..{S - 1}")
 
 
-def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos) -> torch.Tensor:
-    """q (B, KV, G, hd); k, v (B, S, KV, hd); positions 0..pos attend ->
-    (B, KV, G, hd) fp32. ``pos``: an int (checked here), or an int32 CUDA
-    tensor of one element on q's device, read by the kernel; a value of it
-    outside 0..S-1 gives NaN throughout the output."""
+def decode_attn_cuda(q: torch.Tensor, k, v, pos) -> torch.Tensor:
+    """q (B, KV, G, hd); k, v (B, S, KV, hd) of q's type, or both the int8
+    form ``{"q": int8 (B, S, KV, hd), "s": fp32 (B, S, KV, 1)}``;
+    positions 0..pos attend -> (B, KV, G, hd) fp32. ``pos``: an int
+    (checked here), or an int32 CUDA tensor of one element on q's device,
+    read by the kernel; a value of it outside 0..S-1 gives NaN throughout
+    the output."""
     _check(q, k, v, pos)
+    ks = vs = None  # the int8 form's scales
+    if isinstance(k, dict):
+        ks, vs = k["s"].data_ptr(), v["s"].data_ptr()
+        k, v = k["q"], v["q"]
     B, KV, G, hd = q.shape
     S = k.shape[1]
     if isinstance(pos, torch.Tensor):
@@ -128,10 +160,10 @@ def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         part_ml = torch.empty((B * KV * nsplit * G * 2,),
                               dtype=torch.float32, device=q.device)
         err = _lib().decode_attn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_ptr,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ks, vs, pos_ptr,
             out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), B, S,
             KV, G, hd, pos, split_len, nsplit,
-            int(q.dtype == torch.bfloat16),
+            int(q.dtype == torch.bfloat16), int(ks is not None),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attn launch failed with cudaError_t "

@@ -13,12 +13,13 @@ from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
 from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 
 
-def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                pos) -> torch.Tensor:
-    """q (B, KV, G, hd); k/v (B, S, KV, hd) of q's type (bf16 or fp32);
-    positions after ``pos`` are masked -> (B, KV, G, hd) fp32. ``pos`` is an
-    int or a one-element int32 tensor on q's device (the reference's (1,)
-    array); on the card the kernel reads the tensor there."""
+def decode_attn(q: torch.Tensor, k, v, pos) -> torch.Tensor:
+    """q (B, KV, G, hd); k/v (B, S, KV, hd) of q's type (bf16 or fp32), or
+    both the int8 cache form ``{"q", "s"}``, attended as ``cache_read(c,
+    q.dtype)``; positions after ``pos`` are masked -> (B, KV, G, hd) fp32.
+    ``pos`` is an int or a one-element int32 tensor on q's device (the
+    reference's (1,) array); on the card the kernel reads the tensor
+    there."""
     if not on_cuda(q, "decode_attn"):
         return decode_attn_ref(q, k, v, pos)
     return decode_attn_cuda(q.contiguous(), k, v, pos)

@@ -10,8 +10,12 @@ none). Compute follows the reference: weights are cast to the
 activations' type at use, norms and softmaxes work in fp32.
 
 One card, so the reference's sharding rules, head / qhead / seq policies
-and context-parallel attention are not ported. The int8 KV cache
-(``quantize_kv``) is queued in ROADMAP and raises here.
+and context-parallel attention are not ported.
+
+Decode takes ``pos`` as a Python int or as a one-element integer tensor on
+the activations' device (the reference's traced position): with a tensor,
+the rotary angle, the cache write and the attention mask read it on the
+card, so one captured CUDA graph of a decode step serves every position.
 """
 from __future__ import annotations
 
@@ -142,27 +146,38 @@ def apply_rotary(x, cos, sin):
 
 
 def quantize_kv(x):
-    raise NotImplementedError(
-        "the int8 KV cache (quantize_kv) is not ported yet (ROADMAP, "
-        "module 9); use kv_cache_dtype='bfloat16'")
-
-
-def _no_int8(c):
-    if isinstance(c, dict):  # the reference's {"q": int8, "s": scale}
-        quantize_kv(c)
+    """(..., hd) bf16/fp32 -> {"q": int8, "s": fp32 (..., 1)}: per-vector
+    absmax in fp32, ``max(scale, 1e-8) / 127``, round half to even, clip to
+    +-127 (the reference's int8 cache)."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(-1, keepdim=True), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return {"q": q.to(torch.int8), "s": scale}
 
 
 def cache_read(c, dtype=torch.bfloat16):
-    _no_int8(c)
+    """A cache buffer as a tensor of ``dtype``: the int8 form dequantized as
+    ``(q.float() * s).to(dtype)``; a plain buffer as it is."""
+    if isinstance(c, dict):
+        return (c["q"].float() * c["s"]).to(dtype)
     return c
 
 
-def cache_write(c, new, pos: int):
+def cache_write(c, new, pos):
     """Write one token's (B, 1, ...) ``new`` at ``pos`` along axis 1 of the
-    cache, in place, and return the cache. The reference's
-    ``dynamic_update_slice`` clamps the start, so a ``pos`` past the end
-    would overwrite the last token; here it raises."""
-    _no_int8(c)
+    cache (quantized first for the int8 form), in place, and return the
+    cache. The reference's ``dynamic_update_slice`` clamps the start, so an
+    int ``pos`` past the end would overwrite the last token; here it raises.
+    A tensor ``pos`` is read on the card without a check: its caller knows
+    the position on the host and checks it there."""
+    if isinstance(c, dict):
+        qn = quantize_kv(new)
+        cache_write(c["q"], qn["q"], pos)
+        cache_write(c["s"], qn["s"], pos)
+        return c
+    if isinstance(pos, torch.Tensor):
+        c.index_copy_(1, pos.reshape(1).long(), new.to(c.dtype))
+        return c
     if not 0 <= pos < c.shape[1]:
         raise IndexError(f"cache_write at pos {pos} outside a cache of "
                          f"{c.shape[1]} tokens; prefill with max_seq to "
@@ -246,29 +261,34 @@ class Attention(nn.Module):
         out = chunked_attention(q, k, v)
         return self.wo(out.reshape(B, S, h * hd)), kv_out
 
-    def decode(self, x, cache_k, cache_v, pos: int):
-        """x (B, 1, d); cache_k/v (B, S_max, n_kv, hd), written in place at
-        ``pos``; positions 0..pos attend. Grouped decode attention is
-        ``kernels.decode_attn``: the CUDA kernel on the card, its plain
-        version on the CPU; its fp32 output is cast to x's type before
-        ``wo``. Returns (out, cache_k, cache_v)."""
+    def decode(self, x, cache_k, cache_v, pos):
+        """x (B, 1, d); cache_k/v (B, S_max, n_kv, hd) of x's type, or the
+        int8 form ``{"q", "s"}``, written in place at ``pos`` (an int, or a
+        one-element int32 tensor on x's device); positions 0..pos attend.
+        Grouped decode attention is ``kernels.decode_attn``: the CUDA
+        kernel on the card, which reads an int8 cache as it is stored, its
+        plain version on the CPU; both attend over ``cache_read(c,
+        x.dtype)``, and the fp32 output is cast to x's type before ``wo``.
+        Returns (out, cache_k, cache_v)."""
         B = x.shape[0]
         h, kvh, hd = self.n_heads, self.n_kv_heads, self.head_dim
         q = self.wq(x).reshape(B, 1, kvh, self.group, hd)
         kn = self.wk(x).reshape(B, 1, kvh, hd)
         vn = self.wv(x).reshape(B, 1, kvh, hd)
         if self.rope_theta > 0:
-            posv = torch.full((B, 1), pos, dtype=torch.int32,
-                              device=x.device)
+            if isinstance(pos, torch.Tensor):
+                posv = pos.reshape(1, 1).expand(B, 1)
+            else:
+                posv = torch.full((B, 1), pos, dtype=torch.int32,
+                                  device=x.device)
             cos, sin = rotary_embedding(posv, hd, self.rope_theta, x.dtype)
             q = apply_rotary(q.reshape(B, 1, h, hd), cos, sin).reshape(
                 B, 1, kvh, self.group, hd)
             kn = apply_rotary(kn, cos, sin)
         cache_k = cache_write(cache_k, kn, pos)
         cache_v = cache_write(cache_v, vn, pos)
-        out = decode_attn(q.reshape(B, kvh, self.group, hd),
-                          cache_read(cache_k, x.dtype),
-                          cache_read(cache_v, x.dtype), pos)
+        out = decode_attn(q.reshape(B, kvh, self.group, hd), cache_k,
+                          cache_v, pos)
         out = out.to(x.dtype).reshape(B, 1, h * hd)
         return self.wo(out), cache_k, cache_v
 

@@ -15,8 +15,13 @@ API, as the reference's with the parameters held by the module:
 
 A cache is a list with one entry per block, ``{"sub0": {"mixer": {"k",
 "v"} or {"shift", "wkv"}, "ffn": {"shift"}}}`` as the reference's tree
-without its leading block axis. ``decode`` writes the new token's K/V
-into the cache's buffers in place and replaces the recurrent states.
+without its leading block axis; with ``kv_cache_dtype="int8"`` each of
+"k" and "v" is the reference's ``{"q": int8, "s": fp32 (..., 1)}``.
+``decode`` writes the new token's K/V into the cache's buffers in place
+and replaces the recurrent states. Its ``pos`` is an int, or a
+one-element int32 tensor on the model's device that the step reads on the
+card (``repro_torch.launch.serve`` captures such a step once as a CUDA
+graph).
 """
 from __future__ import annotations
 
@@ -60,6 +65,14 @@ def _ffn_module(cfg: ArchConfig, mixer_kind: str, kind: str, dtype, device):
     raise _unported(f"the {kind!r} FFN")
 
 
+def _pad_seq(t, pad: int):
+    """A K/V buffer (or the int8 form's ``q`` and ``s``) padded with
+    ``pad`` zero positions along axis 1."""
+    if isinstance(t, dict):
+        return {n: _pad_seq(x, pad) for n, x in t.items()}
+    return F.pad(t, (0, 0, 0, 0, 0, pad))
+
+
 class SubLayer(nn.Module):
     """Pre-norm mixer and FFN with residuals: one (mixer, ffn) pair of the
     block pattern."""
@@ -67,6 +80,7 @@ class SubLayer(nn.Module):
     def __init__(self, cfg: ArchConfig, mixer_kind, ffn_kind, dtype, device):
         super().__init__()
         self.mixer_kind = mixer_kind
+        self.kv_int8 = cfg.kv_cache_dtype == "int8"
         self.norm1 = L.Norm(cfg.d_model, cfg.norm, device=device)
         self.mixer = _mixer_module(cfg, mixer_kind, dtype, device)
         ffn = _ffn_module(cfg, mixer_kind, ffn_kind, dtype, device)
@@ -99,7 +113,10 @@ class SubLayer(nn.Module):
         if self.mixer_kind == ATTN:
             o, kv_pair = self.mixer(h, return_kv=collect_kv)
             if collect_kv:
-                kv["mixer"] = {"k": kv_pair[0], "v": kv_pair[1]}
+                k, v = kv_pair
+                if self.kv_int8:  # this layer's K/V only, never all layers'
+                    k, v = L.quantize_kv(k), L.quantize_kv(v)
+                kv["mixer"] = {"k": k, "v": v}
         else:
             o, kv["mixer"] = self.mixer(h)
         x, st = self._ffn(x + o, None)
@@ -107,8 +124,9 @@ class SubLayer(nn.Module):
             kv["ffn"] = st
         return x, kv if collect_kv else None
 
-    def decode(self, x, cache, pos: int):
-        """One token x (B, 1, d) -> (x, new cache entry)."""
+    def decode(self, x, cache, pos):
+        """One token x (B, 1, d) at ``pos`` (an int or a device tensor) ->
+        (x, new cache entry)."""
         nc = {}
         h = self.norm1(x)
         if self.mixer_kind == ATTN:
@@ -131,8 +149,6 @@ class Stack(nn.Module):
                  param_dtype=torch.float32, device="cuda"):
         super().__init__()
         self.cfg, self.compute_dtype = cfg, compute_dtype
-        if cfg.kv_cache_dtype == "int8" and not cfg.attn_free:
-            raise _unported("the int8 KV cache (kv_cache_dtype='int8')")
         device = resolve_device(device)
         self.blocks = nn.ModuleList(
             nn.ModuleDict({f"sub{i}": SubLayer(cfg, m, f, param_dtype,
@@ -155,8 +171,9 @@ class Stack(nn.Module):
             kvs.append(kv)
         return x, kvs if collect_kv else None
 
-    def decode_step(self, x, cache, pos: int):
-        """x (B, 1, d) -> (x, new cache)."""
+    def decode_step(self, x, cache, pos):
+        """x (B, 1, d) at ``pos`` (an int or a device tensor) -> (x, new
+        cache)."""
         new_cache = []
         for block, block_cache in zip(self.blocks, cache):
             nc = {}
@@ -172,14 +189,19 @@ class Stack(nn.Module):
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
+        def kv_buf(*shape):
+            if cfg.kv_cache_dtype == "int8":
+                return {"q": zeros(*shape, dtype=torch.int8),
+                        "s": zeros(*shape[:-1], 1)}
+            return zeros(*shape, dtype=self.compute_dtype)
+
         cache = []
         for block in self.blocks:
             c = {}
             for name, sub in block.items():
                 if sub.mixer_kind == ATTN:
                     shp = (batch, seq, cfg.n_kv_heads, cfg.hd)
-                    e = {"mixer": {"k": zeros(*shp, dtype=self.compute_dtype),
-                                   "v": zeros(*shp, dtype=self.compute_dtype)}}
+                    e = {"mixer": {"k": kv_buf(*shp), "v": kv_buf(*shp)}}
                 else:
                     e = {"mixer": {"shift": zeros(batch, cfg.d_model),
                                    "wkv": zeros(batch, H, hd, hd)}}
@@ -191,8 +213,8 @@ class Stack(nn.Module):
 
     def pad_cache(self, kvs, prefill_len: int, max_seq: int):
         """Pad the self-attention K/V collected at prefill out to
-        ``max_seq`` tokens so that decode can keep writing; states pass
-        through."""
+        ``max_seq`` tokens so that decode can keep writing (zeros, and for
+        the int8 form zero ``q`` and zero ``s``); states pass through."""
         if max_seq < prefill_len:
             raise ValueError(f"max_seq {max_seq} < prefill length "
                              f"{prefill_len}")
@@ -205,7 +227,7 @@ class Stack(nn.Module):
             for name, sub in block.items():
                 e = dict(kv[name])
                 if sub.mixer_kind == ATTN:
-                    e["mixer"] = {n: F.pad(t, (0, 0, 0, 0, 0, pad))
+                    e["mixer"] = {n: _pad_seq(t, pad)
                                   for n, t in e["mixer"].items()}
                 nb[name] = e
             out.append(nb)
@@ -286,9 +308,13 @@ class DecoderLM(nn.Module):
         return self.stack.pad_cache(kvs, prefill_len, max_seq)
 
     @torch.no_grad()
-    def decode(self, cache, token, pos: int):
-        """token (B, 1) int; pos: its position -> (cache, logits (B, 1,
-        V))."""
+    def decode(self, cache, token, pos):
+        """token (B, 1) int; pos: its position, an int or a one-element
+        int32 tensor on the model's device -> (cache, logits (B, 1, V)).
+        A tensor ``pos`` is read on the card, unchecked: the caller keeps
+        it inside the cache."""
+        if not isinstance(pos, torch.Tensor):
+            pos = int(pos)
         x = self.embed(token, self.compute_dtype)
-        x, cache = self.stack.decode_step(x, cache, int(pos))
+        x, cache = self.stack.decode_step(x, cache, pos)
         return cache, self.logits(self.final_norm(x))

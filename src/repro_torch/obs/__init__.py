@@ -14,10 +14,9 @@ data path — telemetry-on vs -off ``FleetResult``s are bit-identical):
 - :mod:`repro_torch.obs.compile` — what the fleet engine builds per
   padded shape (``CompileCounter``), so new warm-ups surface as live
   metrics and timeline instants.
-
-The reference's ``profile_region`` (``jax.profiler`` wiring for the
-launchers) comes with the multi-host slice (ROADMAP module 8), as
-``torch.profiler`` wiring; here it raises.
+- :mod:`repro_torch.obs.profiler` — ``profile_region``, the launchers'
+  ``torch.profiler`` wiring for one process (the cross-host merge comes
+  with ROADMAP module 8).
 
 :func:`enable` / :func:`disable` flip the whole plane at once;
 ``REPRO_OBS=1`` in the environment enables it through
@@ -34,6 +33,7 @@ from repro_torch.obs.compile import CompileCounter
 from repro_torch.obs.metrics import (DEFAULT_BUCKETS, Counter, Gauge,
                                      Histogram, MetricsRegistry,
                                      get_metrics)
+from repro_torch.obs.profiler import profile_region
 from repro_torch.obs.trace import (STAGES, SpanEvent, Tracer, get_tracer,
                                    merge_host_traces, stage_summary)
 
@@ -65,15 +65,6 @@ def enable_from_env(host: int = 0) -> bool:
     if os.environ.get(ENV_OBS, "").lower() in ("1", "true", "yes", "on"):
         enable(host=host)
     return enabled()
-
-
-def profile_region(profile_dir: Optional[str] = None,
-                   host: Optional[int] = None):
-    """Not ported: the device-profiler wiring of the launchers comes with
-    the multi-host slice."""
-    raise NotImplementedError(
-        "obs.profile_region: device-profiler wiring for the launchers "
-        "comes with the multi-host slice (ROADMAP module 8)")
 
 
 __all__ = [

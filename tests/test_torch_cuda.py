@@ -629,6 +629,147 @@ def test_decode_attn_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     decode_attn_cuda(q, k, k, 5)  # the context is still usable
 
 
+def _int8_attn_inputs(cuda, B, S, KV, G, hd, dtype, seed):
+    """q of ``dtype``; k and v in the int8 cache form of the model's
+    ``quantize_kv``."""
+    from repro_torch.models.layers import quantize_kv
+
+    q, k, v = _attn_inputs(cuda, B, S, KV, G, hd, torch.float32, seed)
+    return q.to(dtype), quantize_kv(k), quantize_kv(v)
+
+
+# head dim 80 (stablelm-3b) with a bf16, an fp32 and an int8 cache (q bf16
+# or fp32): the plain version reads the int8 form as cache_read(c,
+# q.dtype), the kernel dequantizes the same values, so the same bound
+@pytest.mark.parametrize("dims", [
+    (2, 2048, 32, 1, 80, 1087),  # stablelm's decode shape, batch cut to 2
+    (3, 1000, 2, 3, 80, 0),      # only position 0
+    (1, 777, 1, 8, 80, 300),     # pos inside a tile, G=8
+    (2, 4500, 4, 2, 80, 4321)])  # several splits
+@pytest.mark.parametrize("cache", ["bf16", "fp32", "int8,bf16", "int8,fp32"])
+def test_decode_attn_at_head_dim_80_matches_plain_version(cuda, dims, cache):
+    from repro_torch.kernels.decode_attn import kernel as dk
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    B, S, KV, G, hd, pos = dims
+    dtype = torch.bfloat16 if cache.endswith("bf16") else torch.float32
+    make = _int8_attn_inputs if cache.startswith("int8") else _attn_inputs
+    q, k, v = make(cuda, B, S, KV, G, hd, dtype, seed=S + G)
+    before = dk.LAUNCHES["decode_attn"]
+    got = decode_attn(q, k, v, pos)
+    assert dk.LAUNCHES["decode_attn"] == before + 1
+    want = decode_attn_ref(q, k, v, pos)
+    assert got.dtype == torch.float32 and got.shape == (B, KV, G, hd)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("G", range(1, 9))
+@pytest.mark.parametrize("hd", [32, 64, 80])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_int8_cache_takes_every_group_and_head_dim(cuda, G, hd,
+                                                               dtype):
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    q, k, v = _int8_attn_inputs(cuda, 3, 1500, 2, G, hd, dtype,
+                                seed=10 * G + hd)
+    np.testing.assert_allclose(
+        decode_attn_cuda(q, k, v, 1234).cpu().numpy(),
+        decode_attn_ref(q, k, v, 1234).cpu().numpy(), atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("G", [1, 5])
+def test_decode_attn_bf16_head_dim_80_takes_group_sizes(cuda, G):
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    q, k, v = _attn_inputs(cuda, 3, 1500, 2, G, 80, torch.bfloat16, seed=G)
+    np.testing.assert_allclose(
+        decode_attn_cuda(q, k, v, 1234).cpu().numpy(),
+        decode_attn_ref(q, k, v, 1234).cpu().numpy(), atol=1e-5, rtol=1e-4)
+
+
+def test_decode_attn_int8_graph_replays_and_ignores_what_lies_past_pos(cuda):
+    """hd 80, int8: a captured call replayed at device positions equals
+    eager calls bit for bit; values and scales past pos change nothing;
+    a device pos past the cache gives NaN."""
+    from repro_torch.kernels.decode_attn import kernel as dk
+
+    q, k, v = _int8_attn_inputs(cuda, 4, 2048, 32, 1, 80, torch.bfloat16,
+                                seed=8)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda)
+    dk.decode_attn_cuda(q, k, v, pos)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dk.decode_attn_cuda(q, k, v, pos)
+    for p in (1087, 0, 2047):
+        pos.fill_(p)
+        graph.replay()
+        assert torch.equal(out, dk.decode_attn_cuda(q, k, v, p))
+    clean = dk.decode_attn_cuda(q, k, v, 700)
+    for c in (k, v):
+        c["q"][:, 701:] = 127
+        c["s"][:, 701:] = float("nan")
+    assert torch.equal(dk.decode_attn_cuda(q, k, v, 700), clean)
+    pos.fill_(2048)
+    graph.replay()
+    assert bool(out.isnan().all())
+
+
+def test_decode_attn_wrapper_rejects_a_malformed_int8_cache(cuda):
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+
+    q, k, v = _int8_attn_inputs(cuda, 2, 100, 2, 1, 80, torch.bfloat16,
+                                seed=9)
+    with pytest.raises(ValueError, match="both"):
+        decode_attn_cuda(q, k, v["q"].float(), 5)
+    with pytest.raises(ValueError, match="'q' and 's'"):
+        decode_attn_cuda(q, {"q": k["q"]}, v, 5)
+    with pytest.raises(ValueError, match="int8"):
+        decode_attn_cuda(q, {"q": k["q"].float(), "s": k["s"]}, v, 5)
+    with pytest.raises(ValueError, match="scales"):
+        decode_attn_cuda(q, {"q": k["q"], "s": k["s"][:, :50].contiguous()},
+                         v, 5)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_attn_cuda(q[..., :48].contiguous(),
+                         {n: t[..., :48].contiguous() if n == "q" else t
+                          for n, t in k.items()},
+                         {n: t[..., :48].contiguous() if n == "q" else t
+                          for n, t in v.items()}, 5)
+    decode_attn_cuda(q, k, v, 5)  # the context is still usable
+
+
+@pytest.mark.parametrize("arch,int8", [("smollm_360m", False),
+                                       ("rwkv6_1b6", False),
+                                       ("stablelm_3b", True)])
+def test_graph_decode_equals_eager_decode(cuda, arch, int8):
+    """The serving launcher's captured step replayed at every position gives
+    the eager loop's tokens (reduced configs, bf16, random weights); the
+    capture records one kernel launch per layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch.serve import serve_tokens
+    from repro_torch.models import DecoderLM
+
+    cfg = get_reduced_config(arch)
+    if int8:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    model = DecoderLM(cfg, torch.bfloat16, torch.bfloat16, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(0))
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 40)).astype(np.int32)).to(cuda)
+    eager = serve_tokens(model, prompts, 12, max_seq=64, graph=False)
+    graph = serve_tokens(model, prompts, 12, max_seq=64, graph=True)
+    assert eager.finite and graph.finite and eager.graph is None
+    kernel = "wkv6" if cfg.attn_free else "decode_attn"
+    assert graph.graph.launches == {kernel: cfg.n_layers}
+    assert torch.equal(graph.tokens, eager.tokens)
+
+
 def _wkv_inputs(B, S, H, hd, seed, ld_low=None, s0_scale=0.2):
     """Seeded r, k, v (x0.5), log-decays (-exp(N(-1, 0.5)) as the
     reference's tests, or uniform in [ld_low, -1e-4]), u and s0."""

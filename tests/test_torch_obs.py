@@ -122,7 +122,7 @@ def test_traces_merge_and_summarise_as_the_reference():
     assert obs.STAGES == jobs.STAGES
 
 
-def test_enable_disable_env_and_profile_region(monkeypatch):
+def test_enable_disable_env_and_profile_region(monkeypatch, tmp_path):
     assert not obs.enabled()
     tr, reg = obs.enable(host=3)
     assert obs.enabled() and obs.get_tracer() is tr and reg.host == 3
@@ -131,8 +131,14 @@ def test_enable_disable_env_and_profile_region(monkeypatch):
     assert not obs.enable_from_env()
     monkeypatch.setenv(obs.ENV_OBS, "1")
     assert obs.enable_from_env(host=2) and obs.get_metrics().host == 2
-    with pytest.raises(NotImplementedError, match="module 8"):
-        obs.profile_region("/nowhere")
+    with obs.profile_region(None) as started:  # no directory: a no-op
+        assert started is False
+    assert not obs.get_tracer().stage_events("events")
+    with obs.profile_region(str(tmp_path)) as started:
+        torch.ones(3).sum()
+    assert started is True and list(tmp_path.glob("*.pt.trace.json"))
+    assert [e.name for e in obs.get_tracer().stage_events("events")] == [
+        "profiler_start", "profiler_stop"]
     assert sorted(obs.__all__) == sorted(jobs.__all__)
 
 
