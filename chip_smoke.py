@@ -6,11 +6,15 @@ check it end to end.
 1. Prints the card's name and power limit, and builds the CUDA kernels
    from ``src/repro_torch/kernels`` with nvcc into ``build/kernels/``,
    logging ptxas's registers and spills; for each of the four
-   ``mbcodec_chunk_kernel`` and eight ``wkv6`` instantiations also its
-   shared memory (and stack frame), and it fails on a spill there (or a
-   stack frame in the chunk kernel), or if the mbcodec library holds any
-   kernel besides the four chunk kernel instantiations. It logs each of
-   those four's SASS instruction count and top opcodes (``cuobjdump``).
+   ``mbcodec_chunk_kernel``, eight ``wkv6`` and 96 ``decode_attn_kernel``
+   instantiations also its shared memory (and stack frame), and it fails
+   on a spill there (or a stack frame in the chunk kernel or
+   ``decode_attn``), or if the mbcodec library holds any kernel besides
+   the four chunk kernel instantiations. It logs each of those four's SASS
+   instruction count and top opcodes (``cuobjdump``), and those of
+   ``decode_attn_kernel<bf16, int8_t, 80, 1>`` (stablelm-3b's int8 read)
+   with its conversions (I2F, F2F, F2FP) and shared-memory loads by
+   width.
 2. Kernel phase: each mbcodec entry point (``mbcodec_frame``, the chunk
    kernel at T = 1; ``mbcodec_chunk`` with and without the reference
    clip; ``mbcodec_chunk_scores`` with and without it) runs at its path's
@@ -154,8 +158,9 @@ check it end to end.
    and an int8 cache (bf16 q, the int8 values and fp32 scales read by the
    kernel itself), each L2-flushed with its byte bound, SDPA timed on the
    bf16 and fp32 caches (no library call reads the int8 one), and the
-   graph check repeated on the int8 cache. ``wkv6`` at the rwkv6 path's
-   prefill (B=16, S=1024, H=32) and decode (S=1) shapes, r, k and v in
+   graph check repeated on the int8 cache; and on an int8 cache at the
+   smollm path's shape (hd 64, G 3; off the path). ``wkv6`` at the rwkv6
+   path's prefill (B=16, S=1024, H=32) and decode (S=1) shapes, r, k and v in
    bf16 (as the path passes them) and in fp32, against the reference
    model's chunked form,
    and on a ragged slice with log-decays down to -8 and s0 != 0 against
@@ -1897,7 +1902,8 @@ def decode_attn_kernel_phase():
               bf16, False),
              ("stablelm,bf16", *path, 32, 1, 80, last, bf16, False),
              ("stablelm,fp32", *path, 32, 1, 80, last, fp32, False),
-             ("stablelm,int8", *path, 32, 1, 80, last, bf16, True))
+             ("stablelm,int8", *path, 32, 1, 80, last, bf16, True),
+             ("smollm,int8", *path, 5, 3, 64, last, bf16, True))
     rows = {}
     for tag, B, S, cfg_kv, cfg_g, hd, pos, dtype, int8 in cases:
         gen = torch.Generator(device="cuda").manual_seed(S + pos + hd)
@@ -1949,7 +1955,7 @@ def decode_attn_kernel_phase():
                                cold=not big,
                                library=None if int8 else library,
                                reps=1 if big else 10, moved=moved)
-        if int8:  # SDPA has no int8 cache: its bf16-cache time beside it
+        if tag == "stablelm,int8":  # SDPA reads no int8 cache: its bf16 time
             log(f"  {name}: kernel {rows[name]['ms']:.4f} ms on the int8 "
                 f"cache against SDPA "
                 f"{rows['decode_attn[stablelm,bf16]']['library_ms']:.4f} ms "
@@ -2154,6 +2160,65 @@ def wkv6_build_report(report):
     if len(kernels) != 8:
         raise AssertionError(f"ptxas reported {len(kernels)} wkv6 kernels, "
                              f"not 8")
+
+
+def _decode_attn_label(fn):
+    """``decode_attn_kernel<T, E, HD, G>`` of a mangled name."""
+    m = re.search(r"decode_attn_kernelI(13__nv_bfloat16|f)(S1_|f|a)Li(\d+)E"
+                  r"Li(\d+)E", fn)
+    q = "bf16" if m.group(1) != "f" else "fp32"
+    cache = "int8_t" if m.group(2) == "a" else q
+    return f"decode_attn_kernel<{q}, {cache}, {m.group(3)}, {m.group(4)}>"
+
+
+def decode_attn_build_report(report):
+    """Logs each decode_attn instantiation's registers, shared memory, stack
+    frame and spills from nvcc's ``-Xptxas -v`` report; fails unless it
+    holds all 96 (q bf16 or fp32, the cache q's type or int8, hd 32, 64,
+    80, G 1..8), none with a spill or a stack frame."""
+    kernels = ptxas_kernels(report)
+    for k in kernels:
+        label = _decode_attn_label(k["fn"])
+        log(f"    {label}: {k['registers']} registers, {k['smem']} B static "
+            f"shared memory, {k['stack']} B stack frame, {k['spills']} B "
+            f"spilled")
+        if k["stack"] is None or k["stack"] or k["spills"]:
+            raise AssertionError(f"{label}: {k['stack']} B stack frame, "
+                                 f"{k['spills']} B spilled (or no ptxas "
+                                 f"report)")
+    if len(kernels) != 96:
+        raise AssertionError(f"ptxas reported {len(kernels)} decode_attn "
+                             f"instantiations, not 96")
+
+
+def decode_attn_sass_report():
+    """Logs the SASS (``cuobjdump -sass``) of stablelm-3b's int8 read,
+    ``decode_attn_kernel<bf16, int8_t, 80, 1>``: its instruction count,
+    conversions (I2F, F2F, F2FP: none a value but F2FP, one for two),
+    shared-memory loads by width and top opcodes. Checks nothing."""
+    from repro_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "-sass", str(build.library_path("decode_attn"))],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    for part in sass.split("Function : ")[1:]:
+        if _decode_attn_label(part.split()[0]) != (
+                "decode_attn_kernel<bf16, int8_t, 80, 1>"):
+            continue
+        ops = collections.Counter(re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+            r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)", part))
+        picked = {op: n for op, n in sorted(ops.items())
+                  if op.split(".")[0] in ("I2F", "F2F", "F2FP", "LDS")}
+        top = collections.Counter()
+        for op, n in ops.items():
+            top[op.split(".")[0]] += n
+        log(f"    decode_attn_kernel<bf16, int8_t, 80, 1> SASS: "
+            f"{sum(ops.values())} instructions; "
+            + ", ".join(f"{op} {n}" for op, n in picked.items())
+            + "; top: " + ", ".join(f"{op} {n}"
+                                    for op, n in top.most_common(10)))
 
 
 def _param_bytes(model):
@@ -2484,19 +2549,21 @@ def main():
     t0 = time.perf_counter()
     built = build.build()
     log(f"build: {time.perf_counter() - t0:.2f} s")
-    for name in ("mbcodec", "wkv6"):
+    reports = {"mbcodec": mbcodec_build_report, "wkv6": wkv6_build_report,
+               "decode_attn": decode_attn_build_report}
+    for name in reports:
         if name not in built:
             log(f"  {name} was built before this run: no ptxas report here")
     for name, (secs, report) in built.items():
         log(f"  nvcc {name}: {secs:.2f} s")
-        if name in ("mbcodec", "wkv6"):
-            (mbcodec_build_report if name == "mbcodec"
-             else wkv6_build_report)(report)
+        if name in reports:
+            reports[name](report)
             continue
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
     mbcodec_sass_report()
+    decode_attn_sass_report()
 
     t0 = time.perf_counter()
     scene = make_scene("dashcam", seed=33, T=SCENE_FRAMES, H=HEIGHT,

@@ -36,40 +36,60 @@
 //    for the next call or graph replay, with no memset. Calls on one device
 //    must therefore be ordered on the card (one stream, or streams that
 //    wait on each other): overlapping calls would share the counters.
-// 2. A pipelined read of the cache as it is stored: a ring of NSTAGE
-//    tiles of K and V in shared memory, in the cache's own type (bf16 or
-//    fp32), filled by 16-byte cp.async.cg copies. The whole ring is in
-//    flight before the first tile is consumed, and each slot is refilled
-//    as soon as every warp is done with it. bf16 is widened to fp32 in
-//    registers where it is used. At hd 32 and 64 a lane reads 16 (or 8)
-//    bytes of a row, so the unpadded rows of a tile are read without bank
-//    conflicts.
+// 2. A pipelined read of the cache as it is stored: a ring of tiles of K
+//    and V in shared memory, in the cache's own type, filled by 16-byte
+//    cp.async.cg copies. The whole ring is in flight before the first tile
+//    is consumed, and each slot is refilled as soon as every warp is done
+//    with it: one __syncthreads per tile, the only block-wide wait in the
+//    loop.
 // 3. Warps that do not wait for each other inside the loop: each warp takes
 //    its own positions of every tile and keeps its own online softmax (m,
-//    l, accumulator) for all G query rows; the lanes of a warp split each
-//    position's channels, and q (pre-scaled) lives in registers. The warps
-//    merge once, after the split, with the same log-sum-exp weights as the
-//    merge across splits. The only block-wide wait in the loop is the
-//    ring's hand-off, one __syncthreads per tile.
-// 4. G is a template parameter (1..8), as hd is (32, 64, 80): no guards and
-//    no dead accumulators. The channels of a lane shrink as G grows, so q
-//    and the accumulator stay within about 2 x QA_REGS registers. At hd 80
-//    (5 x 16 channels) 8 or 16 lanes share a position, 10 or 5 channels a
-//    lane, read in 8-, 4- or 1-byte pieces (rows stay 16-byte multiples,
-//    so the ring's copies are unchanged).
-// 6. The int8 cache: the ring holds the int8 rows (a quarter of fp32's
-//    bytes per position) and, beside each tile, its K and V scales, copied
-//    4 bytes a position by cp.async.ca. A lane widens its int8 values,
-//    multiplies by the position's scale and rounds to T (bf16 with
-//    round-to-nearest-even, as PyTorch's cast), then goes on as for a
-//    cache of type T. No dequantized copy of the cache is ever made.
-// 5. The grid and the scratch depend on (B*KV, S) only, never on pos: the
-//    wrapper's split plan is a function of S. A block whose split starts
-//    after pos leaves at once, and the merge covers splits 0..pos/split_len
-//    only. Masked positions are never loaded (the last tile's rows past pos
-//    are zero-filled by cp.async without a read). A device pos outside
-//    0..S-1 cannot be raised without a synchronise, so the kernel writes
-//    NaN to every output of the call instead.
+//    l, accumulator) for all G query rows. The warps merge once, after the
+//    split, with the same log-sum-exp weights as the merge across splits.
+// 4. A bf16 or fp32 cache: a ring of NSTAGE tiles of about 4 KB of
+//    K in static shared memory. The lanes of a warp split each position's
+//    channels and q (pre-scaled) lives in registers; bf16 is widened to
+//    fp32 in registers where it is used. At hd 32 and 64 a lane reads 16
+//    (or 8) bytes of a row, so the unpadded rows of a tile are read without
+//    bank conflicts; at hd 80 (5 x 16 channels) 8 or 16 lanes share a
+//    position, 10 or 5 channels a lane, read in 8-, 4- or 2-byte pieces.
+//    G is a template parameter (1..8), as hd is (32, 64, 80): the channels
+//    of a lane shrink as G grows, so q and the accumulator stay within
+//    about 2 x QA_REGS registers.
+// 5. The int8 cache (walk_int8): the dequantize is most of the work (89 M
+//    values a call on stablelm's path), so it stays off the conversion
+//    pipe, which issues 16 results a clock per SM against 64 to 128 for
+//    integer and fp32 arithmetic. An int8 value becomes fp32 by a byte
+//    permute into the mantissa of 2^23 and one subtraction; the product
+//    with the position's scale (__fmul_rn, as torch's fp32 multiply) is
+//    rounded to bf16 two values at a time by one cvt.rn.bf16x2.f32 (round
+//    to nearest even, as torch's cast), so each value is bit for bit
+//    cache_read(c, T). A block takes kvg = 4 (or 2) KV heads of one b
+//    where they divide KV: their rows lie together in the cache (320
+//    bytes a position at hd 80, where one head's 80 bytes straddle 32-byte
+//    sectors), and the grid runs over the row groups first, so that the
+//    groups of one b read the same stretch of the cache together. A tile
+//    holds Q8_TP = 128 (position, head) rows, a warp taking 32 positions
+//    of one head; a ring of Q8_NSTAGE = 2 tiles in dynamic shared memory
+//    (43 KB at hd 80: four blocks an SM) with the scales beside them by
+//    4-byte cp.async.ca copies. q.k takes a lane per position: the lane
+//    reads its row as 16-byte chunks and q from shared memory (one address
+//    for the whole warp); the row's chunks are permuted where a row holds
+//    an even number of them, so the lanes of a quarter-warp hit distinct
+//    banks. p.v takes the lane's own row too where its G x HD accumulators
+//    fit in registers (G 1 up to hd 80), summed over the warp's lanes once,
+//    after the split; else lanes on channels: lane = slot x chunk (32 /
+//    chunks slots; at hd 80 6 slots of 5 chunks, 2 lanes idle), each slot
+//    a position of the warp at a time, its weights shuffled from the lane
+//    that scored it. No read of the int8 rows is narrower than 16 bytes.
+// 6. The grid and the scratch depend on (B*KV, S) and the cache's type
+//    only, never on pos: the wrapper's split plan is a function of them. A
+//    block whose split starts after pos leaves at once, and the merge
+//    covers splits 0..pos/split_len only. Masked positions are never loaded
+//    (the last tile's rows past pos are zero-filled by cp.async without a
+//    read). A device pos outside 0..S-1 cannot be raised without a
+//    synchronise, so the kernel writes NaN to every output of the call
+//    instead.
 // Numerics: fp32 throughout, no fast math; scores in log2 units (q scaled
 // by log2(e) / sqrt(hd), exp2f); the result differs from the plain version
 // (fp32 einsum and softmax over all of S) in rounding and summation order
@@ -79,6 +99,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <type_traits>
 
@@ -86,20 +107,32 @@ namespace {
 
 constexpr int NW = 4;  // warps of a block
 constexpr int NT = 32 * NW;
-// resident blocks per SM, at least; 3 where G > 6, whose q and
-// accumulators do not fit 128 registers without spills
-constexpr int min_blocks(int G) { return G > 6 ? 3 : 4; }
-constexpr int NSTAGE = 3;         // tiles of the ring
+constexpr int NSTAGE = 3;         // tiles of the ring (bf16, fp32 caches)
 constexpr int TILE_BYTES = 4096;  // bytes of K in a tile (as many of V)
 constexpr int QA_REGS = 32;       // G x a lane's channels, at most
 constexpr int MAX_GROUP = 8;
 constexpr int MERGE_GROUP = 8;   // splits merged per round of loads
 constexpr int MAX_ROWS = 65535;  // B * KV: grid.y, and the tickets
 constexpr int MAX_TILE = 64;     // positions: the wrapper's split alignment
+constexpr int Q8_TP = 32 * NW;   // int8 cache: positions of a tile
+constexpr int Q8_NSTAGE = 2;     // int8 cache: tiles of the ring
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ unsigned int g_tickets[MAX_ROWS];
+
+template <typename E>
+constexpr bool IS_INT8 = std::is_same<E, int8_t>::value;
+
+// resident blocks per SM, at least (at most 65536 / (NT x this) registers
+// a thread). bf16, fp32 caches: 4, or 3 where G > 6, whose q and
+// accumulators do not fit 128 registers without spills. int8: 4 (44 KB of
+// shared memory a block at hd 80), or 2 where G > 2 (16 G accumulators a
+// lane, and G q.k sums)
+template <typename E>
+constexpr int min_blocks(int G) {
+  return IS_INT8<E> ? (G > 2 ? 2 : 4) : (G > 6 ? 3 : 4);
+}
 
 constexpr int pow2_floor(int x) { return x < 2 ? 1 : 2 * pow2_floor(x / 2); }
 constexpr int cmin(int a, int b) { return a < b ? a : b; }
@@ -116,12 +149,11 @@ constexpr int lane_channels(int HD, int ES, int G) {
   return cl;
 }
 
-// T: q's type and the compute type; E: the cache's element type, T or
-// int8_t (the int8 form, with an fp32 scale per position)
-template <typename T, typename E, int HD, int G>
+// the bf16 or fp32 cache's tiles; T: q's type, the cache's and the
+// compute type's source
+template <typename T, int HD, int G>
 struct Plan {
-  static constexpr bool QUANT = std::is_same<E, int8_t>::value;
-  static constexpr int ES = sizeof(E);
+  static constexpr int ES = sizeof(T);
   static constexpr int CL = lane_channels(HD, ES, G);
   static constexpr int NS = HD / CL;  // lanes sharing one position
   static constexpr int LP = 32 / NS;  // positions of one warp pass
@@ -134,15 +166,41 @@ struct Plan {
   static constexpr int TP = NW * LP * R;     // positions of a tile
   static constexpr int CPR = RB / 16;        // 16-byte chunks of a row
   static constexpr int NCOPY = (TP * CPR + NT - 1) / NT;  // a thread's
-  static constexpr int SB = QUANT ? 4 * TP : 0;  // a tile's K (V) scales
-  static constexpr int STAGE = 2 * TP * RB + 2 * SB;  // K, V, their scales
+  static constexpr int STAGE = 2 * TP * RB;  // K, V
   static constexpr int SMEM = NSTAGE * STAGE;
   static_assert(HD % CL == 0 && NS <= 32 && 32 % NS == 0,
                 "lanes per position");
   static_assert(RB % 16 == 0, "16-byte row copies");
-  static_assert(2 * TP <= NT, "one scale copy per thread");
   static_assert(NW * G * (HD + 2) * 4 <= SMEM, "merge area fits the ring");
   static_assert(SMEM <= 48 * 1024, "static shared memory");
+};
+
+// the int8 cache's tiles (walk_int8)
+template <int HD, int G>
+struct Q8Plan {
+  static constexpr int CPR = HD / 16;   // 16-byte chunks of a row
+  static constexpr int ROWS = Q8_TP * HD;  // bytes of K (of V) in a tile
+  static constexpr int STAGE = 2 * ROWS + 2 * 4 * Q8_TP;  // K, V, scales
+  static constexpr int RING = Q8_NSTAGE * STAGE;
+  static constexpr int SMEM = RING + 4 * NW * G * HD;  // then q, kvg rows
+  static constexpr int CHAINS = G == 1 ? 4 : G == 2 ? 2 : 1;  // q.k sums
+  // the warps' states after the loop, at the ring's start (floats)
+  static constexpr int MERGE = NW * G * (HD + 2);
+  // p.v: a lane per position, its own G x HD accumulators summed over
+  // the warp once, after the loop (through shared memory, rows padded to
+  // an odd stride), where they fit; else lanes on 16-byte chunks: lane =
+  // slot x chunk, LPV slots each a position at a time
+  static constexpr int RED = G * HD + 1;  // a lane's row of the sum
+  static constexpr bool ROW_PV =
+      G * HD <= 80 && 4 * (MERGE + NW * 32 * RED) <= RING;
+  static constexpr int LPV = 32 / CPR;
+  static constexpr int NPASS = (32 + LPV - 1) / LPV;  // over 32 positions
+  static_assert(HD % 16 == 0 && CPR <= 8 &&
+                    (CPR % 2 == 1 || (CPR & (CPR - 1)) == 0),
+                "rows of 16-byte chunks, an odd number or a power of two");
+  static_assert(Q8_TP == NT, "a position a thread in a tile's copies");
+  static_assert(4 * MERGE <= RING, "merge area fits the ring");
+  static_assert(SMEM <= 227 * 1024, "dynamic shared memory of a block");
 };
 
 __device__ __forceinline__ void widen(uint32_t w, float& lo, float& hi) {
@@ -160,18 +218,12 @@ __device__ __forceinline__ void unpack(uint32_t w, float* x, __nv_bfloat16) {
   widen(w, x[0], x[1]);
 }
 
-__device__ __forceinline__ void unpack(uint32_t w, float* x, int8_t) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)  // sign-extend byte i
-    x[i] = static_cast<float>(static_cast<int>(w << (24 - 8 * i)) >> 24);
-}
-
-__device__ __forceinline__ float value(float e) { return e; }
-__device__ __forceinline__ float value(__nv_bfloat16 e) {
-  return __bfloat162float(e);
-}
-__device__ __forceinline__ float value(int8_t e) {
-  return static_cast<float>(e);
+template <typename E>
+__device__ __forceinline__ float value(E e) {
+  if constexpr (std::is_same<E, __nv_bfloat16>::value)
+    return __bfloat162float(e);
+  else
+    return e;
 }
 
 // N consecutive elements at p, as fp32: 16-, 8- or 4-byte loads where N
@@ -207,20 +259,48 @@ __device__ __forceinline__ void read_row(const E* p, float (&x)[N]) {
   }
 }
 
-// an fp32 value rounded to T, as PyTorch's cast (round to nearest even)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    return __bfloat162float(__float2bfloat16_rn(x));
-  else
-    return x;
+// the 4 int8 values of w as fp32 without a conversion instruction: each
+// byte, biased to 0..255 (xor 0x80), becomes the low mantissa byte of
+// 2^23 (a byte permute), and one exact subtraction of 2^23 + 128 leaves it
+__device__ __forceinline__ void int8x4_to_float(uint32_t w, float* x) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    x[i] = __fadd_rn(__uint_as_float(__byte_perm(u, 0x4b000000u, 0x7650 | i)),
+                     -8388736.0f);
 }
 
-// a row of the int8 cache read as cache_read(c, T): T(float(q) * s)
-template <typename T, int N>
-__device__ __forceinline__ void dequantize(float (&x)[N], float s) {
+// 16 int8 values read as cache_read(c, T) = T(float(x) * s): the product
+// rounded to fp32 (__fmul_rn, never fused), then, for bf16, to nearest
+// even by one cvt.rn.bf16x2.f32 for two values and widened back
+template <typename T>
+__device__ __forceinline__ void dequant16(const uint4& w, float s,
+                                          float (&x)[16]) {
+  int8x4_to_float(w.x, x);
+  int8x4_to_float(w.y, x + 4);
+  int8x4_to_float(w.z, x + 8);
+  int8x4_to_float(w.w, x + 12);
 #pragma unroll
-  for (int i = 0; i < N; ++i) x[i] = round_to<T>(__fmul_rn(x[i], s));
+  for (int i = 0; i < 16; ++i) x[i] = __fmul_rn(x[i], s);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+#pragma unroll
+    for (int i = 0; i < 16; i += 2) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x[i], x[i + 1]);
+      uint32_t bits;
+      memcpy(&bits, &h, sizeof bits);
+      widen(bits, x[i], x[i + 1]);
+    }
+  }
+}
+
+// byte offset of 16-byte chunk c of row p of an int8 tile: rows of CPR
+// chunks, permuted within the row where CPR is even, so that a
+// quarter-warp's 8 lanes hit distinct banks reading one chunk of 8
+// consecutive rows (q.k) and 8 consecutive chunks (p.v)
+template <int CPR>
+__device__ __forceinline__ int chunk_at(int p, int c) {
+  if constexpr (CPR % 2 == 0) c ^= (p / (8 / CPR)) % CPR;
+  return 16 * (p * CPR + c);
 }
 
 // 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
@@ -260,190 +340,248 @@ __device__ __forceinline__ unsigned ticket_add(unsigned* counter) {
   return old;
 }
 
-// One block per (split, b * KV + kv). part_acc (B*KV, nsplit, G, HD) and
-// part_ml (B*KV, nsplit, G, 2) hold the splits' unnormalised accumulators
-// and (max, denominator), in log2 units; out (B*KV, G, HD). k_scale and
-// v_scale (B, S, KV) are the int8 form's scales (unused otherwise).
-template <typename T, typename E, int HD, int G>
-__global__ void __launch_bounds__(NT, min_blocks(G))
-decode_attn_kernel(const T* __restrict__ q, const E* __restrict__ k,
-                   const E* __restrict__ v,
-                   const float* __restrict__ k_scale,
-                   const float* __restrict__ v_scale,
-                   const int* __restrict__ pos_dev, int pos_host, int S,
-                   int KV, int split_len, float* __restrict__ out,
-                   float* __restrict__ part_acc,
-                   float* __restrict__ part_ml) {
-  using P = Plan<T, E, HD, G>;
-  constexpr int CL = P::CL, NS = P::NS, LP = P::LP, R = P::R, TP = P::TP;
-  __shared__ __align__(16) unsigned char smem[P::SMEM];
-  __shared__ bool is_last;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int row = blockIdx.y, split = blockIdx.x, nsplit = gridDim.x;
-  float* o = out + static_cast<size_t>(row) * G * HD;
-  const int pos = pos_dev ? *pos_dev : pos_host;
-  if (pos < 0 || pos >= S) {  // only a device pos gets here
-    if (split == 0)
-      for (int i = tid; i < G * HD; i += NT)
-        o[i] = __int_as_float(0x7fc00000);  // quiet NaN
-    return;
+// One p.v pass of walk_int8's lanes on 16-byte chunks: slot takes
+// position j = r LPV + slot of the warp's 32 (w: the weights of the lane
+// that scored it), chunk c; weight 0 where j is past 32 or the lane idles
+// (its row j % 32 is read all the same: finite, zeros past pos).
+template <typename T, int HD, int G>
+__device__ __forceinline__ void q8_pv_pass(int r, int slot, int c,
+                                           const float (&w)[G],
+                                           const unsigned char* vt,
+                                           const float* vsc, int wbase,
+                                           float (&acc)[G][16]) {
+  using P = Q8Plan<HD, G>;
+  const int j = r * P::LPV + slot;
+  const bool on = slot < P::LPV && j < 32;
+  float wj[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    wj[g] = __shfl_sync(FULL, w[g], j % 32);
+    wj[g] = on ? wj[g] : 0.0f;
   }
-  const int nact = pos / split_len + 1;  // splits holding a position <= pos
-  if (split >= nact) return;
-  const int begin = split * split_len;
-  const int end = min(begin + split_len, pos + 1);
-  const int ntile = (end - begin + TP - 1) / TP;
-  const int b = row / KV, kv = row % KV;
-  const size_t step = static_cast<size_t>(KV) * HD;  // between positions
-  const size_t row0 = static_cast<size_t>(b) * S * KV + kv;  // position 0
-  const E* kb = k + row0 * HD;
-  const E* vb = v + row0 * HD;
+  float x[16];
+  dequant16<T>(*reinterpret_cast<const uint4*>(
+                   vt + chunk_at<P::CPR>(wbase + j % 32, c)),
+               vsc[wbase + j % 32], x);
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[g][i] = fmaf(wj[g], x[i], acc[g][i]);
+}
 
-  // tile t of the split into slot t % NSTAGE of the ring, as commit group
-  // t (empty past the last tile, so that the count stays in step)
+// Positions begin..end-1 of kvg (1, 2 or 4) consecutive KV heads of
+// one b at once: q their kvg x G rows; kb, vb the int8 values at position
+// 0 of the first head, ks, vs its scales. A tile holds TP / kvg positions
+// of each head, whose rows, kvg x HD bytes a position, lie together in
+// the cache: the copies read them whole. Warp w takes head w % kvg,
+// positions (w / kvg) x 32 .. + 31 of the tile. Ends with each warp's
+// state in smem: accumulators (NW, G, HD), then (m, l) (NW, G, 2), before
+// a barrier.
+template <typename T, int HD, int G>
+__device__ __forceinline__ void walk_int8(const T* __restrict__ q,
+                                          const int8_t* __restrict__ kb,
+                                          const int8_t* __restrict__ vb,
+                                          const float* __restrict__ ks,
+                                          const float* __restrict__ vs,
+                                          int KV, int kvg, int begin, int end,
+                                          unsigned char* smem) {
+  using P = Q8Plan<HD, G>;
+  constexpr int CPR = P::CPR, TP = Q8_TP, NA = P::ROW_PV ? HD : 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int lk = kvg == 4 ? 2 : kvg - 1;  // log2(kvg)
+  const int tph = TP >> lk;               // positions of a head in a tile
+  const int ntile = (end - begin + tph - 1) / tph;
+  const int step = KV * HD;  // between positions (KV * HD * TP < 2^31)
+  float* qs = reinterpret_cast<float*>(smem + P::RING);  // (kvg, G, HD)
+
+  // tile t into slot t % Q8_NSTAGE as commit group t (empty past the
+  // last): K's rows, V's, head by head, then K's scales and V's, a head's
+  // position a thread. Copy j of a thread is chunk e of head hh's row at
+  // position p, the same in every tile; consecutive threads read
+  // consecutive 16 bytes of the cache.
   auto fetch = [&](int t) {
     if (t < ntile) {
-      unsigned char* ks = smem + (t % NSTAGE) * P::STAGE;
-      unsigned char* vs = ks + TP * P::RB;
-      const int t0 = begin + t * TP;
+      unsigned char* kt = smem + (t % Q8_NSTAGE) * P::STAGE;
+      unsigned char* vt = kt + P::ROWS;
+      float* sc = reinterpret_cast<float*>(vt + P::ROWS);
+      const int t0 = begin + t * tph, n = end - t0;  // rows of the tile
+      const size_t base = static_cast<size_t>(t0) * step;
 #pragma unroll
-      for (int j = 0; j < P::NCOPY; ++j) {
-        const int c = tid + j * NT, p = c / P::CPR, e = c % P::CPR;
-        if (TP * P::CPR % NT != 0 && c >= TP * P::CPR) break;
-        const bool in = t0 + p < end;
-        const size_t off = (in ? t0 + p : begin) * step + e * (16 / P::ES);
-        cp_async16(ks + p * P::RB + e * 16, kb + off, in ? 16 : 0);
-        cp_async16(vs + p * P::RB + e * 16, vb + off, in ? 16 : 0);
+      for (int j = 0; j < CPR; ++j) {  // TP * CPR chunks of K and of V
+        const int c = tid + j * NT, e = c % CPR;
+        const int p = (c / CPR) >> lk, hh = (c / CPR) & (kvg - 1);
+        const size_t off = p < n ? base + p * step + hh * HD + 16 * e : 0;
+        const int at = hh * tph * HD + chunk_at<CPR>(p, e);
+        cp_async16(kt + at, kb + off, p < n ? 16 : 0);
+        cp_async16(vt + at, vb + off, p < n ? 16 : 0);
       }
-      if constexpr (P::QUANT) {  // K's scales, then V's, after the V tile
-        if (tid < 2 * TP) {
-          const int p = tid % TP;
-          const bool in = t0 + p < end;
-          const float* sc = tid < TP ? k_scale : v_scale;
-          cp_async4(vs + TP * P::RB + 4 * tid,
-                    sc + row0 + static_cast<size_t>(in ? t0 + p : begin) * KV,
-                    in ? 4 : 0);
-        }
-      }
+      const int p = tid >> lk, hh = tid & (kvg - 1);
+      const size_t off =
+          p < n ? static_cast<size_t>(t0 + p) * KV + hh : 0;
+      cp_async4(sc + hh * tph + p, ks + off, p < n ? 4 : 0);
+      cp_async4(sc + TP + hh * tph + p, vs + off, p < n ? 4 : 0);
     }
     cp_async_commit();
   };
 #pragma unroll
-  for (int t = 0; t < NSTAGE; ++t) fetch(t);  // the whole ring in flight
+  for (int t = 0; t < Q8_NSTAGE; ++t) fetch(t);  // the whole ring in flight
 
-  // lane = position group pg x channel slice sl; q of the slice, scaled
-  const int sl = lane % NS, pg = lane / NS;
   const float qscale = LOG2E / sqrtf(static_cast<float>(HD));
-  float qr[G][CL];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    read_row<T, CL>(q + (static_cast<size_t>(row) * G + g) * HD + sl * CL,
-                    qr[g]);
-#pragma unroll
-    for (int c = 0; c < CL; ++c) qr[g][c] *= qscale;
-  }
-  float m[G], l[G], acc[G][CL];
+  for (int i = tid; i < kvg * G * HD; i += NT)
+    qs[i] = value(q[i]) * qscale;
+  float m[G], l[G], acc[G][NA];  // l: this lane's positions' weights
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < CL; ++c) acc[g][c] = 0.0f;
+    for (int i = 0; i < NA; ++i) acc[g][i] = 0.0f;
   }
-  const int wbase = warp * LP * R;  // this warp's first position of a tile
+  const int h = warp & (kvg - 1);      // this warp's head
+  const int wbase = (warp >> lk) * 32;  // its first position of a tile
+  const int p = wbase + lane;           // this lane's
+  const int hrow = h * tph * HD;        // the head's rows in a tile
+  const float* qh = qs + h * G * HD;
 
   for (int t = 0; t < ntile; ++t) {
-    // NSTAGE + max(t - 1, 0) groups committed: groups 0..t are in (at
-    // t = 0, tile 1 too, which was fetched with tile 0)
-    cp_async_wait<NSTAGE - 2>();
-    __syncthreads();  // tile t is in; every warp is done with tile t - 1
-    if (t > 0) fetch(t - 1 + NSTAGE);  // into tile t - 1's slot
-    const int t0 = begin + t * TP;
+    cp_async_wait<Q8_NSTAGE - 2>();  // as for the bf16 and fp32 cache
+    __syncthreads();  // tile t (and q) is in; every warp is done with t - 1
+    if (t > 0) fetch(t - 1 + Q8_NSTAGE);
+    const int t0 = begin + t * tph;
     if (t0 + wbase >= end) continue;  // the warp's positions lie past pos
-    const unsigned char* ks = smem + (t % NSTAGE) * P::STAGE;
-    const unsigned char* vs = ks + TP * P::RB;
-    const float* ksc = reinterpret_cast<const float*>(vs + TP * P::RB);
+    const unsigned char* kt = smem + (t % Q8_NSTAGE) * P::STAGE + hrow;
+    const unsigned char* vt = kt + P::ROWS;
+    const float* sc = reinterpret_cast<const float*>(
+                          smem + (t % Q8_NSTAGE) * P::STAGE + 2 * P::ROWS) +
+                      h * tph;  // K's scales of the head; V's at + TP
 
-    float s[R][G], mx[G];
+    // q.k, a lane per position: its row in CPR 16-byte reads, q read from
+    // shared memory at one address for the whole warp
+    float d[G][P::CHAINS];
 #pragma unroll
-    for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
+    for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int p = wbase + r * LP + pg;
-      float kx[CL];
-      read_row<E, CL>(reinterpret_cast<const E*>(ks + p * P::RB) + sl * CL,
-                      kx);
-      if constexpr (P::QUANT) dequantize<T>(kx, ksc[p]);
-      const bool valid = t0 + p < end;
+      for (int h = 0; h < P::CHAINS; ++h) d[g][h] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < CPR; ++e) {
+      float x[16];  // zeros past pos
+      dequant16<T>(*reinterpret_cast<const uint4*>(kt + chunk_at<CPR>(p, e)),
+                   sc[p], x);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        float d = 0.0f;
+        const float4* qv =
+            reinterpret_cast<const float4*>(qh + g * HD) + 4 * e;
 #pragma unroll
-        for (int c = 0; c < CL; ++c) d = fmaf(qr[g][c], kx[c], d);
-#pragma unroll
-        for (int off = 1; off < NS; off <<= 1)
-          d += __shfl_xor_sync(FULL, d, off);
-        s[r][g] = valid ? d : -INFINITY;
-        mx[g] = fmaxf(mx[g], s[r][g]);
+        for (int i = 0; i < 4; ++i) {
+          const float4 f = qv[i];
+          constexpr int H = P::CHAINS;
+          d[g][(4 * i) % H] = fmaf(f.x, x[4 * i], d[g][(4 * i) % H]);
+          d[g][(4 * i + 1) % H] =
+              fmaf(f.y, x[4 * i + 1], d[g][(4 * i + 1) % H]);
+          d[g][(4 * i + 2) % H] =
+              fmaf(f.z, x[4 * i + 2], d[g][(4 * i + 2) % H]);
+          d[g][(4 * i + 3) % H] =
+              fmaf(f.w, x[4 * i + 3], d[g][(4 * i + 3) % H]);
+        }
       }
     }
+    const bool valid = t0 + p < end;
+    float w[G];  // this lane's position's weight
 #pragma unroll
     for (int g = 0; g < G; ++g) {
+      float s = d[g][0];
 #pragma unroll
-      for (int off = NS; off < 32; off <<= 1)
-        mx[g] = fmaxf(mx[g], __shfl_xor_sync(FULL, mx[g], off));
+      for (int h = 1; h < P::CHAINS; ++h) s += d[g][h];
+      s = valid ? s : -INFINITY;
+      float mx = s;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
       // finite: the warp's first position of the tile is valid
-      const float mn = fmaxf(m[g], mx[g]);
-      if (mn > m[g]) {  // the same on every lane
-        const float corr = exp2f(m[g] - mn);  // 0 while m is -inf
-        m[g] = mn;
+      if (mx > m[g]) {  // the same on every lane
+        const float corr = exp2f(m[g] - mx);  // 0 while m is -inf
+        m[g] = mx;
         l[g] *= corr;
 #pragma unroll
-        for (int c = 0; c < CL; ++c) acc[g][c] *= corr;
+        for (int i = 0; i < NA; ++i) acc[g][i] *= corr;
       }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        s[r][g] = exp2f(s[r][g] - mn);  // 0 past pos
-        l[g] += s[r][g];
-      }
+      w[g] = exp2f(s - m[g]);  // 0 past pos
+      l[g] += w[g];
     }
+
+    if constexpr (P::ROW_PV) {  // p.v on the lane's own row
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int p = wbase + r * LP + pg;
-      float vx[CL];  // zeros past pos
-      read_row<E, CL>(reinterpret_cast<const E*>(vs + p * P::RB) + sl * CL,
-                      vx);
-      if constexpr (P::QUANT) dequantize<T>(vx, ksc[TP + p]);
+      for (int e = 0; e < CPR; ++e) {
+        float x[16];  // zeros past pos
+        dequant16<T>(
+            *reinterpret_cast<const uint4*>(vt + chunk_at<CPR>(p, e)),
+            sc[TP + p], x);
 #pragma unroll
-      for (int g = 0; g < G; ++g)
+        for (int g = 0; g < G; ++g)
 #pragma unroll
-        for (int c = 0; c < CL; ++c)
-          acc[g][c] = fmaf(s[r][g], vx[c], acc[g][c]);
+          for (int i = 0; i < 16; ++i)
+            acc[g][16 * e + i] = fmaf(w[g], x[i], acc[g][16 * e + i]);
+      }
+    } else {  // lanes on chunks: slot takes positions slot, slot + LPV, ..
+      const int c = lane % CPR, slot = lane / CPR;  // slot LPV: idle lanes
+      const float* vsc = sc + TP;
+      if constexpr (G > 4) {  // one pass at a time: no spills
+#pragma unroll 1
+        for (int r = 0; r < P::NPASS; ++r)
+          q8_pv_pass<T, HD, G>(r, slot, c, w, vt, vsc, wbase, acc);
+      } else {
+#pragma unroll
+        for (int r = 0; r < P::NPASS; ++r)
+          q8_pv_pass<T, HD, G>(r, slot, c, w, vt, vsc, wbase, acc);
+      }
     }
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: it holds the warps' states now
 
-  // sum over the position groups; every lane ends with the warp's totals
+  // the warp's totals: l over its lanes; the accumulators over its lanes
+  // (a lane per position) or over its slots (in slot order where the
+  // slots are not a power of two)
+  float* wacc = reinterpret_cast<float*>(smem);  // (NW, G, HD)
+  float* wml = wacc + NW * G * HD;               // (NW, G, 2)
 #pragma unroll
   for (int g = 0; g < G; ++g) {
 #pragma unroll
-    for (int off = NS; off < 32; off <<= 1) {
+    for (int off = 1; off < 32; off <<= 1)
       l[g] += __shfl_xor_sync(FULL, l[g], off);
-#pragma unroll
-      for (int c = 0; c < CL; ++c)
-        acc[g][c] += __shfl_xor_sync(FULL, acc[g][c], off);
-    }
   }
-  float* wacc = reinterpret_cast<float*>(smem);  // (NW, G, HD)
-  float* wml = wacc + NW * G * HD;               // (NW, G, 2)
-  if (pg == 0) {
+  if constexpr (P::ROW_PV) {
+    float* red = wacc + P::MERGE + warp * 32 * P::RED;  // (32, RED)
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int c = 0; c < CL; ++c)
-        wacc[(warp * G + g) * HD + sl * CL + c] = acc[g][c];
+      for (int i = 0; i < HD; ++i) red[lane * P::RED + g * HD + i] = acc[g][i];
+    __syncwarp();
+    for (int i = lane; i < G * HD; i += 32) {
+      float a = 0.0f;
+#pragma unroll 8
+      for (int from = 0; from < 32; ++from) a += red[from * P::RED + i];
+      wacc[warp * G * HD + i] = a;
+    }
+  } else {
+    const int c = lane % CPR, slot = lane / CPR;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        float a = acc[g][i];
+        if constexpr (CPR * P::LPV == 32) {
+#pragma unroll
+          for (int off = CPR; off < 32; off <<= 1)
+            a += __shfl_xor_sync(FULL, a, off);
+        } else {
+#pragma unroll
+          for (int s = 1; s < P::LPV; ++s)
+            a += __shfl_sync(FULL, acc[g][i], s * CPR + c);
+        }
+        if (slot == 0) wacc[(warp * G + g) * HD + 16 * c + i] = a;
+      }
+    }
   }
   if (lane == 0) {
 #pragma unroll
@@ -452,28 +590,40 @@ decode_attn_kernel(const T* __restrict__ q, const E* __restrict__ k,
       wml[(warp * G + g) * 2 + 1] = l[g];
     }
   }
-  __syncthreads();
+}
 
-  // the block's partial: warps merged in warp order (warp 0 holds the
+// The block's partials from its warps' states (wacc: accumulators (NW, G,
+// HD), then (m, l) (NW, G, 2)): its kvg rows, row0 .. row0 + kvg - 1,
+// warp w holding row w % kvg; each written to out where its row has one
+// active split, else to the scratch, where the row group's last block
+// merges them.
+template <int G, int HD>
+__device__ __forceinline__ void merge(const float* wacc, float* out,
+                                      float* part_acc, float* part_ml,
+                                      int group, int kvg, int split,
+                                      int nsplit, int nact) {
+  __shared__ bool is_last;
+  const int tid = threadIdx.x;
+  const float* wml = wacc + NW * G * HD;
+  // a row's partial: its warps merged in warp order (the first holds the
   // split's first position, so the max is finite)
-  const size_t slot = static_cast<size_t>(row) * nsplit + split;
-  for (int i = tid; i < G * HD; i += NT) {
-    const int g = i / HD;
+  for (int i = tid; i < kvg * G * HD; i += NT) {
+    const int h = i / (G * HD), gi = i % (G * HD), g = gi / HD;
+    const size_t row = static_cast<size_t>(group) * kvg + h;
     float M = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) M = fmaxf(M, wml[(w * G + g) * 2]);
+    for (int w = h; w < NW; w += kvg) M = fmaxf(M, wml[(w * G + g) * 2]);
     float L = 0.0f, O = 0.0f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
+    for (int w = h; w < NW; w += kvg) {
       const float c = exp2f(wml[(w * G + g) * 2] - M);  // 0 for m = -inf
       L = fmaf(c, wml[(w * G + g) * 2 + 1], L);
-      O = fmaf(c, wacc[w * G * HD + i], O);
+      O = fmaf(c, wacc[w * G * HD + gi], O);
     }
     if (nact == 1) {
-      o[i] = O / fmaxf(L, 1e-30f);
+      out[row * G * HD + gi] = O / fmaxf(L, 1e-30f);
     } else {
-      part_acc[slot * G * HD + i] = O;
-      if (i % HD == 0) {
+      const size_t slot = row * nsplit + split;
+      part_acc[slot * G * HD + gi] = O;
+      if (gi % HD == 0) {
         part_ml[(slot * G + g) * 2] = M;
         part_ml[(slot * G + g) * 2 + 1] = L;
       }
@@ -481,24 +631,26 @@ decode_attn_kernel(const T* __restrict__ q, const E* __restrict__ k,
   }
   if (nact == 1) return;
 
-  __syncthreads();  // the block's partial is written
+  __syncthreads();  // the block's partials are written
   if (tid == 0) {
-    // release: the partial (all threads', ordered by the barrier) before
+    // release: the partials (all threads', ordered by the barrier) before
     // the ticket; acquire: the other splits' partials, for the last one
-    const unsigned ticket = ticket_add(&g_tickets[row]);
+    const unsigned ticket = ticket_add(&g_tickets[group]);
     is_last = ticket == static_cast<unsigned>(nact - 1);
-    if (is_last) g_tickets[row] = 0;  // every split has its ticket
+    if (is_last) g_tickets[group] = 0;  // every split has its ticket
   }
   __syncthreads();
   if (!is_last) return;
 
-  // the row's last block: merge its splits in split order, MERGE_GROUP at
-  // a time with their loads in flight together (L2 reads, as other SMs
-  // wrote them), rescaling the running sums by each group's max
-  const float* ml = part_ml + static_cast<size_t>(row) * nsplit * G * 2;
-  const float* pa = part_acc + static_cast<size_t>(row) * nsplit * G * HD;
-  for (int i = tid; i < G * HD; i += NT) {
-    const int g = i / HD;
+  // the group's last block: merge each row's splits in split order,
+  // MERGE_GROUP at a time with their loads in flight together (L2 reads,
+  // as other SMs wrote them), rescaling the running sums by each group's
+  // max
+  for (int i = tid; i < kvg * G * HD; i += NT) {
+    const int h = i / (G * HD), gi = i % (G * HD), g = gi / HD;
+    const size_t row = static_cast<size_t>(group) * kvg + h;
+    const float* ml = part_ml + row * nsplit * G * 2;
+    const float* pa = part_acc + row * nsplit * G * HD;
     float M = -INFINITY, L = 0.0f, O = 0.0f;
     for (int s0 = 0; s0 < nact; s0 += MERGE_GROUP) {
       float mv[MERGE_GROUP], lv[MERGE_GROUP], ov[MERGE_GROUP];
@@ -508,7 +660,8 @@ decode_attn_kernel(const T* __restrict__ q, const E* __restrict__ k,
         const bool in = sp < nact;
         mv[j] = in ? __ldcg(ml + (sp * G + g) * 2) : -INFINITY;
         lv[j] = in ? __ldcg(ml + (sp * G + g) * 2 + 1) : 0.0f;
-        ov[j] = in ? __ldcg(pa + static_cast<size_t>(sp) * G * HD + i) : 0.0f;
+        ov[j] = in ? __ldcg(pa + static_cast<size_t>(sp) * G * HD + gi)
+                   : 0.0f;
       }
       float mg = M;  // finite: split 0 holds position 0
 #pragma unroll
@@ -524,7 +677,313 @@ decode_attn_kernel(const T* __restrict__ q, const E* __restrict__ k,
       }
       M = mg;
     }
-    o[i] = O / fmaxf(L, 1e-30f);
+    out[row * G * HD + gi] = O / fmaxf(L, 1e-30f);
+  }
+}
+
+// The int8 cache: one block per (group of kvg consecutive rows b * KV +
+// kv, split), grid (B*KV / kvg, nsplit); the rest as decode_attn_kernel.
+template <typename T, int HD, int G>
+__device__ __forceinline__ void int8_rows(
+    const T* __restrict__ q, const int8_t* __restrict__ k,
+    const int8_t* __restrict__ v, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ pos_dev,
+    int pos_host, int S, int KV, int kvg, int split_len,
+    float* __restrict__ out, float* __restrict__ part_acc,
+    float* __restrict__ part_ml) {
+  const int tid = threadIdx.x;
+  // the grid runs over the row groups first, so that the groups of one
+  // b, reading the same rows of the cache, run together
+  const int group = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
+  const int row = group * kvg;  // the group's first row
+  const int pos = pos_dev ? *pos_dev : pos_host;
+  if (pos < 0 || pos >= S) {  // only a device pos gets here
+    if (split == 0)
+      for (int i = tid; i < kvg * G * HD; i += NT)
+        out[static_cast<size_t>(row) * G * HD + i] =
+            __int_as_float(0x7fc00000);  // quiet NaN
+    return;
+  }
+  const int nact = pos / split_len + 1;  // splits holding a position <= pos
+  if (split >= nact) return;
+  const int begin = split * split_len;
+  const int end = min(begin + split_len, pos + 1);
+  const size_t row0 =  // (b, position 0, kv) of the group's first row
+      static_cast<size_t>(row / KV) * S * KV + row % KV;
+  const T* qr = q + static_cast<size_t>(row) * G * HD;
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  walk_int8<T, HD, G>(qr, k + row0 * HD, v + row0 * HD, k_scale + row0,
+                      v_scale + row0, KV, kvg, begin, end, dsmem);
+  const float* wacc = reinterpret_cast<const float*>(dsmem);
+  __syncthreads();
+  merge<G, HD>(wacc, out, part_acc, part_ml, group, kvg, split, nsplit,
+               nact);
+}
+
+// One block per (split, b * KV + kv), grid (nsplit, B*KV): the bf16 or
+// fp32 cache, E = T; or, E = int8_t, int8_rows (kvg rows a block). The
+// bf16 and fp32 body shares no code with the int8 one: built from shared
+// walk and merge functions it ran 3-18% slower on the H100 (PERF.md, PR
+// 25).
+// part_acc (B*KV, nsplit, G, HD) and part_ml (B*KV, nsplit, G, 2) hold the
+// splits' unnormalised accumulators and (max, denominator), in log2
+// units; out (B*KV, G, HD). k_scale and v_scale (B, S, KV) are the int8
+// form's scales (unused otherwise).
+template <typename T, typename E, int HD, int G>
+__global__ void __launch_bounds__(NT, min_blocks<E>(G))
+decode_attn_kernel(const T* __restrict__ q, const E* __restrict__ k,
+                   const E* __restrict__ v,
+                   const float* __restrict__ k_scale,
+                   const float* __restrict__ v_scale,
+                   const int* __restrict__ pos_dev, int pos_host, int S,
+                   int KV, int kvg, int split_len, float* __restrict__ out,
+                   float* __restrict__ part_acc,
+                   float* __restrict__ part_ml) {
+  if constexpr (IS_INT8<E>) {
+    int8_rows<T, HD, G>(q, k, v, k_scale, v_scale, pos_dev, pos_host, S, KV,
+                        kvg, split_len, out, part_acc, part_ml);
+    return;
+  } else {
+    using P = Plan<T, HD, G>;
+    constexpr int CL = P::CL, NS = P::NS, LP = P::LP, R = P::R, TP = P::TP;
+    __shared__ __align__(16) unsigned char smem[P::SMEM];
+    __shared__ bool is_last;
+
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int row = blockIdx.y, split = blockIdx.x, nsplit = gridDim.x;
+    float* o = out + static_cast<size_t>(row) * G * HD;
+    const int pos = pos_dev ? *pos_dev : pos_host;
+    if (pos < 0 || pos >= S) {  // only a device pos gets here
+      if (split == 0)
+        for (int i = tid; i < G * HD; i += NT)
+          o[i] = __int_as_float(0x7fc00000);  // quiet NaN
+      return;
+    }
+    const int nact = pos / split_len + 1;  // splits holding a position <= pos
+    if (split >= nact) return;
+    const int begin = split * split_len;
+    const int end = min(begin + split_len, pos + 1);
+    const int ntile = (end - begin + TP - 1) / TP;
+    const int b = row / KV, kv = row % KV;
+    const size_t step = static_cast<size_t>(KV) * HD;  // between positions
+    const size_t row0 = static_cast<size_t>(b) * S * KV + kv;  // position 0
+    const T* kb = k + row0 * HD;
+    const T* vb = v + row0 * HD;
+
+    // tile t of the split into slot t % NSTAGE of the ring, as commit group
+    // t (empty past the last tile, so that the count stays in step)
+    auto fetch = [&](int t) {
+      if (t < ntile) {
+        unsigned char* ks = smem + (t % NSTAGE) * P::STAGE;
+        unsigned char* vs = ks + TP * P::RB;
+        const int t0 = begin + t * TP;
+  #pragma unroll
+        for (int j = 0; j < P::NCOPY; ++j) {
+          const int c = tid + j * NT, p = c / P::CPR, e = c % P::CPR;
+          if (TP * P::CPR % NT != 0 && c >= TP * P::CPR) break;
+          const bool in = t0 + p < end;
+          const size_t off = (in ? t0 + p : begin) * step + e * (16 / P::ES);
+          cp_async16(ks + p * P::RB + e * 16, kb + off, in ? 16 : 0);
+          cp_async16(vs + p * P::RB + e * 16, vb + off, in ? 16 : 0);
+        }
+      }
+      cp_async_commit();
+    };
+  #pragma unroll
+    for (int t = 0; t < NSTAGE; ++t) fetch(t);  // the whole ring in flight
+
+    // lane = position group pg x channel slice sl; q of the slice, scaled
+    const int sl = lane % NS, pg = lane / NS;
+    const float qscale = LOG2E / sqrtf(static_cast<float>(HD));
+    float qr[G][CL];
+  #pragma unroll
+    for (int g = 0; g < G; ++g) {
+      read_row<T, CL>(q + (static_cast<size_t>(row) * G + g) * HD + sl * CL,
+                      qr[g]);
+  #pragma unroll
+      for (int c = 0; c < CL; ++c) qr[g][c] *= qscale;
+    }
+    float m[G], l[G], acc[G][CL];
+  #pragma unroll
+    for (int g = 0; g < G; ++g) {
+      m[g] = -INFINITY;
+      l[g] = 0.0f;
+  #pragma unroll
+      for (int c = 0; c < CL; ++c) acc[g][c] = 0.0f;
+    }
+    const int wbase = warp * LP * R;  // this warp's first position of a tile
+
+    for (int t = 0; t < ntile; ++t) {
+      // NSTAGE + max(t - 1, 0) groups committed: groups 0..t are in (at
+      // t = 0, tile 1 too, which was fetched with tile 0)
+      cp_async_wait<NSTAGE - 2>();
+      __syncthreads();  // tile t is in; every warp is done with tile t - 1
+      if (t > 0) fetch(t - 1 + NSTAGE);  // into tile t - 1's slot
+      const int t0 = begin + t * TP;
+      if (t0 + wbase >= end) continue;  // the warp's positions lie past pos
+      const unsigned char* ks = smem + (t % NSTAGE) * P::STAGE;
+      const unsigned char* vs = ks + TP * P::RB;
+
+      float s[R][G], mx[G];
+  #pragma unroll
+      for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
+  #pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int p = wbase + r * LP + pg;
+        float kx[CL];
+        read_row<T, CL>(reinterpret_cast<const E*>(ks + p * P::RB) + sl * CL,
+                        kx);
+        const bool valid = t0 + p < end;
+  #pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float d = 0.0f;
+  #pragma unroll
+          for (int c = 0; c < CL; ++c) d = fmaf(qr[g][c], kx[c], d);
+  #pragma unroll
+          for (int off = 1; off < NS; off <<= 1)
+            d += __shfl_xor_sync(FULL, d, off);
+          s[r][g] = valid ? d : -INFINITY;
+          mx[g] = fmaxf(mx[g], s[r][g]);
+        }
+      }
+  #pragma unroll
+      for (int g = 0; g < G; ++g) {
+  #pragma unroll
+        for (int off = NS; off < 32; off <<= 1)
+          mx[g] = fmaxf(mx[g], __shfl_xor_sync(FULL, mx[g], off));
+        // finite: the warp's first position of the tile is valid
+        const float mn = fmaxf(m[g], mx[g]);
+        if (mn > m[g]) {  // the same on every lane
+          const float corr = exp2f(m[g] - mn);  // 0 while m is -inf
+          m[g] = mn;
+          l[g] *= corr;
+  #pragma unroll
+          for (int c = 0; c < CL; ++c) acc[g][c] *= corr;
+        }
+  #pragma unroll
+        for (int r = 0; r < R; ++r) {
+          s[r][g] = exp2f(s[r][g] - mn);  // 0 past pos
+          l[g] += s[r][g];
+        }
+      }
+  #pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int p = wbase + r * LP + pg;
+        float vx[CL];  // zeros past pos
+        read_row<T, CL>(reinterpret_cast<const E*>(vs + p * P::RB) + sl * CL,
+                        vx);
+  #pragma unroll
+        for (int g = 0; g < G; ++g)
+  #pragma unroll
+          for (int c = 0; c < CL; ++c)
+            acc[g][c] = fmaf(s[r][g], vx[c], acc[g][c]);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free: it holds the warps' states now
+
+    // sum over the position groups; every lane ends with the warp's totals
+  #pragma unroll
+    for (int g = 0; g < G; ++g) {
+  #pragma unroll
+      for (int off = NS; off < 32; off <<= 1) {
+        l[g] += __shfl_xor_sync(FULL, l[g], off);
+  #pragma unroll
+        for (int c = 0; c < CL; ++c)
+          acc[g][c] += __shfl_xor_sync(FULL, acc[g][c], off);
+      }
+    }
+    float* wacc = reinterpret_cast<float*>(smem);  // (NW, G, HD)
+    float* wml = wacc + NW * G * HD;               // (NW, G, 2)
+    if (pg == 0) {
+  #pragma unroll
+      for (int g = 0; g < G; ++g)
+  #pragma unroll
+        for (int c = 0; c < CL; ++c)
+          wacc[(warp * G + g) * HD + sl * CL + c] = acc[g][c];
+    }
+    if (lane == 0) {
+  #pragma unroll
+      for (int g = 0; g < G; ++g) {
+        wml[(warp * G + g) * 2] = m[g];
+        wml[(warp * G + g) * 2 + 1] = l[g];
+      }
+    }
+    __syncthreads();
+
+    // the block's partial: warps merged in warp order (warp 0 holds the
+    // split's first position, so the max is finite)
+    const size_t slot = static_cast<size_t>(row) * nsplit + split;
+    for (int i = tid; i < G * HD; i += NT) {
+      const int g = i / HD;
+      float M = -INFINITY;
+  #pragma unroll
+      for (int w = 0; w < NW; ++w) M = fmaxf(M, wml[(w * G + g) * 2]);
+      float L = 0.0f, O = 0.0f;
+  #pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const float c = exp2f(wml[(w * G + g) * 2] - M);  // 0 for m = -inf
+        L = fmaf(c, wml[(w * G + g) * 2 + 1], L);
+        O = fmaf(c, wacc[w * G * HD + i], O);
+      }
+      if (nact == 1) {
+        o[i] = O / fmaxf(L, 1e-30f);
+      } else {
+        part_acc[slot * G * HD + i] = O;
+        if (i % HD == 0) {
+          part_ml[(slot * G + g) * 2] = M;
+          part_ml[(slot * G + g) * 2 + 1] = L;
+        }
+      }
+    }
+    if (nact == 1) return;
+
+    __syncthreads();  // the block's partial is written
+    if (tid == 0) {
+      // release: the partial (all threads', ordered by the barrier) before
+      // the ticket; acquire: the other splits' partials, for the last one
+      const unsigned ticket = ticket_add(&g_tickets[row]);
+      is_last = ticket == static_cast<unsigned>(nact - 1);
+      if (is_last) g_tickets[row] = 0;  // every split has its ticket
+    }
+    __syncthreads();
+    if (!is_last) return;
+
+    // the row's last block: merge its splits in split order, MERGE_GROUP at
+    // a time with their loads in flight together (L2 reads, as other SMs
+    // wrote them), rescaling the running sums by each group's max
+    const float* ml = part_ml + static_cast<size_t>(row) * nsplit * G * 2;
+    const float* pa = part_acc + static_cast<size_t>(row) * nsplit * G * HD;
+    for (int i = tid; i < G * HD; i += NT) {
+      const int g = i / HD;
+      float M = -INFINITY, L = 0.0f, O = 0.0f;
+      for (int s0 = 0; s0 < nact; s0 += MERGE_GROUP) {
+        float mv[MERGE_GROUP], lv[MERGE_GROUP], ov[MERGE_GROUP];
+  #pragma unroll
+        for (int j = 0; j < MERGE_GROUP; ++j) {
+          const int sp = s0 + j;
+          const bool in = sp < nact;
+          mv[j] = in ? __ldcg(ml + (sp * G + g) * 2) : -INFINITY;
+          lv[j] = in ? __ldcg(ml + (sp * G + g) * 2 + 1) : 0.0f;
+          ov[j] = in ? __ldcg(pa + static_cast<size_t>(sp) * G * HD + i)
+                     : 0.0f;
+        }
+        float mg = M;  // finite: split 0 holds position 0
+  #pragma unroll
+        for (int j = 0; j < MERGE_GROUP; ++j) mg = fmaxf(mg, mv[j]);
+        const float c = exp2f(M - mg);  // 0 on the first group
+        L *= c;
+        O *= c;
+  #pragma unroll
+        for (int j = 0; j < MERGE_GROUP; ++j) {
+          const float w = exp2f(mv[j] - mg);  // 0 past the last split
+          L = fmaf(w, lv[j], L);
+          O = fmaf(w, ov[j], O);
+        }
+        M = mg;
+      }
+      o[i] = O / fmaxf(L, 1e-30f);
+    }
   }
 }
 
@@ -532,18 +991,34 @@ struct Args {
   const void *q, *k, *v;
   const float *k_scale, *v_scale;
   const int* pos_dev;
-  int pos, S, KV, rows, split_len, nsplit;
+  int pos, S, KV, kvg, groups, split_len, nsplit;
   float *out, *part_acc, *part_ml;
   cudaStream_t stream;
 };
 
 template <typename T, typename E, int HD, int G>
 int launch(const Args& a) {
-  decode_attn_kernel<T, E, HD, G>
-      <<<dim3(a.nsplit, a.rows), NT, 0, a.stream>>>(
+  const auto kernel = decode_attn_kernel<T, E, HD, G>;
+  int smem = 0;
+  if constexpr (IS_INT8<E>) {
+    // the ring is dynamic shared memory, past 48 KB at hd 80: the limit is
+    // raised on the launch's device, with the largest carveout, so that
+    // min_blocks rings fit an SM
+    smem = Q8Plan<HD, G>::SMEM;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid = IS_INT8<E> ? dim3(a.groups, a.nsplit)
+                                : dim3(a.nsplit, a.groups);
+  kernel<<<grid, NT, smem, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const E*>(a.k),
           static_cast<const E*>(a.v), a.k_scale, a.v_scale, a.pos_dev, a.pos,
-          a.S, a.KV, a.split_len, a.out, a.part_acc, a.part_ml);
+          a.S, a.KV, a.kvg, a.split_len, a.out, a.part_acc, a.part_ml);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -585,27 +1060,31 @@ int by_cache(bool is_int8, int HD, int G, const Args& a) {
 // KV) and q bf16 or fp32; contiguous, 16-byte aligned (the scales 4-byte
 // aligned); positions 0..pos attend, pos being *pos_dev
 // (an int32 in device memory) when pos_dev is not null, else pos. Splits of
-// split_len positions cover 0..S-1: nsplit = ceil(S / split_len). Scratch
-// part_acc (B*KV*nsplit*G*HD) and part_ml (B*KV*nsplit*G*2) fp32; out (B,
-// KV, G, HD) fp32, NaN throughout if a device pos lies outside 0..S-1.
-// One launch on `stream`, nothing else; returns its CUDA error, or 0.
+// split_len positions cover 0..S-1: nsplit = ceil(S / split_len). A block
+// takes kvg consecutive KV heads: 1, or for the int8 cache 2 or 4 where
+// they divide KV. Scratch part_acc (B*KV*nsplit*G*HD) and part_ml
+// (B*KV*nsplit*G*2) fp32; out (B, KV, G, HD) fp32, NaN throughout if a
+// device pos lies outside 0..S-1. One launch on `stream`, nothing else;
+// returns its CUDA error, or 0.
 extern "C" int decode_attn(const void* q, const void* k, const void* v,
                            const float* k_scale, const float* v_scale,
                            const int* pos_dev, float* out, float* part_acc,
                            float* part_ml, int B, int S, int KV, int G,
                            int HD, int pos, int split_len, int nsplit,
-                           int is_bf16, int is_int8, void* stream) {
+                           int kvg, int is_bf16, int is_int8, void* stream) {
   const long long rows = static_cast<long long>(B) * KV;
   if (G < 1 || G > MAX_GROUP || S < 1 || rows < 1 || rows > MAX_ROWS ||
       split_len < 1 || nsplit < 1 ||
       static_cast<long long>(nsplit - 1) * split_len >= S ||
       static_cast<long long>(nsplit) * split_len < S ||
       (pos_dev == nullptr && (pos < 0 || pos >= S)) ||
-      (is_int8 && (k_scale == nullptr || v_scale == nullptr)))
+      (is_int8 && (k_scale == nullptr || v_scale == nullptr)) ||
+      !(kvg == 1 || (is_int8 && (kvg == 2 || kvg == 4) && KV % kvg == 0)) ||
+      (is_int8 && nsplit > 65535))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, k_scale, v_scale, pos_dev, pos, S, KV,
-               static_cast<int>(rows), split_len, nsplit, out, part_acc,
-               part_ml, static_cast<cudaStream_t>(stream)};
+  const Args a{q, k, v, k_scale, v_scale, pos_dev, pos, S, KV, kvg,
+               static_cast<int>(rows / kvg), split_len, nsplit, out,
+               part_acc, part_ml, static_cast<cudaStream_t>(stream)};
   return is_bf16 ? by_cache<__nv_bfloat16>(is_int8, HD, G, a)
                  : by_cache<float>(is_int8, HD, G, a);
 }

@@ -2,7 +2,8 @@
 
 ``decode_attn_cuda`` launches ``decode_attn_kernel`` once per call over
 splits of the cache, the last block of each (b, kv) merging its splits
-(it replaces ``repro/kernels/decode_attn/kernel.py::decode_attn_pallas``).
+(it replaces ``repro/kernels/decode_attn/kernel.py::decode_attn_pallas``);
+on an int8 cache a block takes :func:`heads_per_block` KV heads at once.
 It takes CUDA tensors, q, k and v all bf16 or all fp32, or k and v in the
 int8 form ``{"q": int8, "s": fp32 (..., 1)}`` beside a bf16 or fp32 q
 (read as ``cache_read(c, q.dtype)``, without a dequantized copy). It
@@ -30,11 +31,16 @@ LAUNCHES: collections.Counter = collections.Counter()
 MAX_GROUP = 8  # query heads per KV head (the kernel's MAX_GROUP)
 MAX_ROWS = 65535  # B * KV: grid.y and the kernel's tickets
 HEAD_DIMS = (32, 64, 80)
-SPLIT_ALIGN = 64  # positions: a whole number of the kernel's tiles
+SPLIT_ALIGN = 64  # positions: a whole number of the bf16/fp32 body's tiles
+INT8_TILE = 128  # (position, head) rows of the int8 body's tile (Q8_TP)
 MIN_SPLIT, MAX_SPLIT = 128, 1024  # positions of a split
 # blocks over the whole cache, per SM: with the cache half full, about 4
-# hold positions, one wave at the kernel's 4 resident blocks per SM
+# hold positions, one wave at the kernel's 4 resident blocks per SM (the
+# int8 body's too, at G <= 2). On stablelm's int8 cache (128 groups of 4
+# heads) that is splits of 256 positions, chosen on the H100 over 128 and
+# 512
 BLOCKS_PER_SM = 8
+INT8_BLOCKS_PER_SM = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,7 +49,7 @@ _I = ctypes.c_int
 @functools.lru_cache()
 def _lib():
     lib = build.load("decode_attn")
-    lib.decode_attn.argtypes = [_P] * 9 + [_I] * 10 + [_P]
+    lib.decode_attn.argtypes = [_P] * 9 + [_I] * 11 + [_P]
     lib.decode_attn.restype = _I
     return lib
 
@@ -53,14 +59,29 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def split_plan(rows: int, S: int, sms: int):
-    """(split_len, nsplit) for ``rows`` = B*KV query groups over a cache
-    of ``S`` positions, whatever ``pos`` is: about
-    :data:`BLOCKS_PER_SM` thread blocks per SM over the whole cache, splits
-    of :data:`MIN_SPLIT` to :data:`MAX_SPLIT` positions, a multiple of
-    :data:`SPLIT_ALIGN`; they cover 0..S-1 and none starts past it."""
-    per_block = -(-S * rows // (BLOCKS_PER_SM * sms))
-    split_len = -(-per_block // SPLIT_ALIGN) * SPLIT_ALIGN
+def heads_per_block(KV: int, int8: bool) -> int:
+    """KV heads a block of the kernel takes: on the int8 cache 4 (or 2)
+    where they divide ``KV``, whose rows then lie together in the cache,
+    4 x 80 bytes a position at stablelm's head dim; else 1."""
+    if int8:
+        for kvg in (4, 2):
+            if KV % kvg == 0:
+                return kvg
+    return 1
+
+
+def split_plan(rows: int, S: int, sms: int, int8: bool = False):
+    """(split_len, nsplit) for ``rows`` blocks of query groups (B*KV /
+    :func:`heads_per_block`) over a cache of ``S`` positions, whatever
+    ``pos`` is: about :data:`BLOCKS_PER_SM`
+    (an ``int8`` cache: :data:`INT8_BLOCKS_PER_SM`) thread blocks per SM
+    over the whole cache, splits of :data:`MIN_SPLIT` to :data:`MAX_SPLIT`
+    positions, a multiple of :data:`SPLIT_ALIGN` (:data:`INT8_TILE`);
+    they cover 0..S-1 and none starts past it."""
+    per_sm, align = ((INT8_BLOCKS_PER_SM, INT8_TILE) if int8
+                     else (BLOCKS_PER_SM, SPLIT_ALIGN))
+    per_block = -(-S * rows // (per_sm * sms))
+    split_len = -(-per_block // align) * align
     split_len = min(max(split_len, MIN_SPLIT), MAX_SPLIT)
     return split_len, -(-S // split_len)
 
@@ -151,7 +172,9 @@ def decode_attn_cuda(q: torch.Tensor, k, v, pos) -> torch.Tensor:
         pos_ptr, pos = pos.data_ptr(), 0
     else:
         pos_ptr, pos = None, int(pos)
-    split_len, nsplit = split_plan(B * KV, S, _sm_count(q.device))
+    kvg = heads_per_block(KV, ks is not None)
+    split_len, nsplit = split_plan(B * KV // kvg, S, _sm_count(q.device),
+                                   int8=ks is not None)
     with torch.cuda.device(q.device):
         out = torch.empty((B, KV, G, hd), dtype=torch.float32,
                           device=q.device)
@@ -162,7 +185,7 @@ def decode_attn_cuda(q: torch.Tensor, k, v, pos) -> torch.Tensor:
         err = _lib().decode_attn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ks, vs, pos_ptr,
             out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), B, S,
-            KV, G, hd, pos, split_len, nsplit,
+            KV, G, hd, pos, split_len, nsplit, kvg,
             int(q.dtype == torch.bfloat16), int(ks is not None),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:

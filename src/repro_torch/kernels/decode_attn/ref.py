@@ -3,7 +3,8 @@
 the kernel checks; like the reference it works in fp32 whatever the
 input type, and masks positions after ``pos`` with the sentinel -1e30.
 An int8 cache is dequantized first, as the reference model's decode
-reads it."""
+reads it. :func:`dequantize_bits` is the plain twin of the kernel's own
+dequantize arithmetic, which must give those values bit for bit."""
 from __future__ import annotations
 
 import math
@@ -28,3 +29,23 @@ def decode_attn_ref(q: torch.Tensor, k, v, pos) -> torch.Tensor:
     s = torch.where(valid, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bkgs,bskh->bkgh", p, v.float())
+
+
+def dequantize_bits(c, dtype=torch.bfloat16) -> torch.Tensor:
+    """The int8 form ``{"q", "s"}`` read as ``cache_read(c, dtype)`` (bf16
+    or fp32) by the CUDA kernel's arithmetic, in int32 bits: each int8
+    value, biased to 0..255, becomes the low mantissa byte of 2^23 and
+    2^23 + 128 is subtracted (exact); the fp32 product with its scale is
+    rounded to bf16 to nearest even on its bits, the rule of the kernel's
+    ``cvt.rn.bf16x2.f32``. Finite scales only, as the cache holds."""
+    biased = (c["q"].to(torch.int32) & 0xFF) ^ 0x80
+    x = (biased | 0x4B000000).view(torch.float32) - 8388736.0
+    y = x * c["s"]
+    if dtype == torch.float32:
+        return y
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the kernel reads the int8 form as bf16 or fp32, "
+                         f"got {dtype}")
+    bits = y.view(torch.int32)
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & -65536
+    return bits.view(torch.float32).to(torch.bfloat16)

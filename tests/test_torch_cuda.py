@@ -742,6 +742,72 @@ def test_decode_attn_wrapper_rejects_a_malformed_int8_cache(cuda):
     decode_attn_cuda(q, k, v, 5)  # the context is still usable
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attn_int8_at_stablelm_decode_shape(cuda, dtype):
+    """stablelm-3b's whole decode shape (B 16, S 2048, KV 32, G 1, hd 80,
+    pos 1087) on its int8 cache, against the plain version."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    q, k, v = _int8_attn_inputs(cuda, 16, 2048, 32, 1, 80, dtype, seed=11)
+    got = decode_attn_cuda(q, k, v, 1087)
+    want = decode_attn_ref(q, k, v, 1087)
+    assert got.shape == (16, 32, 1, 80)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-5, rtol=1e-4)
+
+
+def _tie_scales(n, seed):
+    """fp32 scales in 1e-8/127 .. 1e6/127 whose low 16 bits are 0x8000:
+    times +-1, +-2 or +-64 each product is a tie of the bf16 rounding."""
+    rng = np.random.default_rng(seed)
+    top = rng.integers(0x2EAD, 0x45F6, n, dtype=np.uint32)
+    return ((top << np.uint32(16)) | np.uint32(0x8000)).view(np.float32)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attn_int8_reads_v_bit_for_bit(cuda, hd, dtype):
+    """At pos 0 the output of every query head is the dequantized V row
+    itself (one weight of exactly 1): all 255 int8 values spread over the
+    channels of 16 rows, against scales whose bf16 rounding ties, equal
+    ``cache_read(v, q's type)`` bit for bit. Values and scales past pos are
+    garbage (NaN scales), never read."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.models.layers import cache_read
+
+    B, S, KV, G = 4, 300, 4, 3
+    rng = np.random.default_rng(hd)
+    values = rng.permutation(np.resize(np.arange(-127, 128), B * KV * hd))
+    q, k, v = _int8_attn_inputs(cuda, B, S, KV, G, hd, dtype, seed=hd)
+    v["q"][:, 0] = torch.from_numpy(values.reshape(B, KV, hd).astype(
+        np.int8)).to(cuda)
+    v["s"][:, 0, :, 0] = torch.from_numpy(_tie_scales(B * KV, hd).reshape(
+        B, KV)).to(cuda)
+    for c in (k, v):
+        c["s"][:, 1:] = float("nan")
+    got = decode_attn_cuda(q, k, v, 0)
+    want = cache_read({n: t[:, :1] for n, t in v.items()}, dtype).float()
+    want = want[:, 0, :, None, :].expand(B, KV, G, hd)
+    assert torch.equal(got.view(torch.int32), want.contiguous().view(
+        torch.int32))
+
+
+@pytest.mark.parametrize("G", range(1, 9))
+@pytest.mark.parametrize("hd", [32, 64, 80])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_int8_is_bitwise_repeatable(cuda, G, hd, dtype):
+    """Every int8 instantiation, over 23 splits merged in order: a second
+    call equals the first bit for bit."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+
+    q, k, v = _int8_attn_inputs(cuda, 4, 3000, 2, G, hd, dtype,
+                                seed=100 + 10 * G + hd)
+    first = decode_attn_cuda(q, k, v, 2900)
+    assert bool(torch.isfinite(first).all())
+    assert torch.equal(decode_attn_cuda(q, k, v, 2900), first)
+
+
 @pytest.mark.parametrize("arch,int8", [("smollm_360m", False),
                                        ("rwkv6_1b6", False),
                                        ("stablelm_3b", True)])

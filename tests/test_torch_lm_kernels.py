@@ -22,8 +22,10 @@ from repro.kernels.decode_attn.ref import decode_attn_ref as ref_oracle
 from repro.kernels.wkv6.ops import wkv6 as ref_wkv6
 from repro.kernels.wkv6.ref import wkv6_ref as ref_wkv6_oracle
 from repro.models.rwkv6 import wkv_chunked as ref_wkv_chunked
-from repro_torch.kernels.decode_attn.kernel import (MAX_SPLIT, MIN_SPLIT,
-                                                    SPLIT_ALIGN, split_plan)
+from repro_torch.kernels.decode_attn.kernel import (INT8_TILE, MAX_SPLIT,
+                                                    MIN_SPLIT, SPLIT_ALIGN,
+                                                    heads_per_block,
+                                                    split_plan)
 from repro_torch.kernels.decode_attn.ops import decode_attn
 from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 from repro_torch.kernels.wkv6.ops import wkv6
@@ -92,20 +94,38 @@ def test_decode_attn_tensor_pos_matches_reference_array_pos(dims, bf16):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
 
 
-@pytest.mark.parametrize("rows,sms", [(80, 132), (640, 132), (1, 132),
-                                      (10, 8), (65535, 132)])
-def test_decode_attn_split_plan_depends_on_the_cache_length_only(rows, sms):
-    """The kernel's grid and scratch come from (B*KV, S, SM count) alone,
-    so one plan (and one captured graph) serves every pos: its splits are
-    whole multiples of the alignment within the length bounds, cover
+_PLAN_SIZES = [(80, 132), (640, 132), (1, 132), (10, 8), (65535, 132)]
+
+
+@pytest.mark.parametrize("rows,sms,int8", [
+    *(pytest.param(r, n, False, id=f"{r}-{n}") for r, n in _PLAN_SIZES),
+    *(pytest.param(r, n, True, id=f"{r}-{n}-int8")
+      for r, n in _PLAN_SIZES + [(128, 132)])])  # stablelm's 4-head groups
+def test_decode_attn_split_plan_depends_on_the_cache_length_only(rows, sms,
+                                                                 int8):
+    """The kernel's grid and scratch come from (blocks of query groups, S,
+    SM count, the cache's type) alone, so one plan (and one captured graph)
+    serves every pos: its splits are whole multiples of the alignment (the
+    int8 body's tile on an int8 cache) within the length bounds, cover
     0..S-1, so that every pos has its split, and none starts past S-1."""
-    assert list(inspect.signature(split_plan).parameters) == ["rows", "S",
-                                                              "sms"]
+    assert list(inspect.signature(split_plan).parameters) == [
+        "rows", "S", "sms", "int8"]
+    align = INT8_TILE if int8 else SPLIT_ALIGN
     for S in range(1, 32769):
-        split_len, nsplit = split_plan(rows, S, sms)
-        assert split_len % SPLIT_ALIGN == 0
+        split_len, nsplit = split_plan(rows, S, sms, int8=int8)
+        assert split_len % align == 0
         assert MIN_SPLIT <= split_len <= MAX_SPLIT
         assert (nsplit - 1) * split_len < S <= nsplit * split_len
+
+
+@pytest.mark.parametrize("KV,int8,kvg", [(32, True, 4), (5, True, 1),
+                                         (2, True, 2), (12, True, 4),
+                                         (32, False, 1), (5, False, 1)])
+def test_decode_attn_heads_per_block_divide_the_kv_heads(KV, int8, kvg):
+    """On an int8 cache a block takes 4 (or 2) KV heads of one b where they
+    divide KV (stablelm-3b's 32: groups of 4); a bf16 or fp32 cache one."""
+    assert heads_per_block(KV, int8) == kvg
+    assert KV % kvg == 0
 
 
 def _wkv_inputs(B, S, H, hd, seed, log_decay=None, zero_s0=False):

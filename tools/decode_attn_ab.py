@@ -1,0 +1,136 @@
+"""Time ``decode_attn`` of two checkouts of this repository on one card,
+in turns (A, B, B, A), at the shapes ``chip_smoke.py`` times it.
+
+    python3 tools/decode_attn_ab.py OTHER_CHECKOUT   # on a CUDA host
+
+A is OTHER_CHECKOUT (for instance the parent commit, unpacked with ``git
+archive`` into a directory that ``.gitignore`` lists), B this checkout.
+Each turn is a process of its own that imports the port from its
+checkout's ``src/`` and builds its library there first; every row is
+checked against that checkout's plain version (atol 1e-5, rtol 1e-4) and
+timed as ``chip_smoke.py`` times it: the device time of a CUDA graph of
+10 calls with a 128 MB read before each, less that read alone, median of
+20. Prints one line per turn and row, then a JSON object with the medians
+of both sides and the card's name and power limit.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+# (row, B, S, KV, G, hd, pos, q's type, int8 cache): chip_smoke.py's
+# decode_attn rows (decode_32k timed alone, without its plain version)
+ROWS = (("path,bf16", 16, 2048, 5, 3, 64, 1087, "bf16", False),
+        ("path,fp32", 16, 2048, 5, 3, 64, 1087, "fp32", False),
+        ("decode_32k,bf16", 128, 32768, 5, 3, 64, 32767, "bf16", False),
+        ("stablelm,bf16", 16, 2048, 32, 1, 80, 1087, "bf16", False),
+        ("stablelm,fp32", 16, 2048, 32, 1, 80, 1087, "fp32", False),
+        ("stablelm,int8", 16, 2048, 32, 1, 80, 1087, "bf16", True),
+        ("smollm,int8", 16, 2048, 5, 3, 64, 1087, "bf16", True))
+L2_FLUSH_BYTES = 128 << 20
+TOL = (1e-5, 1e-4)
+
+
+def _turn(checkout: Path) -> dict:
+    """This process's rows, timed with ``checkout``'s port."""
+    import torch
+
+    sys.path.insert(0, str(checkout / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+    from repro_torch.models.layers import quantize_kv
+
+    build.build(["decode_attn"])
+    scratch = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
+
+    def device_ms(fn, iters=20, reps=10):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        times = []
+        for _ in range(iters):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / reps)
+        return statistics.median(times)
+
+    def cold_ms(fn):
+        def both():
+            scratch.sum()
+            fn()
+        return device_ms(both) - device_ms(scratch.sum)
+
+    out = {}
+    for tag, B, S, KV, G, hd, pos, qtype, int8 in ROWS:
+        dtype = torch.bfloat16 if qtype == "bf16" else torch.float32
+        gen = torch.Generator(device="cuda").manual_seed(S + pos + hd)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   for shape in ((B, KV, G, hd), (B, S, KV, hd),
+                                 (B, S, KV, hd)))
+        q = q.to(dtype)
+        k, v = ((quantize_kv(k), quantize_kv(v)) if int8
+                else (k.to(dtype), v.to(dtype)))
+        got = decode_attn_cuda(q, k, v, pos)
+        if S <= 2048:
+            want = decode_attn_ref(q, k, v, pos)
+            excess = float(((got - want).abs()
+                            - TOL[1] * want.abs()).max())
+            if not bool(torch.isfinite(got).all()) or excess > TOL[0]:
+                raise AssertionError(f"{checkout}: decode_attn[{tag}] "
+                                     f"disagrees with its plain version")
+        out[tag] = cold_ms(lambda: decode_attn_cuda(q, k, v, pos))
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def main(argv):
+    if len(argv) == 3 and argv[1] == "--turn":
+        print(json.dumps(_turn(Path(argv[2]))))
+        return
+    if len(argv) != 2:
+        sys.exit(__doc__)
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("decode_attn_ab: torch.cuda.is_available() is false")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    sides = {"A": Path(argv[1]).resolve(),
+             "B": Path(__file__).resolve().parents[1]}
+    times = {"A": {}, "B": {}}
+    for side in ("A", "B", "B", "A"):
+        run = subprocess.run([sys.executable, __file__, "--turn",
+                              str(sides[side])], capture_output=True,
+                             text=True, timeout=1200)
+        if run.returncode:
+            sys.exit(f"turn {side} failed:\n{run.stderr[-4000:]}")
+        for tag, ms in json.loads(run.stdout.splitlines()[-1]).items():
+            times[side].setdefault(tag, []).append(ms)
+            print(f"{side} decode_attn[{tag}]: {ms:.4f} ms", flush=True)
+    print(json.dumps({"card": card, "A": str(sides["A"]),
+                      "median_ms": {side: {tag: statistics.median(v)
+                                           for tag, v in rows.items()}
+                                    for side, rows in times.items()}}))
+
+
+if __name__ == "__main__":
+    main(sys.argv)
