@@ -6,7 +6,7 @@ check it end to end.
 1. Prints the card's name and power limit, and builds the CUDA kernels
    from ``src/repro_torch/kernels`` with nvcc into ``build/kernels/``,
    logging ptxas's registers and spills; for each of the four
-   ``mbcodec_chunk_kernel``, eight ``wkv6`` and 96 ``decode_attn_kernel``
+   ``mbcodec_chunk_kernel``, eight ``wkv6`` and 128 ``decode_attn_kernel``
    instantiations also its shared memory (and stack frame), and it fails
    on a spill there (or a stack frame in the chunk kernel or
    ``decode_attn``), or if the mbcodec library holds any kernel besides
@@ -159,7 +159,11 @@ check it end to end.
    kernel itself), each L2-flushed with its byte bound, SDPA timed on the
    bf16 and fp32 caches (no library call reads the int8 one), and the
    graph check repeated on the int8 cache; and on an int8 cache at the
-   smollm path's shape (hd 64, G 3; off the path). ``wkv6`` at the rwkv6
+   smollm path's shape (hd 64, G 3; off the path). At hd 128: olmoe-1b-7b's
+   decode shape (B=16, S=2048, KV=16, G=1, pos=1087) on a bf16 cache, with
+   the graph check, and off the path moonshot's (the same on an int8
+   cache) and qwen1.5-110b's (KV=8, G=8, a bf16 and an int8 cache), SDPA
+   timed on each bf16 cache. ``wkv6`` at the rwkv6
    path's prefill (B=16, S=1024, H=32) and decode (S=1) shapes, r, k and v in
    bf16 (as the path passes them) and in fp32, against the reference
    model's chunked form,
@@ -169,12 +173,15 @@ check it end to end.
    over three (the kernel's products), of a decode row at the CUDA-core
    rate.
 11. LM serving at full width, random bf16 weights from a seeded generator:
-   smollm-360m, rwkv6-1.6b and stablelm-3b (its int8 K/V cache) each
+   smollm-360m, rwkv6-1.6b, stablelm-3b (its int8 K/V cache) and
+   olmoe-1b-7b (64 experts, top-8, the MoE layer's dense path; hd 128) each
    prefill 16 prompts of 1024 tokens (``make_prefill_step`` with room for
    2048) and take 64 greedy ``make_decode_step`` steps. The audited run
    must make exactly 32 x 64 ``decode_attn`` launches in the decode steps
-   (smollm, stablelm), and 24 ``wkv6`` launches in the prefill and 24 x
-   64 in the decode steps, with every op on the card and finite logits.
+   (smollm, stablelm; 16 x 64 for olmoe), and 24 ``wkv6`` launches in the
+   prefill and 24 x 64 in the decode steps, with every op on the card and
+   finite logits; olmoe's MoE drop fractions of a prefill and a decode
+   step are logged.
    Then the serving launcher's loop (``repro_torch.launch.serve.
    serve_tokens``) serves the same prompts with the decode step captured
    once as a CUDA graph and replayed at every position, audited over its
@@ -187,7 +194,8 @@ check it end to end.
    between CUDA events). Then, in fp32, the decode logits after a
    256-token prefill must match the full forward pass for 16 steps within
    2e-3 of its largest logit (the reference's property), or 5e-2 with
-   stablelm's int8 cache, which is checked with an fp32 cache too.
+   stablelm's int8 cache, which is checked with an fp32 cache too; olmoe
+   at the dropless capacity factor 8.0, as the reference's test.
 12. Prints one JSON line of the rows at shapes or types the paths do not
    run (launches 0), then the ``{"kernels": [...]}`` line: one row for
    each kernel at each shape and type its path runs, with its launches
@@ -242,11 +250,14 @@ DECODE_ATTN_SOURCE = "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu"
 WKV6_SOURCE = "src/repro_torch/kernels/wkv6/csrc/wkv6.cu"
 # LM serving: batch 16, prompts of 1024 tokens, cache room for 2048, 64
 # greedy steps; decode against forward in fp32 after a 256-token prefill
-LM_ARCHS = ("smollm-360m", "rwkv6-1.6b", "stablelm-3b")
+LM_ARCHS = ("smollm-360m", "rwkv6-1.6b", "stablelm-3b", "olmoe-1b-7b")
 LM_BATCH, LM_PROMPT, LM_MAX_SEQ, LM_STEPS = 16, 1024, 2048, 64
 LM_CHECK_BATCH, LM_CHECK_PREFILL, LM_CHECK_STEPS = 4, 256, 16
 LM_DECODE_REL = 2e-3  # tests/test_models.py's bound
 LM_INT8_REL = 5e-2  # its bound with the int8 cache (test_int8_kv_cache_decode)
+# MoE's capacity factor in the fp32 decode-against-forward check: dropless,
+# so that dispatch does not depend on the batch (tests/test_models.py)
+LM_MOE_DROPLESS_CF = 8.0
 LM_PROFILE_STEPS = 8  # decode steps of each profiled window
 DECODE_32K = (128, 32768)  # the reference's decode_32k cell: batch, length
 ATTN_TOL = (1e-5, 1e-4)  # atol, rtol: the reference's kernel bounds
@@ -1882,8 +1893,10 @@ def _check_close(name, got, want, tol):
 def decode_attn_kernel_phase():
     """``decode_attn`` against its plain version at the smollm decode
     path's shape (bf16 and fp32), at one smollm layer of the reference's
-    decode_32k cell (bf16), and at stablelm-3b's decode shape (hd 80) with
-    a bf16, an fp32 and an int8 cache (q bf16), with
+    decode_32k cell (bf16), at stablelm-3b's decode shape (hd 80) with
+    a bf16, an fp32 and an int8 cache (q bf16), and at hd 128 at
+    olmoe-1b-7b's (bf16), moonshot's (int8) and qwen1.5-110b's (KV 8, G 8,
+    bf16 and int8) shapes, with
     ``scaled_dot_product_attention`` on the same inputs timed as the
     library call (no library call reads the int8 cache)."""
     import torch.nn.functional as F
@@ -1895,7 +1908,9 @@ def decode_attn_kernel_phase():
     bf16, fp32 = torch.bfloat16, torch.float32
     path, last = (LM_BATCH, LM_MAX_SEQ), LM_PROMPT + 63
     # (tag, B, S, KV, G, hd, pos, q's type, int8 cache): smollm-360m's 15
-    # heads over 5 KV heads; stablelm-3b's 32 over 32, hd 80
+    # heads over 5 KV heads; stablelm-3b's 32 over 32, hd 80; at hd 128
+    # olmoe-1b-7b's 16 over 16 (bf16, its path), and off the path
+    # moonshot's 16 over 16 on its int8 cache and qwen1.5-110b's 64 over 8
     cases = (("path,bf16", *path, 5, 3, 64, last, bf16, False),
              ("path,fp32", *path, 5, 3, 64, last, fp32, False),
              ("decode_32k,bf16", *DECODE_32K, 5, 3, 64, DECODE_32K[1] - 1,
@@ -1903,7 +1918,11 @@ def decode_attn_kernel_phase():
              ("stablelm,bf16", *path, 32, 1, 80, last, bf16, False),
              ("stablelm,fp32", *path, 32, 1, 80, last, fp32, False),
              ("stablelm,int8", *path, 32, 1, 80, last, bf16, True),
-             ("smollm,int8", *path, 5, 3, 64, last, bf16, True))
+             ("smollm,int8", *path, 5, 3, 64, last, bf16, True),
+             ("olmoe,bf16", *path, 16, 1, 128, last, bf16, False),
+             ("moonshot,int8", *path, 16, 1, 128, last, bf16, True),
+             ("qwen,bf16", *path, 8, 8, 128, last, bf16, False),
+             ("qwen,int8", *path, 8, 8, 128, last, bf16, True))
     rows = {}
     for tag, B, S, cfg_kv, cfg_g, hd, pos, dtype, int8 in cases:
         gen = torch.Generator(device="cuda").manual_seed(S + pos + hd)
@@ -1955,12 +1974,15 @@ def decode_attn_kernel_phase():
                                cold=not big,
                                library=None if int8 else library,
                                reps=1 if big else 10, moved=moved)
-        if tag == "stablelm,int8":  # SDPA reads no int8 cache: its bf16 time
+        bf16_twin = {"stablelm,int8": "stablelm,bf16",
+                     "moonshot,int8": "olmoe,bf16",
+                     "qwen,int8": "qwen,bf16"}.get(tag)
+        if bf16_twin:  # SDPA reads no int8 cache: its time on the bf16 one
             log(f"  {name}: kernel {rows[name]['ms']:.4f} ms on the int8 "
                 f"cache against SDPA "
-                f"{rows['decode_attn[stablelm,bf16]']['library_ms']:.4f} ms "
+                f"{rows[f'decode_attn[{bf16_twin}]']['library_ms']:.4f} ms "
                 f"on the bf16 cache, L2 flushed ({CARD})")
-        if tag in ("path,bf16", "stablelm,int8"):
+        if tag in ("path,bf16", "stablelm,int8", "olmoe,bf16"):
             _decode_attn_graph_check(q, k, v)
         del q, k, v, qh, kh, vh, want
         torch.cuda.empty_cache()
@@ -2174,21 +2196,22 @@ def _decode_attn_label(fn):
 def decode_attn_build_report(report):
     """Logs each decode_attn instantiation's registers, shared memory, stack
     frame and spills from nvcc's ``-Xptxas -v`` report; fails unless it
-    holds all 96 (q bf16 or fp32, the cache q's type or int8, hd 32, 64,
-    80, G 1..8), none with a spill or a stack frame."""
-    kernels = ptxas_kernels(report)
+    holds all 128 (q bf16 or fp32, the cache q's type or int8, hd 32, 64,
+    80, 128, G 1..8), none with a spill or a stack frame."""
+    kernels, bad = ptxas_kernels(report), []
     for k in kernels:
         label = _decode_attn_label(k["fn"])
         log(f"    {label}: {k['registers']} registers, {k['smem']} B static "
             f"shared memory, {k['stack']} B stack frame, {k['spills']} B "
             f"spilled")
         if k["stack"] is None or k["stack"] or k["spills"]:
-            raise AssertionError(f"{label}: {k['stack']} B stack frame, "
-                                 f"{k['spills']} B spilled (or no ptxas "
-                                 f"report)")
-    if len(kernels) != 96:
+            bad.append(label)
+    if bad:  # every instantiation logged first
+        raise AssertionError(f"a stack frame or spills (or no ptxas "
+                             f"report) in {bad}")
+    if len(kernels) != 128:
         raise AssertionError(f"ptxas reported {len(kernels)} decode_attn "
-                             f"instantiations, not 96")
+                             f"instantiations, not 128")
 
 
 def decode_attn_sass_report():
@@ -2325,7 +2348,8 @@ def _decode_matches_forward(arch, kv_cache_dtype=None):
     LM_CHECK_PREFILL tokens against ``hidden`` + ``logits`` over the whole
     sequence, relative to its largest |logit| (the reference's property:
     within LM_DECODE_REL, or LM_INT8_REL with the int8 cache), with the
-    config's cache or ``kv_cache_dtype``."""
+    config's cache or ``kv_cache_dtype``; MoE at the dropless capacity
+    factor LM_MOE_DROPLESS_CF, as the reference's test runs it."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2334,6 +2358,8 @@ def _decode_matches_forward(arch, kv_cache_dtype=None):
     cfg = get_config(arch)
     if kv_cache_dtype is not None:
         cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_cache_dtype)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=LM_MOE_DROPLESS_CF)
     int8 = cfg.kv_cache_dtype == "int8" and not cfg.attn_free
     bound = LM_INT8_REL if int8 else LM_DECODE_REL
     model = DecoderLM(cfg, torch.float32, torch.float32, device="cuda",
@@ -2349,12 +2375,45 @@ def _decode_matches_forward(arch, kv_cache_dtype=None):
         errs.append((lg[:, 0] - full[:, t]).abs().max())
     rel = float(torch.stack(errs).max() / full.abs().max())
     log(f"  {arch} fp32 decode vs forward ({'int8' if int8 else 'fp32'} "
-        f"cache; batch {LM_CHECK_BATCH}, prefill {LM_CHECK_PREFILL}, "
+        f"cache"
+        + (f", capacity factor {cfg.capacity_factor}" if cfg.n_experts
+           else "")
+        + f"; batch {LM_CHECK_BATCH}, prefill {LM_CHECK_PREFILL}, "
         f"{LM_CHECK_STEPS} steps): max error {rel:.3e} of max |logit| "
         f"(bound {bound})")
     if not rel < bound:
         raise AssertionError(f"{arch}: decode disagrees with the forward "
                              f"pass")
+
+
+def _log_drop_fractions(model, prompt):
+    """The MoE layers' drop fractions at the configured capacity factor in
+    one prefill of ``prompt`` and the decode step after it (logged; the
+    kept set depends on the batch a token rides in)."""
+    from repro_torch.models.moe import MoE
+
+    drops = []
+    hooks = [m.register_forward_hook(
+        lambda _m, _x, out: drops.append(out[1][1]))
+        for m in model.modules() if isinstance(m, MoE)]
+    try:
+        cache, last = model.prefill(prompt, max_seq=LM_MAX_SEQ)
+        prefill = torch.stack(drops).tolist()
+        drops.clear()
+        tok = torch.argmax(last[:, -1], dim=-1).to(torch.int32)
+        model.decode(cache, tok[:, None], prompt.shape[1])
+        decode = torch.stack(drops).tolist()
+    finally:
+        for h in hooks:
+            h.remove()
+    moe = next(m for m in model.modules() if isinstance(m, MoE))
+    T = prompt.numel()
+    log(f"  MoE drop fraction at capacity factor {moe.capacity_factor} "
+        f"(bf16): prefill of {T} tokens (C = {moe.capacity(T)}) mean "
+        f"{statistics.fmean(prefill):.4f}, max {max(prefill):.4f} over "
+        f"{len(prefill)} layers; one decode step of {prompt.shape[0]} "
+        f"tokens (C = {moe.capacity(prompt.shape[0])}) mean "
+        f"{statistics.fmean(decode):.4f}, max {max(decode):.4f}")
 
 
 def _step_bytes(model, cfg, pos):
@@ -2414,7 +2473,9 @@ def lm_serving_phase(rows):
               "rwkv6-1.6b": ("wkv6", {"prefill": "wkv6[prefill,bf16]",
                                       "decode": "wkv6[decode,bf16]"}),
               "stablelm-3b": ("decode_attn",
-                              {"decode": "decode_attn[stablelm,int8]"})}
+                              {"decode": "decode_attn[stablelm,int8]"}),
+              "olmoe-1b-7b": ("decode_attn",
+                              {"decode": "decode_attn[olmoe,bf16]"})}
     for arch in LM_ARCHS:
         cfg = get_config(arch)
         model = DecoderLM(cfg, torch.bfloat16, torch.bfloat16, device="cuda",
@@ -2509,6 +2570,8 @@ def lm_serving_phase(rows):
             f"{bound:.4f} ms at 3.35 TB/s; second runs' tokens identical: "
             f"{same}")
         _profile_serving(model, prompt, LM_PROFILE_STEPS)
+        if cfg.n_experts:
+            _log_drop_fractions(model, prompt)
         device_ms = _profile_graph_steps(timed.graph, LM_PROMPT + 1)
         log(f"  {arch} graph step on the card ({CARD}): {device_ms:.4f} ms "
             f"between CUDA events over {LM_PROFILE_STEPS} replays, "

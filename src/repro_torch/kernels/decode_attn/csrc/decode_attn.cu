@@ -19,7 +19,8 @@
 // us; at the decode_32k shape (B=128, S=32768) 5.37 GB, 1.60 ms. On
 // stablelm-3b's (B=16, KV=32, G=1, hd=80, pos=1087) int8 cache, 84 bytes
 // a row with its scale: 93.6 MB, 27.9 us (a dequantize adds 2 operations
-// a value, still far below the bytes).
+// a value, still far below the bytes). On olmoe-1b-7b's (B=16, KV=16, G=1,
+// hd=128, pos=1087) bf16 cache: 142.6 MB, 42.6 us.
 //
 // Design. The TPU kernel walks S in blocks of 512 on one core, one (b, kv)
 // per grid row, with the running max, denominator and accumulator in VMEM,
@@ -49,13 +50,14 @@
 // 4. A bf16 or fp32 cache: a ring of NSTAGE tiles of about 4 KB of
 //    K in static shared memory. The lanes of a warp split each position's
 //    channels and q (pre-scaled) lives in registers; bf16 is widened to
-//    fp32 in registers where it is used. At hd 32 and 64 a lane reads 16
-//    (or 8) bytes of a row, so the unpadded rows of a tile are read without
-//    bank conflicts; at hd 80 (5 x 16 channels) 8 or 16 lanes share a
-//    position, 10 or 5 channels a lane, read in 8-, 4- or 2-byte pieces.
-//    G is a template parameter (1..8), as hd is (32, 64, 80): the channels
-//    of a lane shrink as G grows, so q and the accumulator stay within
-//    about 2 x QA_REGS registers.
+//    fp32 in registers where it is used. At hd 32, 64 and 128 a lane reads
+//    16 (or 8) bytes of a row, so the unpadded rows of a tile are read
+//    without bank conflicts (at hd 128 16 or 32 lanes share a position, and
+//    a tile holds 16 or 8 positions); at hd 80 (5 x 16 channels) 8 or 16
+//    lanes share a position, 10 or 5 channels a lane, read in 8-, 4- or
+//    2-byte pieces. G is a template parameter (1..8), as hd is (32, 64,
+//    80, 128): the channels of a lane shrink as G grows, so q and the
+//    accumulator stay within about 2 x QA_REGS registers.
 // 5. The int8 cache (walk_int8): the dequantize is most of the work (89 M
 //    values a call on stablelm's path), so it stays off the conversion
 //    pipe, which issues 16 results a clock per SM against 64 to 128 for
@@ -71,17 +73,20 @@
 //    groups of one b read the same stretch of the cache together. A tile
 //    holds Q8_TP = 128 (position, head) rows, a warp taking 32 positions
 //    of one head; a ring of Q8_NSTAGE = 2 tiles in dynamic shared memory
-//    (43 KB at hd 80: four blocks an SM) with the scales beside them by
-//    4-byte cp.async.ca copies. q.k takes a lane per position: the lane
-//    reads its row as 16-byte chunks and q from shared memory (one address
-//    for the whole warp); the row's chunks are permuted where a row holds
-//    an even number of them, so the lanes of a quarter-warp hit distinct
-//    banks. p.v takes the lane's own row too where its G x HD accumulators
-//    fit in registers (G 1 up to hd 80), summed over the warp's lanes once,
-//    after the split; else lanes on channels: lane = slot x chunk (32 /
-//    chunks slots; at hd 80 6 slots of 5 chunks, 2 lanes idle), each slot
-//    a position of the warp at a time, its weights shuffled from the lane
-//    that scored it. No read of the int8 rows is narrower than 16 bytes.
+//    (43 KB at hd 80: four blocks an SM; 69 KB at hd 128: three) with the
+//    scales beside them by 4-byte cp.async.ca copies. q.k takes a lane per
+//    position: the lane reads its row as 16-byte chunks and q from shared
+//    memory (one address for the whole warp); the row's chunks are
+//    permuted where a row holds an even number of them, so the lanes of a
+//    quarter-warp hit distinct banks. p.v takes the lane's own row too
+//    where its G x HD accumulators fit in registers (G 1 up to hd 80),
+//    summed over the warp's lanes once, after the split; else lanes on
+//    channels: lane = slot x chunk (32 / chunks slots; at hd 80 6 slots of
+//    5 chunks, 2 lanes idle), each slot a position of the warp at a time,
+//    its weights shuffled from the lane that scored it. No read of the
+//    int8 rows is narrower than 16 bytes. At hd 128 and G > 4 the 16 G
+//    accumulators of a lane reach the 255-register limit: there the loops
+//    over copies, q.k chunks and p.v passes stay rolled (TIGHT).
 // 6. The grid and the scratch depend on (B*KV, S) and the cache's type
 //    only, never on pos: the wrapper's split plan is a function of them. A
 //    block whose split starts after pos leaves at once, and the merge
@@ -124,24 +129,14 @@ __device__ unsigned int g_tickets[MAX_ROWS];
 template <typename E>
 constexpr bool IS_INT8 = std::is_same<E, int8_t>::value;
 
-// resident blocks per SM, at least (at most 65536 / (NT x this) registers
-// a thread). bf16, fp32 caches: 4, or 3 where G > 6, whose q and
-// accumulators do not fit 128 registers without spills. int8: 4 (44 KB of
-// shared memory a block at hd 80), or 2 where G > 2 (16 G accumulators a
-// lane, and G q.k sums)
-template <typename E>
-constexpr int min_blocks(int G) {
-  return IS_INT8<E> ? (G > 2 ? 2 : 4) : (G > 6 ? 3 : 4);
-}
-
 constexpr int pow2_floor(int x) { return x < 2 ? 1 : 2 * pow2_floor(x / 2); }
 constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
-// channels of a lane, for cache elements of ES bytes. hd 32, 64: 16 bytes
-// of a row, halved until G * CL is within QA_REGS; a quarter-warp then
-// reads 128 contiguous bytes of a tile (a half-warp with 8-byte reads), so
-// unpadded rows do not conflict. hd 80: 10 (8 lanes a position), or 5 (16
-// lanes) where G * 10 would pass QA_REGS
+// channels of a lane, for cache elements of ES bytes. hd 32, 64, 128: 16
+// bytes of a row, halved until G * CL is within QA_REGS; a quarter-warp
+// then reads 128 contiguous bytes of a tile (a half-warp with 8-byte
+// reads), so unpadded rows do not conflict. hd 80: 10 (8 lanes a
+// position), or 5 (16 lanes) where G * 10 would pass QA_REGS
 constexpr int lane_channels(int HD, int ES, int G) {
   if (HD % 5 == 0) return G * 10 <= QA_REGS ? 10 : 5;
   int cl = 16 / ES;
@@ -202,6 +197,23 @@ struct Q8Plan {
   static_assert(4 * MERGE <= RING, "merge area fits the ring");
   static_assert(SMEM <= 227 * 1024, "dynamic shared memory of a block");
 };
+
+// resident blocks per SM, at least (at most 65536 / (NT x this) registers
+// a thread). bf16, fp32 caches: 4, or 3 where G > 6, whose q and
+// accumulators do not fit 128 registers without spills. int8: 4 (44 KB of
+// shared memory a block at hd 80), or 2 where G > 2 (16 G accumulators a
+// lane, and G q.k sums), and never more blocks than the ring and q
+// (Q8Plan::SMEM) let an SM hold: 3 at hd 128, G <= 2 (70 KB a block)
+constexpr int SM_SMEM = 228 * 1024;      // an SM's, at the largest carveout
+constexpr int BLOCK_SMEM_RESERVED = 1024;  // the system's, per block
+template <typename E, int HD, int G>
+constexpr int min_blocks() {
+  if constexpr (IS_INT8<E>)
+    return cmin(G > 2 ? 2 : 4,
+                SM_SMEM / (Q8Plan<HD, G>::SMEM + BLOCK_SMEM_RESERVED));
+  else
+    return G > 6 ? 3 : 4;
+}
 
 __device__ __forceinline__ void widen(uint32_t w, float& lo, float& hi) {
   // a bf16 is the top half of an fp32
@@ -343,8 +355,9 @@ __device__ __forceinline__ unsigned ticket_add(unsigned* counter) {
 // One p.v pass of walk_int8's lanes on 16-byte chunks: slot takes
 // position j = r LPV + slot of the warp's 32 (w: the weights of the lane
 // that scored it), chunk c; weight 0 where j is past 32 or the lane idles
-// (its row j % 32 is read all the same: finite, zeros past pos).
-template <typename T, int HD, int G>
+// (its row j % 32 is read all the same: finite, zeros past pos). TIGHT
+// (hd 128, G > 4, at the register limit): one weight shuffled at a time.
+template <typename T, int HD, int G, bool TIGHT>
 __device__ __forceinline__ void q8_pv_pass(int r, int slot, int c,
                                            const float (&w)[G],
                                            const unsigned char* vt,
@@ -353,20 +366,34 @@ __device__ __forceinline__ void q8_pv_pass(int r, int slot, int c,
   using P = Q8Plan<HD, G>;
   const int j = r * P::LPV + slot;
   const bool on = slot < P::LPV && j < 32;
-  float wj[G];
+  if constexpr (TIGHT) {
+    float x[16];
+    dequant16<T>(*reinterpret_cast<const uint4*>(
+                     vt + chunk_at<P::CPR>(wbase + j % 32, c)),
+                 vsc[wbase + j % 32], x);
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    wj[g] = __shfl_sync(FULL, w[g], j % 32);
-    wj[g] = on ? wj[g] : 0.0f;
+    for (int g = 0; g < G; ++g) {
+      float wj = __shfl_sync(FULL, w[g], j % 32);
+      wj = on ? wj : 0.0f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[g][i] = fmaf(wj, x[i], acc[g][i]);
+    }
+  } else {
+    float wj[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      wj[g] = __shfl_sync(FULL, w[g], j % 32);
+      wj[g] = on ? wj[g] : 0.0f;
+    }
+    float x[16];
+    dequant16<T>(*reinterpret_cast<const uint4*>(
+                     vt + chunk_at<P::CPR>(wbase + j % 32, c)),
+                 vsc[wbase + j % 32], x);
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[g][i] = fmaf(wj[g], x[i], acc[g][i]);
   }
-  float x[16];
-  dequant16<T>(*reinterpret_cast<const uint4*>(
-                   vt + chunk_at<P::CPR>(wbase + j % 32, c)),
-               vsc[wbase + j % 32], x);
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int i = 0; i < 16; ++i) acc[g][i] = fmaf(wj[g], x[i], acc[g][i]);
 }
 
 // Positions begin..end-1 of kvg (1, 2 or 4) consecutive KV heads of
@@ -387,6 +414,9 @@ __device__ __forceinline__ void walk_int8(const T* __restrict__ q,
                                           unsigned char* smem) {
   using P = Q8Plan<HD, G>;
   constexpr int CPR = P::CPR, TP = Q8_TP, NA = P::ROW_PV ? HD : 16;
+  // hd 128 at G > 4: 16 G accumulators a lane at the 255-register limit,
+  // so the copies, q.k and p.v loops stay rolled and hold no more
+  constexpr bool TIGHT = CPR == 8 && G > 4;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int lk = kvg == 4 ? 2 : kvg - 1;  // log2(kvg)
   const int tph = TP >> lk;               // positions of a head in a tile
@@ -406,14 +436,20 @@ __device__ __forceinline__ void walk_int8(const T* __restrict__ q,
       float* sc = reinterpret_cast<float*>(vt + P::ROWS);
       const int t0 = begin + t * tph, n = end - t0;  // rows of the tile
       const size_t base = static_cast<size_t>(t0) * step;
-#pragma unroll
-      for (int j = 0; j < CPR; ++j) {  // TP * CPR chunks of K and of V
+      auto copy = [&](int j) {  // TP * CPR chunks of K and of V
         const int c = tid + j * NT, e = c % CPR;
         const int p = (c / CPR) >> lk, hh = (c / CPR) & (kvg - 1);
         const size_t off = p < n ? base + p * step + hh * HD + 16 * e : 0;
         const int at = hh * tph * HD + chunk_at<CPR>(p, e);
         cp_async16(kt + at, kb + off, p < n ? 16 : 0);
         cp_async16(vt + at, vb + off, p < n ? 16 : 0);
+      };
+      if constexpr (TIGHT) {  // offsets recomputed, not held across tiles
+#pragma unroll 1
+        for (int j = 0; j < CPR; ++j) copy(j);
+      } else {
+#pragma unroll
+        for (int j = 0; j < CPR; ++j) copy(j);
       }
       const int p = tid >> lk, hh = tid & (kvg - 1);
       const size_t off =
@@ -462,8 +498,7 @@ __device__ __forceinline__ void walk_int8(const T* __restrict__ q,
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int h = 0; h < P::CHAINS; ++h) d[g][h] = 0.0f;
-#pragma unroll
-    for (int e = 0; e < CPR; ++e) {
+    auto qk_chunk = [&](int e) {
       float x[16];  // zeros past pos
       dequant16<T>(*reinterpret_cast<const uint4*>(kt + chunk_at<CPR>(p, e)),
                    sc[p], x);
@@ -484,6 +519,13 @@ __device__ __forceinline__ void walk_int8(const T* __restrict__ q,
               fmaf(f.w, x[4 * i + 3], d[g][(4 * i + 3) % H]);
         }
       }
+    };
+    if constexpr (TIGHT) {  // a chunk at a time
+#pragma unroll 1
+      for (int e = 0; e < CPR; ++e) qk_chunk(e);
+    } else {
+#pragma unroll
+      for (int e = 0; e < CPR; ++e) qk_chunk(e);
     }
     const bool valid = t0 + p < end;
     float w[G];  // this lane's position's weight
@@ -528,11 +570,11 @@ __device__ __forceinline__ void walk_int8(const T* __restrict__ q,
       if constexpr (G > 4) {  // one pass at a time: no spills
 #pragma unroll 1
         for (int r = 0; r < P::NPASS; ++r)
-          q8_pv_pass<T, HD, G>(r, slot, c, w, vt, vsc, wbase, acc);
+          q8_pv_pass<T, HD, G, TIGHT>(r, slot, c, w, vt, vsc, wbase, acc);
       } else {
 #pragma unroll
         for (int r = 0; r < P::NPASS; ++r)
-          q8_pv_pass<T, HD, G>(r, slot, c, w, vt, vsc, wbase, acc);
+          q8_pv_pass<T, HD, G, TIGHT>(r, slot, c, w, vt, vsc, wbase, acc);
       }
     }
   }
@@ -730,7 +772,7 @@ __device__ __forceinline__ void int8_rows(
 // units; out (B*KV, G, HD). k_scale and v_scale (B, S, KV) are the int8
 // form's scales (unused otherwise).
 template <typename T, typename E, int HD, int G>
-__global__ void __launch_bounds__(NT, min_blocks<E>(G))
+__global__ void __launch_bounds__(NT, min_blocks<E, HD, G>())
 decode_attn_kernel(const T* __restrict__ q, const E* __restrict__ k,
                    const E* __restrict__ v,
                    const float* __restrict__ k_scale,
@@ -1043,6 +1085,7 @@ int by_head_dim(int HD, int G, const Args& a) {
     case 32: return by_group<T, E, 32>(G, a);
     case 64: return by_group<T, E, 64>(G, a);
     case 80: return by_group<T, E, 80>(G, a);
+    case 128: return by_group<T, E, 128>(G, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -30,7 +30,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 MAX_GROUP = 8  # query heads per KV head (the kernel's MAX_GROUP)
 MAX_ROWS = 65535  # B * KV: grid.y and the kernel's tickets
-HEAD_DIMS = (32, 64, 80)
+HEAD_DIMS = (32, 64, 80, 128)
 SPLIT_ALIGN = 64  # positions: a whole number of the bf16/fp32 body's tiles
 INT8_TILE = 128  # (position, head) rows of the int8 body's tile (Q8_TP)
 MIN_SPLIT, MAX_SPLIT = 128, 1024  # positions of a split

@@ -57,6 +57,15 @@ def _is_state(path) -> bool:
     return "k" not in path and "v" not in path
 
 
+def cache_length(cache) -> Optional[int]:
+    """Positions the cache's K/V buffers hold (the int8 form's too), or
+    None for a cache of recurrent states only."""
+    for path, t in _leaves(cache):
+        if not _is_state(path):
+            return t.shape[1]
+    return None
+
+
 def _kernel_launches() -> collections.Counter:
     from repro_torch.kernels.decode_attn import kernel as dk
     from repro_torch.kernels.wkv6 import kernel as wk
@@ -75,13 +84,16 @@ class DecodeGraph:
     logits were finite. The step is warmed up on a side stream (the
     recurrent states and the token restored after it), then captured;
     ``launches`` counts the port's kernel launches the capture recorded,
-    which every replay repeats."""
+    which every replay repeats. ``max_seq`` is the K/V buffers' length
+    (None for recurrent states only), against which :meth:`replay`
+    checks its ``pos`` on the host."""
 
     def __init__(self, model, cache, token, pos: int):
         dev = token.device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs CUDA tensors, got {dev}")
         self.model = model
+        self.max_seq = cache_length(cache)
         self.cache = _own_states(cache)
         self.token = token.to(torch.int32).reshape(-1, 1).clone()
         self.pos = torch.full((1,), pos, dtype=torch.int32, device=dev)
@@ -117,8 +129,14 @@ class DecodeGraph:
         return logits
 
     def replay(self, pos: int):
-        """The step at ``pos`` (the caller keeps it inside the cache):
-        afterwards ``token`` holds its argmax and ``logits`` its logits."""
+        """The step at ``pos``: afterwards ``token`` holds its argmax and
+        ``logits`` its logits. A ``pos`` outside the K/V cache raises
+        ``IndexError`` before anything reaches the card (the captured step
+        reads ``pos`` there unchecked)."""
+        pos = int(pos)
+        if self.max_seq is not None and not 0 <= pos < self.max_seq:
+            raise IndexError(f"decode at pos {pos} outside a cache of "
+                             f"{self.max_seq} tokens")
         self.pos.fill_(pos)
         self.graph.replay()
         return self.token

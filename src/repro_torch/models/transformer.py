@@ -30,15 +30,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ATTN, MLP, NOFF, RWKV, ArchConfig
+from repro_torch.configs.base import (ATTN, MLP, MOE, NOFF, RWKV,
+                                      ArchConfig)
 from repro_torch.models import layers as L
+from repro_torch.models.moe import MoE
 from repro_torch.models.rwkv6 import RWKV6ChannelMix, RWKV6TimeMix
 
 
 def _unported(what: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP, module "
                                f"9); the port runs ATTN and RWKV mixers "
-                               f"with MLP or channel-mix FFNs")
+                               f"with MLP, MoE or channel-mix FFNs")
 
 
 def _mixer_module(cfg: ArchConfig, kind: str, dtype, device):
@@ -62,6 +64,9 @@ def _ffn_module(cfg: ArchConfig, mixer_kind: str, kind: str, dtype, device):
     if kind == MLP:
         return L.MLP(cfg.d_model, cfg.d_ff, act=cfg.act, dtype=dtype,
                      device=device)
+    if kind == MOE:
+        return MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k,
+                   cfg.capacity_factor, dtype=dtype, device=device)
     raise _unported(f"the {kind!r} FFN")
 
 
@@ -96,18 +101,22 @@ class SubLayer(nn.Module):
                 m.reset(generator)
 
     def _ffn(self, x, state):
-        """x + ffn(norm2(x)), and the FFN's new state (channel-mix) or
-        None."""
+        """x + ffn(norm2(x)), the FFN's new state (channel-mix) or None,
+        and its load-balancing loss (MoE) or None."""
         if self.ffn is None:
-            return x, None
+            return x, None, None
         h = self.norm2(x)
         if isinstance(self.ffn, RWKV6ChannelMix):
             o, st = self.ffn(h, state=state)
-            return x + o, st
-        return x + self.ffn(h), None
+            return x + o, st, None
+        if isinstance(self.ffn, MoE):
+            o, (aux, _drop) = self.ffn(h)
+            return x + o, None, aux
+        return x + self.ffn(h), None, None
 
     def forward(self, x, collect_kv: bool):
-        """Full sequence: (x, this sublayer's cache entry or None)."""
+        """Full sequence: (x, the MoE's load-balancing loss or None, this
+        sublayer's cache entry or None)."""
         kv = {}
         h = self.norm1(x)
         if self.mixer_kind == ATTN:
@@ -119,10 +128,10 @@ class SubLayer(nn.Module):
                 kv["mixer"] = {"k": k, "v": v}
         else:
             o, kv["mixer"] = self.mixer(h)
-        x, st = self._ffn(x + o, None)
+        x, st, aux = self._ffn(x + o, None)
         if st is not None:
             kv["ffn"] = st
-        return x, kv if collect_kv else None
+        return x, aux, kv if collect_kv else None
 
     def decode(self, x, cache, pos):
         """One token x (B, 1, d) at ``pos`` (an int or a device tensor) ->
@@ -135,7 +144,7 @@ class SubLayer(nn.Module):
             nc["mixer"] = {"k": k, "v": v}
         else:
             o, nc["mixer"] = self.mixer(h, state=cache["mixer"])
-        x, st = self._ffn(x + o, cache.get("ffn"))
+        x, st, _aux = self._ffn(x + o, cache.get("ffn"))
         if st is not None:
             nc["ffn"] = st
         return x, nc
@@ -162,14 +171,19 @@ class Stack(nn.Module):
                 sub.reset(generator)
 
     def forward(self, x, collect_kv: bool = False):
-        """x (B, S, d) -> (x, per-block caches or None)."""
+        """x (B, S, d) -> (x, the MoE sublayers' load-balancing losses
+        summed in block order (fp32, 0 without MoE), per-block caches or
+        None)."""
         kvs = []
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.blocks:
             kv = {}
             for name, sub in block.items():
-                x, kv[name] = sub(x, collect_kv)
+                x, aux, kv[name] = sub(x, collect_kv)
+                if aux is not None:
+                    total = total + aux
             kvs.append(kv)
-        return x, kvs if collect_kv else None
+        return x, total, kvs if collect_kv else None
 
     def decode_step(self, x, cache, pos):
         """x (B, 1, d) at ``pos`` (an int or a device tensor) -> (x, new
@@ -235,7 +249,8 @@ class Stack(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """Decoder-only LM for the dense (ATTN + MLP) and RWKV families.
+    """Decoder-only LM for the dense (ATTN + MLP), MoE (ATTN + MoE) and
+    RWKV families.
 
     Parameters are held in ``param_dtype`` (the reference's fp32 norm,
     mix, decay and bonus parameters stay fp32) and drawn at construction
@@ -278,11 +293,12 @@ class DecoderLM(nn.Module):
     # ---- forward ----------------------------------------------------------
     @torch.no_grad()
     def hidden(self, tokens, collect_kv: bool = False):
-        """tokens (B, S) int -> (h (B, S, d), aux loss (0: no MoE), kvs)."""
+        """tokens (B, S) int -> (h (B, S, d), the MoE sublayers' summed
+        load-balancing loss (0 without MoE), kvs)."""
         x = self.embed(tokens, self.compute_dtype)
-        x, kvs = self.stack(x, collect_kv=collect_kv)
+        x, aux, kvs = self.stack(x, collect_kv=collect_kv)
         x = self.final_norm(x)
-        return x, torch.zeros((), device=x.device), kvs
+        return x, aux, kvs
 
     @torch.no_grad()
     def logits(self, h):

@@ -808,9 +808,151 @@ def test_decode_attn_int8_is_bitwise_repeatable(cuda, G, hd, dtype):
     assert torch.equal(decode_attn_cuda(q, k, v, 2900), first)
 
 
+# head dim 128 (olmoe-1b-7b's KV 16, G 1 on a bf16 cache; moonshot's int8
+# cache; qwen's KV 8, G 8): the same bound against the plain version
+@pytest.mark.parametrize("dims", [
+    (2, 2048, 16, 1, 128, 1087),  # olmoe's decode shape, batch cut to 2
+    (2, 2048, 8, 8, 128, 1087),   # qwen's G=8
+    (3, 1000, 2, 3, 128, 0),      # only position 0
+    (1, 777, 1, 5, 128, 300),     # pos inside a tile
+    (2, 4500, 4, 2, 128, 4321)])  # several splits
+@pytest.mark.parametrize("cache", ["bf16", "fp32", "int8,bf16", "int8,fp32"])
+def test_decode_attn_at_head_dim_128_matches_plain_version(cuda, dims,
+                                                           cache):
+    from repro_torch.kernels.decode_attn import kernel as dk
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    B, S, KV, G, hd, pos = dims
+    dtype = torch.bfloat16 if cache.endswith("bf16") else torch.float32
+    make = _int8_attn_inputs if cache.startswith("int8") else _attn_inputs
+    q, k, v = make(cuda, B, S, KV, G, hd, dtype, seed=S + G + 1)
+    before = dk.LAUNCHES["decode_attn"]
+    got = decode_attn(q, k, v, pos)
+    assert dk.LAUNCHES["decode_attn"] == before + 1
+    want = decode_attn_ref(q, k, v, pos)
+    assert got.dtype == torch.float32 and got.shape == (B, KV, G, hd)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("G", range(1, 9))
+@pytest.mark.parametrize("cache", ["bf16", "fp32", "int8,bf16", "int8,fp32"])
+def test_decode_attn_head_dim_128_takes_every_group_and_cache(cuda, G,
+                                                              cache):
+    """Each of the 32 hd-128 instantiations, over 12 splits merged in
+    order: within the bound of the plain version, finite, and a second call
+    equal to the first bit for bit."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    dtype = torch.bfloat16 if cache.endswith("bf16") else torch.float32
+    make = _int8_attn_inputs if cache.startswith("int8") else _attn_inputs
+    q, k, v = make(cuda, 3, 3000, 2, G, 128, dtype, seed=200 + G)
+    first = decode_attn_cuda(q, k, v, 2900)
+    assert bool(torch.isfinite(first).all())
+    np.testing.assert_allclose(
+        first.cpu().numpy(), decode_attn_ref(q, k, v, 2900).cpu().numpy(),
+        atol=1e-5, rtol=1e-4)
+    assert torch.equal(decode_attn_cuda(q, k, v, 2900), first)
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8,bf16"])
+def test_decode_attn_head_dim_128_graph_replays_at_device_positions(cuda,
+                                                                   cache):
+    """olmoe's layer (KV 16, G 1) and moonshot's int8 one at hd 128: a
+    captured call replayed at device positions equals eager calls bit for
+    bit and the plain version within the bound; what lies past pos is
+    never read; a device pos past the cache gives NaN."""
+    from repro_torch.kernels.decode_attn import kernel as dk
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    make = _int8_attn_inputs if cache.startswith("int8") else _attn_inputs
+    q, k, v = make(cuda, 4, 2048, 16, 1, 128, torch.bfloat16, seed=12)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda)
+    dk.decode_attn_cuda(q, k, v, pos)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dk.decode_attn_cuda(q, k, v, pos)
+    for p in (1087, 0, 255, 256, 2047):
+        pos.fill_(p)
+        graph.replay()
+        assert torch.equal(out, dk.decode_attn_cuda(q, k, v, p))
+        np.testing.assert_allclose(
+            out.cpu().numpy(), decode_attn_ref(q, k, v, p).cpu().numpy(),
+            atol=1e-5, rtol=1e-4)
+    clean = dk.decode_attn_cuda(q, k, v, 700)
+    if isinstance(k, dict):
+        for c in (k, v):
+            c["q"][:, 701:] = 127
+            c["s"][:, 701:] = float("nan")
+    else:
+        k[:, 701:], v[:, 701:] = float("inf"), float("nan")
+    assert torch.equal(dk.decode_attn_cuda(q, k, v, 700), clean)
+    pos.fill_(2048)
+    graph.replay()
+    assert bool(out.isnan().all())
+
+
+def _moe_pair(cuda, dtype, seed=0):
+    """The same MoE on the CPU and on the card (olmoe-reduced's sizes)."""
+    from repro_torch.models.moe import MoE
+
+    cpu = MoE(128, 64, 8, 2, dtype=dtype, device="cpu")
+    cpu.reset(torch.Generator().manual_seed(seed))
+    card = MoE(128, 64, 8, 2, dtype=dtype, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+@pytest.mark.parametrize("T", [(16, 1), (4, 64)])
+def test_moe_on_the_card_matches_the_cpu(cuda, T):
+    """fp32: the card's output within atol 1e-5 of the CPU's on the same
+    weights and inputs, aux and drop within 1e-6; the same bits twice
+    eagerly and from a captured CUDA graph (no atomics, no host sync)."""
+    cpu, card = _moe_pair(cuda, torch.float32)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (*T, 128)).astype(np.float32))
+    with torch.no_grad():
+        want, (aux, drop) = cpu(x)
+        xc = x.to(cuda)
+        got, (caux, cdrop) = card(xc)
+        again = card(xc)[0]
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed, _ = card(xc)
+        graph.replay()
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-4)
+    assert abs(float(caux) - float(aux)) <= 1e-6
+    assert abs(float(cdrop) - float(drop)) <= 1e-6
+    assert torch.equal(again, got) and torch.equal(replayed, got)
+
+
+def test_moe_on_the_card_keeps_tied_tokens_as_the_cpu(cuda):
+    """One token repeated 24 times: every gate ties at each of its experts,
+    which keep the lowest C token ids on the card as on the CPU."""
+    cpu, card = _moe_pair(cuda, torch.float32, seed=3)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (1, 1, 128)).astype(np.float32)).expand(1, 24, 128).contiguous()
+    with torch.no_grad():
+        want = cpu(x)[0]
+        got = card(x.to(cuda))[0].cpu()
+    C = cpu.capacity(24)
+    kept = torch.nonzero(got[0].abs().amax(-1) > 0).flatten()
+    assert kept.tolist() == list(range(C))
+    assert torch.equal(kept, torch.nonzero(
+        want[0].abs().amax(-1) > 0).flatten())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-4)
+
+
 @pytest.mark.parametrize("arch,int8", [("smollm_360m", False),
                                        ("rwkv6_1b6", False),
-                                       ("stablelm_3b", True)])
+                                       ("stablelm_3b", True),
+                                       ("olmoe_1b_7b", False)])
 def test_graph_decode_equals_eager_decode(cuda, arch, int8):
     """The serving launcher's captured step replayed at every position gives
     the eager loop's tokens (reduced configs, bf16, random weights); the

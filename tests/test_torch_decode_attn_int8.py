@@ -113,7 +113,9 @@ def test_dequantize_twin_takes_bf16_or_fp32_only():
 
 @pytest.mark.parametrize("dims", [(2, 384, 4, 1, 80),   # stablelm's G=1
                                   (2, 384, 2, 3, 80),
-                                  (2, 384, 2, 3, 64)])  # smollm's G=3
+                                  (2, 384, 2, 3, 64),   # smollm's G=3
+                                  (2, 384, 4, 1, 128),  # moonshot's G=1
+                                  (1, 384, 2, 8, 128)])  # qwen's G=8
 @pytest.mark.parametrize("pos", [0, 200, 383])  # first, inside a tile, last
 @pytest.mark.parametrize("bf16", [True, False])
 def test_plain_int8_attention_matches_reference(dims, pos, bf16):

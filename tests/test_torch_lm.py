@@ -1,14 +1,19 @@
 """The port's LM serving path against the reference, on the CPU.
 
-Both reduced configurations (smollm-reduced: GQA with G=3, hd 32;
-rwkv6-reduced: hd 32) in fp32, with the reference's weights from
+The reduced configurations (smollm-reduced: GQA with G=3, hd 32;
+rwkv6-reduced: hd 32; olmoe-reduced: MoE of 8 experts, top-2, hd 32) in
+fp32, with the reference's weights from
 ``model.init(PRNGKey(0))`` carried across by ``lm_from_numpy`` and tokens
 from numpy seeds. On CPU tensors the model's grouped decode attention and
 WKV take the kernels' plain versions. Bounds: logits within 1e-4 of the
 reference's largest |logit| (fp32, sums in other orders); caches and
 states atol 1e-5, rtol 1e-4; decode against the full forward within the
-reference's own 2e-3 relative bound (``tests/test_models.py``).
+reference's own 2e-3 relative bound (``tests/test_models.py``), MoE at
+its dropless capacity factor 8.0 as there; the summed MoE load-balancing
+loss within 1e-6 of the reference's.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +30,7 @@ from repro_torch.models import layers as L
 from repro_torch.serve import steps
 from repro_torch.weights import lm_from_numpy, lm_to_numpy
 
-ARCHS = ["smollm_360m", "rwkv6_1b6"]
+ARCHS = ["smollm_360m", "rwkv6_1b6", "olmoe_1b_7b"]
 B, S, S1 = 2, 8, 4
 LOGIT_REL = 1e-4
 STATE_TOL = dict(atol=1e-5, rtol=1e-4)
@@ -81,10 +86,12 @@ def _port_flat_cache(cache):
 def test_forward_matches_reference(pair):
     ref, params, port = pair
     tokens = _tokens(port.cfg, 0)
-    h, _, _ = ref.hidden(params, jnp.asarray(tokens))
+    h, ref_aux, _ = ref.hidden(params, jnp.asarray(tokens))
     want = ref.logits(params, h)
     th, aux, kvs = port.hidden(_t(tokens))
-    assert kvs is None and float(aux) == 0.0
+    assert kvs is None and aux.dtype == torch.float32
+    assert abs(float(aux) - float(ref_aux)) <= 1e-6
+    assert (float(aux) > 0) == bool(port.cfg.n_experts)
     np.testing.assert_allclose(th.numpy(), np.asarray(h), atol=1e-5,
                                rtol=1e-4)
     _close_logits(port.logits(th), want, float(jnp.abs(want).max()))
@@ -145,24 +152,33 @@ def test_greedy_generate_matches_reference(pair):
     """The same generated tokens. Token identity is only well posed where
     the top two logits are apart, so the seed's margins are checked to
     exceed 1e-3 at every generated position (the logits agree to ~1e-6
-    here)."""
+    here), on the logits the loop itself decoded: token by token (with
+    MoE a forward pass over the whole sequence routes other batches)."""
     ref, params, port = pair
     prompt, n_new = _tokens(port.cfg, 5, (B, 5)), 4
     got = steps.greedy_generate(port, _t(prompt), n_new)
     want = ref_steps.greedy_generate(ref, params, jnp.asarray(prompt), n_new)
     assert got.shape == (B, n_new)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    seq = np.concatenate([prompt, got.numpy().astype(np.int32)], axis=1)
-    h, _, _ = port.hidden(_t(seq[:, :-1]))
-    top2 = torch.topk(port.logits(h)[:, prompt.shape[1] - 1:], 2).values
+    seq = _t(np.concatenate([prompt, got.numpy().astype(np.int32)], axis=1))
+    cache, logits = port.init_cache(B, seq.shape[1]), []
+    for t in range(seq.shape[1] - 1):
+        cache, lg = port.decode(cache, seq[:, t:t + 1], t)
+        logits.append(lg)
+    top2 = torch.topk(torch.cat(logits, 1)[:, prompt.shape[1] - 1:],
+                      2).values
     assert float((top2[..., 0] - top2[..., 1]).min()) > 1e-3
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_forward(arch):
     """The port alone, as the reference's test_decode_matches_forward:
-    prefill S1 tokens, decode the rest, against the full forward pass."""
+    prefill S1 tokens, decode the rest, against the full forward pass (MoE
+    at the dropless capacity factor, so that dispatch does not depend on
+    the batch)."""
     cfg = get_reduced_config(arch)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
     model = DecoderLM(cfg, compute_dtype=torch.float32, device="cpu",
                       generator=torch.Generator().manual_seed(0))
     tokens = _t(_tokens(cfg, 3))

@@ -56,11 +56,13 @@ def _torch(a):
                                   (1, 1024, 4, 8, 64, 700),
                                   (2, 96, 1, 2, 16, 40),
                                   (2, 200, 5, 3, 64, 0),   # smollm's G=3
-                                  (1, 128, 2, 2, 32, 100)])
+                                  (1, 128, 2, 2, 32, 100),
+                                  (2, 256, 2, 1, 128, 200),  # olmoe's G=1
+                                  (1, 192, 2, 8, 128, 191)])  # qwen's G=8
 @pytest.mark.parametrize("bf16", [False, True])
 def test_decode_attn_plain_matches_reference(dims, bf16):
     """Against the reference's oracle and its kernel in interpret mode (the
-    reference's test shapes, plus G=3 at pos 0)."""
+    reference's test shapes, plus G=3 at pos 0, and hd 128 at G 1 and 8)."""
     B, S, KV, G, hd, pos = dims
     q, k, v = _attn_inputs(B, S, KV, G, hd, seed=S, bf16=bf16)
     got = decode_attn(*map(_torch, (q, k, v)), pos)
@@ -76,7 +78,8 @@ def test_decode_attn_plain_matches_reference(dims, bf16):
 
 @pytest.mark.parametrize("dims", [(2, 256, 2, 4, 32, 255),
                                   (1, 1024, 4, 8, 64, 700),
-                                  (2, 200, 5, 3, 64, 0)])
+                                  (2, 200, 5, 3, 64, 0),
+                                  (2, 256, 4, 1, 128, 100)])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_decode_attn_tensor_pos_matches_reference_array_pos(dims, bf16):
     """``pos`` as a one-element int32 tensor against the reference's kernel

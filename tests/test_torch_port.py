@@ -21,6 +21,7 @@ from repro_torch.core.training import accmodel_init
 from repro_torch.engine import EngineConfig, StreamingEngine
 from repro_torch.models import DecoderLM, Stack
 from repro_torch.models import layers as L
+from repro_torch.models.moe import MoE
 from repro_torch.models.rwkv6 import RWKV6ChannelMix, RWKV6TimeMix
 from repro_torch.serve.tenants import TenantSpec
 from repro_torch.vision.dnn import FinalDNN, render_detection_targets
@@ -70,7 +71,8 @@ def test_port_files_exist():
                    "serve/tenants.py", "checkpoint/__init__.py",
                    "checkpoint/manager.py", "configs/stablelm_3b.py",
                    "obs/profiler.py", "launch/__init__.py",
-                   "launch/serve.py"):
+                   "launch/serve.py", "models/moe.py",
+                   "configs/olmoe_1b_7b.py"):
         assert f"src/repro_torch/{module}" in names
     assert "chip_smoke.py" in names
     for source in ("mbcodec/csrc/mbcodec.cu",
@@ -154,6 +156,7 @@ _LM_MODULES = {
     "Norm": lambda **kw: L.Norm(8, "layernorm", **kw),
     "Attention": lambda **kw: L.Attention(8, 2, 1, 4, **kw),
     "MLP": lambda **kw: L.MLP(8, 16, **kw),
+    "MoE": lambda **kw: MoE(8, 16, 4, 2, **kw),
     "RWKV6TimeMix": lambda **kw: RWKV6TimeMix(8, 4, 2, 2, **kw),
     "RWKV6ChannelMix": lambda **kw: RWKV6ChannelMix(8, 16, **kw),
 }
@@ -171,12 +174,11 @@ def test_lm_modules_default_to_cuda_and_refuse_without_it(name):
 
 def test_lm_rejects_unported_archs_and_layers():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("olmoe-1b-7b")
+        get_config("moonshot-v1-16b-a3b")
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt-5")
     cfg = get_reduced_config("smollm_360m")
     for bad in (dict(block_pattern=(("mamba", "mlp"),)),
-                dict(block_pattern=(("attn", "moe"),)),
                 dict(enc_dec=True), dict(cross_attn_every=5)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DecoderLM(dataclasses.replace(cfg, **bad), device="cpu")

@@ -42,7 +42,7 @@ STATE_TOL = dict(atol=1e-5, rtol=1e-4)
 # reference test's arch)
 INT8_CASES = [("stablelm_3b", False), ("stablelm_3b", True),
               ("smollm_360m", True)]
-SERVE_ARCHS = ["smollm_360m", "rwkv6_1b6", "stablelm_3b"]
+SERVE_ARCHS = ["smollm_360m", "rwkv6_1b6", "stablelm_3b", "olmoe_1b_7b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -322,6 +322,29 @@ def test_serve_loop_checks_the_position_on_the_host():
         serve.serve_tokens(port, prompts, 3, max_seq=7)
     with pytest.raises(ValueError, match="CUDA"):
         serve.DecodeGraph(port, port.init_cache(B, 8), prompts[:, :1], 6)
+
+
+@pytest.mark.parametrize("arch,length", [("smollm_360m", 8),
+                                         ("stablelm_3b", 8),
+                                         ("rwkv6_1b6", None)])
+def test_decode_graph_replay_checks_the_position_on_the_host(arch, length):
+    """``DecodeGraph.replay`` refuses a ``pos`` outside the K/V cache known
+    at capture (the int8 form's too) before any call reaches the card; a
+    cache of recurrent states only has no length to check. The object is
+    built without a capture, whose CUDA graph this host cannot make."""
+    cfg = _configs(arch, arch == "stablelm_3b")[1]
+    model = DecoderLM(cfg, compute_dtype=torch.float32, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    assert serve.cache_length(model.init_cache(B, 8)) == length
+    graph = object.__new__(serve.DecodeGraph)
+    graph.max_seq = serve.cache_length(model.init_cache(B, 8))
+    graph.pos = torch.zeros(1, dtype=torch.int32)
+    if length is None:
+        return
+    for bad in (8, 9, -1):
+        with pytest.raises(IndexError, match="outside a cache of 8"):
+            graph.replay(bad)
+    assert int(graph.pos) == 0  # nothing was written
 
 
 def test_main_serves_on_the_cpu_and_refuses_the_multi_mesh(capsys, tmp_path,
