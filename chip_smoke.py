@@ -12,9 +12,10 @@ check it end to end.
    ``decode_attn``), or if the mbcodec library holds any kernel besides
    the four chunk kernel instantiations. It logs each of those four's SASS
    instruction count and top opcodes (``cuobjdump``), and those of
-   ``decode_attn_kernel<bf16, int8_t, 80, 1>`` (stablelm-3b's int8 read)
-   with its conversions (I2F, F2F, F2FP) and shared-memory loads by
-   width.
+   ``decode_attn_kernel<bf16, int8_t, 80, 1>`` (stablelm-3b's int8 read),
+   ``<bf16, int8_t, 128, 1>`` (moonshot-v1-16b-a3b's, on the tensor
+   cores) and ``<bf16, int8_t, 64, 3>`` with their conversions (I2F, F2F,
+   F2FP), shared-memory loads by width and tensor-core products.
 2. Kernel phase: each mbcodec entry point (``mbcodec_frame``, the chunk
    kernel at T = 1; ``mbcodec_chunk`` with and without the reference
    clip; ``mbcodec_chunk_scores`` with and without it) runs at its path's
@@ -161,9 +162,10 @@ check it end to end.
    graph check repeated on the int8 cache; and on an int8 cache at the
    smollm path's shape (hd 64, G 3; off the path). At hd 128: olmoe-1b-7b's
    decode shape (B=16, S=2048, KV=16, G=1, pos=1087) on a bf16 cache, with
-   the graph check, and off the path moonshot's (the same on an int8
-   cache) and qwen1.5-110b's (KV=8, G=8, a bf16 and an int8 cache), SDPA
-   timed on each bf16 cache. ``wkv6`` at the rwkv6
+   the graph check, moonshot-v1-16b-a3b's (the same on an int8 cache,
+   the tensor-core int8 body; with the graph check), and off the path
+   qwen1.5-110b's (KV=8, G=8, a bf16 and an int8 cache), SDPA timed on
+   each bf16 cache. ``wkv6`` at the rwkv6
    path's prefill (B=16, S=1024, H=32) and decode (S=1) shapes, r, k and v in
    bf16 (as the path passes them) and in fp32, against the reference
    model's chunked form,
@@ -172,16 +174,19 @@ check it end to end.
    a row with S >= 2 takes its operations at the TF32 tensor-core rate
    over three (the kernel's products), of a decode row at the CUDA-core
    rate.
-11. LM serving at full width, random bf16 weights from a seeded generator:
-   smollm-360m, rwkv6-1.6b, stablelm-3b (its int8 K/V cache) and
-   olmoe-1b-7b (64 experts, top-8, the MoE layer's dense path; hd 128) each
-   prefill 16 prompts of 1024 tokens (``make_prefill_step`` with room for
-   2048) and take 64 greedy ``make_decode_step`` steps. The audited run
-   must make exactly 32 x 64 ``decode_attn`` launches in the decode steps
-   (smollm, stablelm; 16 x 64 for olmoe), and 24 ``wkv6`` launches in the
-   prefill and 24 x 64 in the decode steps, with every op on the card and
-   finite logits; olmoe's MoE drop fractions of a prefill and a decode
-   step are logged.
+11. LM serving at full width and depth, random bf16 weights from a seeded
+   generator: smollm-360m, rwkv6-1.6b, stablelm-3b (its int8 K/V cache),
+   olmoe-1b-7b (64 experts, top-8, the MoE layer's dense path; hd 128) and
+   moonshot-v1-16b-a3b (48 layers, 64 experts of d_ff 1408, top-6, vocab
+   163,840, ~56 GB of weights; its int8 cache at hd 128) each prefill 16
+   prompts of 1024 tokens (``make_prefill_step`` with room for 2048) and
+   take 64 greedy ``make_decode_step`` steps. The audited run must make
+   exactly 32 x 64 ``decode_attn`` launches in the decode steps (smollm,
+   stablelm; 16 x 64 for olmoe, 48 x 64 for moonshot) and none in the
+   prefill, and 24 ``wkv6`` launches in the prefill and 24 x 64 in the
+   decode steps, with every op on the card and finite logits; the MoE
+   drop fractions of a prefill and a decode step are logged, and each
+   model's peak device memory and seconds.
    Then the serving launcher's loop (``repro_torch.launch.serve.
    serve_tokens``) serves the same prompts with the decode step captured
    once as a CUDA graph and replayed at every position, audited over its
@@ -194,8 +199,13 @@ check it end to end.
    between CUDA events). Then, in fp32, the decode logits after a
    256-token prefill must match the full forward pass for 16 steps within
    2e-3 of its largest logit (the reference's property), or 5e-2 with
-   stablelm's int8 cache, which is checked with an fp32 cache too; olmoe
-   at the dropless capacity factor 8.0, as the reference's test.
+   stablelm's and moonshot's int8 caches, which are checked with an fp32
+   cache too; the MoE models at the dropless capacity factor 8.0, as the
+   reference's test, and on the int8 cache with each token's experts
+   pinned to the forward's (the cache's rounding flips near-tied expert
+   choices; the freely routed error and the tokens whose experts differ
+   are logged); moonshot at 16 of its 48 layers (~39 GB of fp32 weights;
+   all 48 would take ~112 GB), the cut logged on its line.
 12. Prints one JSON line of the rows at shapes or types the paths do not
    run (launches 0), then the ``{"kernels": [...]}`` line: one row for
    each kernel at each shape and type its path runs, with its launches
@@ -250,7 +260,8 @@ DECODE_ATTN_SOURCE = "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu"
 WKV6_SOURCE = "src/repro_torch/kernels/wkv6/csrc/wkv6.cu"
 # LM serving: batch 16, prompts of 1024 tokens, cache room for 2048, 64
 # greedy steps; decode against forward in fp32 after a 256-token prefill
-LM_ARCHS = ("smollm-360m", "rwkv6-1.6b", "stablelm-3b", "olmoe-1b-7b")
+LM_ARCHS = ("smollm-360m", "rwkv6-1.6b", "stablelm-3b", "olmoe-1b-7b",
+            "moonshot-v1-16b-a3b")
 LM_BATCH, LM_PROMPT, LM_MAX_SEQ, LM_STEPS = 16, 1024, 2048, 64
 LM_CHECK_BATCH, LM_CHECK_PREFILL, LM_CHECK_STEPS = 4, 256, 16
 LM_DECODE_REL = 2e-3  # tests/test_models.py's bound
@@ -258,6 +269,10 @@ LM_INT8_REL = 5e-2  # its bound with the int8 cache (test_int8_kv_cache_decode)
 # MoE's capacity factor in the fp32 decode-against-forward check: dropless,
 # so that dispatch does not depend on the batch (tests/test_models.py)
 LM_MOE_DROPLESS_CF = 8.0
+# the fp32 check's depth where the whole model does not fit the card:
+# moonshot's 48 layers hold ~112 GB of fp32 weights, 16 hold ~39 GB (its
+# serving runs at full depth, in bf16)
+LM_CHECK_LAYERS = {"moonshot-v1-16b-a3b": 16}
 LM_PROFILE_STEPS = 8  # decode steps of each profiled window
 DECODE_32K = (128, 32768)  # the reference's decode_32k cell: batch, length
 ATTN_TOL = (1e-5, 1e-4)  # atol, rtol: the reference's kernel bounds
@@ -1898,9 +1913,11 @@ def decode_attn_kernel_phase():
     olmoe-1b-7b's (bf16), moonshot's (int8) and qwen1.5-110b's (KV 8, G 8,
     bf16 and int8) shapes, with
     ``scaled_dot_product_attention`` on the same inputs timed as the
-    library call (no library call reads the int8 cache)."""
+    library call (no library call reads the int8 cache); each int8 row
+    logs the blocks an SM of its instantiation holds."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.decode_attn import kernel as dk
     from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
     from repro_torch.kernels.decode_attn.ref import decode_attn_ref
     from repro_torch.models.layers import cache_read, quantize_kv
@@ -1974,6 +1991,16 @@ def decode_attn_kernel_phase():
                                cold=not big,
                                library=None if int8 else library,
                                reps=1 if big else 10, moved=moved)
+        if int8:
+            kvg, split_len, nsplit = dk.launch_plan(q.device, dtype, True, B,
+                                                    cfg_kv, cfg_g, hd, S)
+            body = ("tensor-core" if dk.mma_body(dtype, True, hd, cfg_g)
+                    else "CUDA-core")
+            resident = dk.blocks_per_sm(q.device, dtype, True, hd, cfg_g)
+            log(f"  {name}: {body} int8 body, {resident} blocks an SM "
+                f"resident (occupancy calculator), {B * cfg_kv // kvg} "
+                f"groups of {kvg} heads, {nsplit} splits of at most "
+                f"{split_len} positions")
         bf16_twin = {"stablelm,int8": "stablelm,bf16",
                      "moonshot,int8": "olmoe,bf16",
                      "qwen,int8": "qwen,bf16"}.get(tag)
@@ -1982,7 +2009,8 @@ def decode_attn_kernel_phase():
                 f"cache against SDPA "
                 f"{rows[f'decode_attn[{bf16_twin}]']['library_ms']:.4f} ms "
                 f"on the bf16 cache, L2 flushed ({CARD})")
-        if tag in ("path,bf16", "stablelm,int8", "olmoe,bf16"):
+        if tag in ("path,bf16", "stablelm,int8", "olmoe,bf16",
+                   "moonshot,int8"):
             _decode_attn_graph_check(q, k, v)
         del q, k, v, qh, kh, vh, want
         torch.cuda.empty_cache()
@@ -2215,10 +2243,13 @@ def decode_attn_build_report(report):
 
 
 def decode_attn_sass_report():
-    """Logs the SASS (``cuobjdump -sass``) of stablelm-3b's int8 read,
-    ``decode_attn_kernel<bf16, int8_t, 80, 1>``: its instruction count,
+    """Logs the SASS (``cuobjdump -sass``) of the int8 reads on the served
+    paths and smollm's int8 shape: stablelm-3b's ``decode_attn_kernel<bf16,
+    int8_t, 80, 1>`` and the tensor-core body's ``<bf16, int8_t, 128, 1>``
+    (moonshot-v1-16b-a3b) and ``<bf16, int8_t, 64, 3>``: instruction count,
     conversions (I2F, F2F, F2FP: none a value but F2FP, one for two),
-    shared-memory loads by width and top opcodes. Checks nothing."""
+    shared-memory loads by width, tensor-core products (HMMA) and top
+    opcodes. Checks nothing."""
     from repro_torch.kernels import build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -2226,18 +2257,20 @@ def decode_attn_sass_report():
         [tool, "-sass", str(build.library_path("decode_attn"))],
         capture_output=True, text=True, check=True, timeout=120).stdout
     for part in sass.split("Function : ")[1:]:
-        if _decode_attn_label(part.split()[0]) != (
-                "decode_attn_kernel<bf16, int8_t, 80, 1>"):
+        label = _decode_attn_label(part.split()[0])
+        if label not in ("decode_attn_kernel<bf16, int8_t, 80, 1>",
+                         "decode_attn_kernel<bf16, int8_t, 128, 1>",
+                         "decode_attn_kernel<bf16, int8_t, 64, 3>"):
             continue
         ops = collections.Counter(re.findall(
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
             r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)", part))
-        picked = {op: n for op, n in sorted(ops.items())
-                  if op.split(".")[0] in ("I2F", "F2F", "F2FP", "LDS")}
+        picked = {op: n for op, n in sorted(ops.items()) if op.split(".")[0]
+                  in ("I2F", "F2F", "F2FP", "LDS", "HMMA")}
         top = collections.Counter()
         for op, n in ops.items():
             top[op.split(".")[0]] += n
-        log(f"    decode_attn_kernel<bf16, int8_t, 80, 1> SASS: "
+        log(f"    {label} SASS: "
             f"{sum(ops.values())} instructions; "
             + ", ".join(f"{op} {n}" for op, n in picked.items())
             + "; top: " + ", ".join(f"{op} {n}"
@@ -2343,44 +2376,136 @@ def _profile_serving(model, prompt, steps=8):
     _profiled(f"{steps} decode steps", decode_steps, ("step", steps))
 
 
+def _decode_errors(model, tokens, full, pin=None):
+    """(steps + 1, B) largest |logit| errors of the prefill's last logits
+    and of each decode step's against ``full``, and, per MoE layer, the
+    experts the decode steps chose (steps, B, k). With ``pin`` (each MoE
+    layer's experts for every token of ``tokens``, (B, S, k)), every MoE
+    call takes its tokens' experts from it, their weights its own
+    softmax's at those experts (renormalised, as the router does)."""
+    from repro_torch.models.moe import MoE
+
+    B, P = tokens.shape[0], LM_CHECK_PREFILL
+    moes = [m for m in model.modules() if isinstance(m, MoE)]
+    chosen, at = [[] for _ in moes], {}
+
+    def pinned(mod, i):
+        def route(xf):
+            topi = pin[i][:, at["sel"]].reshape(xf.shape[0], -1)
+            probs = torch.softmax(xf.float() @ mod.router.w, dim=-1)
+            topw = probs.gather(1, topi)
+            topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+            gates = torch.zeros_like(probs).scatter_(1, topi, topw)
+            return gates, topi, torch.zeros((), device=xf.device)
+        return route
+
+    def record(i):
+        def hook(mod, inp, _out):
+            chosen[i].append(mod.route(inp[0].reshape(-1, mod.d_model))[1])
+        return hook
+
+    if pin is not None:
+        for i, m in enumerate(moes):
+            m.route = pinned(m, i)
+    hooks = [m.register_forward_hook(record(i)) for i, m in enumerate(moes)]
+    try:
+        at["sel"] = slice(0, P)
+        cache, last = model.prefill(tokens[:, :P], max_seq=tokens.shape[1])
+        errs = [(last[:, 0] - full[:, P - 1]).abs().amax(-1)]
+        for c in chosen:
+            c.clear()
+        for t in range(P, tokens.shape[1]):
+            at["sel"] = t
+            cache, lg = model.decode(cache, tokens[:, t:t + 1], t)
+            errs.append((lg[:, 0] - full[:, t]).abs().amax(-1))
+    finally:
+        for h in hooks:
+            h.remove()
+        for m in moes:
+            m.__dict__.pop("route", None)
+    return torch.stack(errs), [torch.stack(c).reshape(-1, B, c[0].shape[-1])
+                               for c in chosen]
+
+
 def _decode_matches_forward(arch, kv_cache_dtype=None):
     """fp32 at full width: decode logits after a prefill of
     LM_CHECK_PREFILL tokens against ``hidden`` + ``logits`` over the whole
     sequence, relative to its largest |logit| (the reference's property:
     within LM_DECODE_REL, or LM_INT8_REL with the int8 cache), with the
     config's cache or ``kv_cache_dtype``; MoE at the dropless capacity
-    factor LM_MOE_DROPLESS_CF, as the reference's test runs it."""
+    factor LM_MOE_DROPLESS_CF, as the reference's test runs it; at the
+    depth of LM_CHECK_LAYERS where the arch has one there.
+
+    An MoE layer's top-k is a step function of its input. The int8
+    cache's rounding moves the decode steps' inputs off the forward's by
+    ~1e-2, enough to change near-tied choices among 64 experts at random
+    weights; a token that takes another expert parts from the forward by
+    that expert's share, not by the cache's error (moonshot: routes
+    differed at 59 of 68 tokens, 0.123 of the largest logit). So with
+    MoE on the int8 cache the bound holds with each token's experts
+    pinned to the forward's, which leaves the cache's read as the one
+    difference; the freely routed error and the tokens whose experts
+    differ are logged beside it. Elsewhere the decode routes freely."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import DecoderLM
+    from repro_torch.models.moe import MoE
 
     cfg = get_config(arch)
+    full_depth = cfg.n_layers
     if kv_cache_dtype is not None:
         cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_cache_dtype)
     if cfg.n_experts:
         cfg = dataclasses.replace(cfg, capacity_factor=LM_MOE_DROPLESS_CF)
+    if arch in LM_CHECK_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS[arch])
     int8 = cfg.kv_cache_dtype == "int8" and not cfg.attn_free
     bound = LM_INT8_REL if int8 else LM_DECODE_REL
     model = DecoderLM(cfg, torch.float32, torch.float32, device="cuda",
                       generator=torch.Generator(device="cuda").manual_seed(1))
-    S = LM_CHECK_PREFILL + LM_CHECK_STEPS
+    B, P = LM_CHECK_BATCH, LM_CHECK_PREFILL
+    S = P + LM_CHECK_STEPS
     tokens = torch.from_numpy(np.random.default_rng(7).integers(
-        0, cfg.vocab_size, (LM_CHECK_BATCH, S))).cuda()
-    full = model.logits(model.hidden(tokens)[0])
-    cache, last = model.prefill(tokens[:, :LM_CHECK_PREFILL], max_seq=S)
-    errs = [(last[:, 0] - full[:, LM_CHECK_PREFILL - 1]).abs().max()]
-    for t in range(LM_CHECK_PREFILL, S):
-        cache, lg = model.decode(cache, tokens[:, t:t + 1], t)
-        errs.append((lg[:, 0] - full[:, t]).abs().max())
-    rel = float(torch.stack(errs).max() / full.abs().max())
+        0, cfg.vocab_size, (B, S))).cuda()
+    moes = [m for m in model.modules() if isinstance(m, MoE)]
+    forward_routes = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, _out: forward_routes.append(mod.route(
+            inp[0].reshape(-1, mod.d_model))[1].reshape(B, S, -1)))
+        for m in moes]
+    try:
+        full = model.logits(model.hidden(tokens)[0])
+    finally:
+        for h in hooks:
+            h.remove()
+    scale = full.abs().max()
+    errs, chosen = _decode_errors(model, tokens, full)
+    rel = float(errs.max() / scale)
+    note = ""
+    if moes:
+        differ = torch.zeros((S - P, B), dtype=torch.bool, device=full.device)
+        for c, f in zip(chosen, forward_routes):
+            differ |= (torch.sort(c, -1).values != torch.sort(
+                f[:, P:].transpose(0, 1), -1).values).any(-1)
+        note = (f"; the decode steps' experts differ from the forward's in "
+                f"some layer at {int(differ.sum())} of {differ.numel()} "
+                f"tokens")
+        if int8:
+            free = rel
+            rel = float(_decode_errors(model, tokens, full,
+                                       pin=forward_routes)[0].max() / scale)
+            note = (f" with each token's experts pinned to the forward's "
+                    f"(routed freely {free:.3e}{note})")
     log(f"  {arch} fp32 decode vs forward ({'int8' if int8 else 'fp32'} "
         f"cache"
         + (f", capacity factor {cfg.capacity_factor}" if cfg.n_experts
            else "")
-        + f"; batch {LM_CHECK_BATCH}, prefill {LM_CHECK_PREFILL}, "
-        f"{LM_CHECK_STEPS} steps): max error {rel:.3e} of max |logit| "
-        f"(bound {bound})")
+        + (f"; depth cut to {cfg.n_layers} of {full_depth} layers, "
+           f"{_param_bytes(model) / 1e9:.2f} GB of fp32 weights"
+           if cfg.n_layers != full_depth else "")
+        + f"; batch {B}, prefill {P}, {LM_CHECK_STEPS} steps): max error "
+        f"{rel:.3e} of max |logit|{note} (bound {bound})")
     if not rel < bound:
         raise AssertionError(f"{arch}: decode disagrees with the forward "
                              f"pass")
@@ -2475,8 +2600,12 @@ def lm_serving_phase(rows):
               "stablelm-3b": ("decode_attn",
                               {"decode": "decode_attn[stablelm,int8]"}),
               "olmoe-1b-7b": ("decode_attn",
-                              {"decode": "decode_attn[olmoe,bf16]"})}
+                              {"decode": "decode_attn[olmoe,bf16]"}),
+              "moonshot-v1-16b-a3b": (
+                  "decode_attn", {"decode": "decode_attn[moonshot,int8]"})}
     for arch in LM_ARCHS:
+        t_arch = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
         cfg = get_config(arch)
         model = DecoderLM(cfg, torch.bfloat16, torch.bfloat16, device="cuda",
                           generator=torch.Generator(
@@ -2575,7 +2704,10 @@ def lm_serving_phase(rows):
         device_ms = _profile_graph_steps(timed.graph, LM_PROMPT + 1)
         log(f"  {arch} graph step on the card ({CARD}): {device_ms:.4f} ms "
             f"between CUDA events over {LM_PROFILE_STEPS} replays, "
-            f"{bound / device_ms:.3f} of the byte bound")
+            f"{bound / device_ms:.3f} of the byte bound; peak device memory "
+            f"of the serving runs "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+            f"({weights / 1e9:.2f} GB of weights)")
         del model, timed
         torch.cuda.empty_cache()
         _decode_matches_forward(arch)
@@ -2583,6 +2715,8 @@ def lm_serving_phase(rows):
         if cfg.kv_cache_dtype == "int8" and not cfg.attn_free:
             _decode_matches_forward(arch, kv_cache_dtype="bfloat16")
             torch.cuda.empty_cache()
+        log(f"  {arch}: {time.perf_counter() - t_arch:.2f} s for its "
+            f"serving runs and checks")
 
 
 def main():

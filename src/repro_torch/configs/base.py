@@ -147,7 +147,8 @@ PUBLIC_IDS = {
 }
 
 #: the archs whose configuration module the port carries
-PORTED = ("smollm_360m", "rwkv6_1b6", "stablelm_3b", "olmoe_1b_7b")
+PORTED = ("smollm_360m", "rwkv6_1b6", "stablelm_3b", "olmoe_1b_7b",
+          "moonshot_v1_16b_a3b")
 
 
 def _module(arch: str):

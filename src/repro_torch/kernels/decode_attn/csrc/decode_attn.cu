@@ -20,7 +20,11 @@
 // stablelm-3b's (B=16, KV=32, G=1, hd=80, pos=1087) int8 cache, 84 bytes
 // a row with its scale: 93.6 MB, 27.9 us (a dequantize adds 2 operations
 // a value, still far below the bytes). On olmoe-1b-7b's (B=16, KV=16, G=1,
-// hd=128, pos=1087) bf16 cache: 142.6 MB, 42.6 us.
+// hd=128, pos=1087) bf16 cache: 142.6 MB, 42.6 us; on moonshot-v1-16b-a3b's
+// int8 one (the same shape): 73.5 MB, 21.9 us. What bounds the int8 body
+// in practice is instruction issue: an exact dequantize takes ~3.75
+// instructions a value, so moonshot's 71 M values a call are ~8 M warp
+// instructions, about a third of the card's issue over the bytes' time.
 //
 // Design. The TPU kernel walks S in blocks of 512 on one core, one (b, kv)
 // per grid row, with the running max, denominator and accumulator in VMEM,
@@ -87,18 +91,29 @@
 //    int8 rows is narrower than 16 bytes. At hd 128 and G > 4 the 16 G
 //    accumulators of a lane reach the 255-register limit: there the loops
 //    over copies, q.k chunks and p.v passes stay rolled (TIGHT).
-// 6. The grid and the scratch depend on (B*KV, S) and the cache's type
+// 6. The int8 cache with a bf16 q at hd 64 and 128, G <= 4 (MMA_BODY:
+//    moonshot-v1-16b-a3b's path, smollm's int8 shape): walk_int8_mma, the
+//    same dequantize straight into mma.sync m16n8k16 fragments, both
+//    products on the tensor cores (bf16 operands, exact for the
+//    dequantized values and for q; P as bf16 hi + lo, two columns of one
+//    product; fp32 sums), so no FMA, widening or weight shuffle a value.
+//    Its own tiles (MmaPlan): 16 positions of one head a warp, a ring of 4
+//    tiles (17 KB each at hd 128, three blocks an SM). Its splits spread
+//    positions 0..pos evenly over the launch's nsplit, which the wrapper
+//    sizes to two blocks an SM: one wave of long blocks whatever pos is.
+// 7. The grid and the scratch depend on (B*KV, S) and the cache's type
 //    only, never on pos: the wrapper's split plan is a function of them. A
 //    block whose split starts after pos leaves at once, and the merge
-//    covers splits 0..pos/split_len only. Masked positions are never loaded
-//    (the last tile's rows past pos are zero-filled by cp.async without a
-//    read). A device pos outside 0..S-1 cannot be raised without a
-//    synchronise, so the kernel writes NaN to every output of the call
-//    instead.
+//    covers the splits that hold a position <= pos only. Masked positions
+//    are never loaded (the last tile's rows past pos are zero-filled by
+//    cp.async without a read). A device pos outside 0..S-1 cannot be
+//    raised without a synchronise, so the kernel writes NaN to every
+//    output of the call instead.
 // Numerics: fp32 throughout, no fast math; scores in log2 units (q scaled
-// by log2(e) / sqrt(hd), exp2f); the result differs from the plain version
-// (fp32 einsum and softmax over all of S) in rounding and summation order
-// only.
+// by log2(e) / sqrt(hd), exp2f; walk_int8_mma scales q.k's fp32 sums
+// instead); the result differs from the plain version (fp32 einsum and
+// softmax over all of S) in rounding and summation order, and in
+// walk_int8_mma by P's hi + lo split (to 2^-17 of a weight), only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -198,19 +213,55 @@ struct Q8Plan {
   static_assert(SMEM <= 227 * 1024, "dynamic shared memory of a block");
 };
 
+// walk_int8_mma's tiles: WP positions of one head a warp, TP (position,
+// head) rows a tile, a ring of NSTAGE tiles in dynamic shared memory
+template <int HD>
+struct MmaPlan {
+  static constexpr int WP = 16;
+  static constexpr int TP = NW * WP;
+  static constexpr int NSTAGE = 4;
+  static constexpr int CPR = HD / 16;         // 16-byte chunks of a row
+  static constexpr int ROWS = TP * HD;        // bytes of K (of V) a tile
+  static constexpr int STAGE = 2 * ROWS + 2 * 4 * TP;  // K, V, scales
+  static constexpr int SMEM = NSTAGE * STAGE;
+  static constexpr int NCOPY = TP * CPR / NT;  // a thread's chunks of K
+  static_assert(WP % 16 == 0 && TP <= NT && (TP * CPR) % NT == 0,
+                "whole k-steps, a scale a thread, whole copies");
+  static_assert(4 * NW * MAX_GROUP * (HD + 2) <= SMEM,
+                "merge area fits the ring");
+};
+
+// The int8 cache's body on the tensor cores (walk_int8_mma): bf16 q at hd
+// 64 and 128, G <= 4 (moonshot-v1-16b-a3b's hd 128, G 1; smollm's hd 64,
+// G 3). Every other int8 instantiation keeps walk_int8.
+template <typename T, int HD, int G>
+constexpr bool MMA_BODY = std::is_same<T, __nv_bfloat16>::value &&
+                          (HD == 64 || HD == 128) && G <= 4;
+
+// dynamic shared memory of an int8 block: the ring, and q after it for
+// walk_int8 (walk_int8_mma keeps q in registers)
+template <typename T, int HD, int G>
+constexpr int q8_smem() {
+  if constexpr (MMA_BODY<T, HD, G>)
+    return MmaPlan<HD>::SMEM;
+  else
+    return Q8Plan<HD, G>::SMEM;
+}
+
 // resident blocks per SM, at least (at most 65536 / (NT x this) registers
 // a thread). bf16, fp32 caches: 4, or 3 where G > 6, whose q and
 // accumulators do not fit 128 registers without spills. int8: 4 (44 KB of
 // shared memory a block at hd 80), or 2 where G > 2 (16 G accumulators a
-// lane, and G q.k sums), and never more blocks than the ring and q
-// (Q8Plan::SMEM) let an SM hold: 3 at hd 128, G <= 2 (70 KB a block)
+// lane, and G q.k sums; not walk_int8_mma, whose fragments do not grow
+// with G), and never more blocks than the ring and q (q8_smem) let an SM
+// hold: 3 at hd 128, G <= 2 (70 KB a block; 67.6 KB for walk_int8_mma)
 constexpr int SM_SMEM = 228 * 1024;      // an SM's, at the largest carveout
 constexpr int BLOCK_SMEM_RESERVED = 1024;  // the system's, per block
-template <typename E, int HD, int G>
+template <typename T, typename E, int HD, int G>
 constexpr int min_blocks() {
   if constexpr (IS_INT8<E>)
-    return cmin(G > 2 ? 2 : 4,
-                SM_SMEM / (Q8Plan<HD, G>::SMEM + BLOCK_SMEM_RESERVED));
+    return cmin(G > 2 && !MMA_BODY<T, HD, G> ? 2 : 4,
+                SM_SMEM / (q8_smem<T, HD, G>() + BLOCK_SMEM_RESERVED));
   else
     return G > 6 ? 3 : 4;
 }
@@ -634,6 +685,295 @@ __device__ __forceinline__ void walk_int8(const T* __restrict__ q,
   }
 }
 
+// two fp32 values rounded to bf16 (to nearest even, cvt.rn.bf16x2.f32) in
+// one register, lo in the low half: an mma fragment's pair
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  uint32_t bits;
+  memcpy(&bits, &h, sizeof bits);
+  return bits;
+}
+
+// the 4 int8 values of w times s, rounded to fp32 (__fmul_rn): with
+// pack_bf16 after it, cache_read(c, bf16) bit for bit
+__device__ __forceinline__ void dequant4(uint32_t w, float s, float (&x)[4]) {
+  int8x4_to_float(w, x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x[i] = __fmul_rn(x[i], s);
+}
+
+// d += a b on the tensor cores: m16n8k16, bf16 operands, fp32 sums (the
+// PTX fragment layouts: a0..a3 rows g, g + 8 by columns 2t.., 2t + 8..;
+// b0, b1 rows 2t.., 2t + 8.. of column g; d rows g, g + 8, columns 2t, 2t
+// + 1, for lane 4 g + t)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// byte offset of 16-byte chunk c of row p of walk_int8_mma's V tile: the
+// chunks permuted by p & (CPR - 2), so that the 8 lanes of a quarter-warp
+// reading chunk r of rows 2t (t = 0..3) hit distinct banks at hd 128 (two
+// lanes share a bank at hd 64, whose 64-byte rows leave no room for more)
+template <int CPR>
+__device__ __forceinline__ int vchunk_at(int p, int c) {
+  return 16 * (p * CPR + (c ^ (p & (CPR - 2))));
+}
+
+// walk_int8 on the tensor cores (MMA_BODY: bf16 q, hd 64 or 128, G <= 4):
+// the same copies of kvg heads' rows, but MmaPlan's tiles, each warp WP =
+// 16 positions of its head a tile in a ring of 4 (a short tile keeps 167
+// registers a thread, three blocks an SM, with the ring deep enough to
+// hide the reads), both products as mma.sync m16n8k16 (bf16 in, fp32 sums).
+// q.k: S (G x 8 positions) += Q (G x 16 channels) K^T, Q unscaled bf16 in
+// registers (rows G.. zero), K the dequantized tile; the lane (g, t) that
+// reads K row 8 nt + g takes its channels 4 (KS t + j) .. + 3 for k-step
+// j, one 4-byte word (the sum over channels does not care which channels
+// a k-step holds, as long as Q's fragment holds the same); its scores
+// come out times log2(e) / sqrt(HD). p.v: O^T (16 channels x 8) += V^T (16
+// channels x 16 positions) P^T, the positions of p.v's k-step the columns
+// of q.k's two n-tiles (no exchange of scores), V's rows read in bytes
+// HD/8 r .. + HD/8 - 1 by lane (r, t), and P split into bf16 hi + lo in
+// columns 2 g and 2 g + 1 (fp32 P to 2^-17; V exact in bf16), added after
+// the loop. Per value: a byte permute, one FADD, one FMUL and half a cvt;
+// the FMAs, widening, weight shuffles and cross-slot sums of walk_int8's
+// chunked p.v are gone. Ends as walk_int8.
+template <int HD, int G>
+__device__ __forceinline__ void walk_int8_mma(
+    const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kb,
+    const int8_t* __restrict__ vb, const float* __restrict__ ks,
+    const float* __restrict__ vs, int KV, int kvg, int begin, int end,
+    unsigned char* smem) {
+  using M = MmaPlan<HD>;
+  constexpr int CPR = M::CPR, TP = M::TP, WP = M::WP, NSTAGE = M::NSTAGE;
+  constexpr int KS = HD / 16;   // q.k k-steps; a lane's words of a K row
+  constexpr int BPL = HD / 8;   // bytes of a V row a lane reads
+  constexpr int MT = HD / 16;   // p.v m-tiles of 16 channels
+  constexpr int NTL = WP / 8;   // q.k n-tiles of a warp's positions
+  static_assert(G <= 4 && KS % 4 == 0 && BPL % 8 == 0, "walk_int8_mma");
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, t = lane & 3;  // fragment row group, column pair
+  const int lk = kvg == 4 ? 2 : kvg - 1;   // log2(kvg)
+  const int tph = TP >> lk;                // positions of a head in a tile
+  const int ntile = (end - begin + tph - 1) / tph;
+  const int step = KV * HD;  // between positions (KV * HD * TP < 2^31)
+
+  // tile tt into slot tt % NSTAGE as commit group tt (empty past the
+  // last), as walk_int8's fetch, V's chunks at vchunk_at. Copy j of a
+  // thread is chunk ce of head hh's row at position p0 + j (NT / CPR /
+  // kvg) of the tile, its offsets hoisted out of the tiles; threads
+  // below TP copy the scales of (position, head) row tid
+  const int ce = tid % CPR, hh = (tid / CPR) & (kvg - 1);
+  const int p0 = (tid / CPR) >> lk, pstep = (NT / CPR) >> lk;
+  const int head = hh * tph * HD;
+  const int8_t* kth = kb + hh * HD + 16 * ce;
+  const int8_t* vth = vb + hh * HD + 16 * ce;
+  const int sp = tid >> lk, sh = tid & (kvg - 1);
+  auto fetch = [&](int tt) {
+    if (tt < ntile) {
+      unsigned char* kt = smem + (tt % NSTAGE) * M::STAGE;
+      unsigned char* vt = kt + M::ROWS;
+      float* sc = reinterpret_cast<float*>(vt + M::ROWS);
+      const int t0 = begin + tt * tph, n = end - t0;  // rows of the tile
+      const size_t base = static_cast<size_t>(t0) * step;
+#pragma unroll
+      for (int j = 0; j < M::NCOPY; ++j) {
+        const int p = p0 + j * pstep;
+        const size_t off = p < n ? base + static_cast<size_t>(p) * step : 0;
+        cp_async16(kt + head + chunk_at<CPR>(p, ce), kth + off,
+                   p < n ? 16 : 0);
+        cp_async16(vt + head + vchunk_at<CPR>(p, ce), vth + off,
+                   p < n ? 16 : 0);
+      }
+      if (tid < TP) {
+        const size_t off =
+            sp < n ? static_cast<size_t>(t0 + sp) * KV + sh : 0;
+        cp_async4(sc + sh * tph + sp, ks + off, sp < n ? 4 : 0);
+        cp_async4(sc + TP + sh * tph + sp, vs + off, sp < n ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int tt = 0; tt < NSTAGE; ++tt) fetch(tt);  // the whole ring
+
+  const int h = warp & (kvg - 1);       // this warp's head
+  const int wbase = (warp >> lk) * WP;  // its first position of a tile
+  const int hrow = h * tph * HD;        // the head's rows in a tile
+  // Q's fragments: query head gq's channels 4 (KS t + j) .. + 3 for k-step
+  // j (a0 and a2; rows 8.. are zero), as stored
+  uint32_t qa[KS][2];
+#pragma unroll
+  for (int j = 0; j < KS; ++j) {
+    uint2 w = make_uint2(0u, 0u);
+    if (gq < G)
+      w = *reinterpret_cast<const uint2*>(q + (h * G + gq) * HD +
+                                          4 * (KS * t + j));
+    qa[j][0] = w.x;
+    qa[j][1] = w.y;
+  }
+  const float qscale = LOG2E / sqrtf(static_cast<float>(HD));
+  float m = -INFINITY, l = 0.0f;  // head gq's, over this lane's positions
+  float o[MT][4];                 // O^T: rows of channels, columns 2t, 2t+1
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.0f;
+
+  for (int tt = 0; tt < ntile; ++tt) {
+    cp_async_wait<NSTAGE - 2>();
+    __syncthreads();  // tile tt is in; every warp is done with tt - 1
+    if (tt > 0) fetch(tt - 1 + NSTAGE);
+    const int t0 = begin + tt * tph;
+    if (t0 + wbase >= end) continue;  // the warp's positions lie past pos
+    const unsigned char* kt = smem + (tt % NSTAGE) * M::STAGE + hrow;
+    const unsigned char* vt = kt + M::ROWS;
+    const float* sc = reinterpret_cast<const float*>(
+                          smem + (tt % NSTAGE) * M::STAGE + 2 * M::ROWS) +
+                      h * tph;  // K's scales of the head; V's at + TP
+
+    // q.k, n-tiles of 8 positions: lane (gq, t) holds the scores of
+    // positions 8 nt + 2t, + 1 for query head gq
+    float s[NTL][2];
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt) {
+      const int p = wbase + 8 * nt + gq;  // the K row this lane reads
+      uint32_t kw[KS];
+#pragma unroll
+      for (int c = 0; c < KS / 4; ++c) {
+        const uint4 w = *reinterpret_cast<const uint4*>(
+            kt + chunk_at<CPR>(p, KS / 4 * t + c));
+        kw[4 * c] = w.x;
+        kw[4 * c + 1] = w.y;
+        kw[4 * c + 2] = w.z;
+        kw[4 * c + 3] = w.w;
+      }
+      const float ksc = sc[p];
+      float d[2][4] = {};  // even and odd k-steps: two chains of products
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        float x[4];  // zeros past pos
+        dequant4(kw[j], ksc, x);
+        mma_bf16(d[j & 1], qa[j][0], 0u, qa[j][1], 0u, pack_bf16(x[0], x[1]),
+                 pack_bf16(x[2], x[3]));
+      }
+      s[nt][0] = (d[0][0] + d[1][0]) * qscale;
+      s[nt][1] = (d[0][1] + d[1][1]) * qscale;
+    }
+
+    // online softmax of head gq over the 4 lanes that hold its scores
+    float mx = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool valid = t0 + wbase + 8 * nt + 2 * t + e < end;
+        s[nt][e] = valid ? s[nt][e] : -INFINITY;
+        mx = fmaxf(mx, s[nt][e]);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+    const float mn = fmaxf(m, mx);  // finite: the warp's first position
+    const float corr = exp2f(m - mn);  // 0 while m is -inf
+    m = mn;
+    l *= corr;
+    uint32_t hi[NTL], lo[NTL];  // P of positions 8 nt + 2t, + 1: hi, lo
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt) {
+      const float p0 = exp2f(s[nt][0] - mn), p1 = exp2f(s[nt][1] - mn);
+      l += p0 + p1;
+      hi[nt] = pack_bf16(p0, p1);
+      lo[nt] = pack_bf16(p0 - __uint_as_float(hi[nt] << 16),
+                         p1 - __uint_as_float(hi[nt] & 0xffff0000u));
+    }
+    // the accumulators' columns 2t, 2t + 1 are head t's: its correction
+    // (1 on every lane once the running maxima settle)
+    const float ct = __shfl_sync(FULL, corr, 4 * t);
+    if (__any_sync(FULL, ct != 1.0f)) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][e] *= ct;
+    }
+    // P^T's column gq: head gq / 2's hi (gq even) or lo, from the lane that
+    // scored it; zero past 2G
+    uint32_t pb[NTL];
+    const int src = 4 * (gq >> 1) + t;
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt) {
+      const uint32_t a = __shfl_sync(FULL, hi[nt], src);
+      const uint32_t b = __shfl_sync(FULL, lo[nt], src);
+      pb[nt] = gq < 2 * G ? (gq & 1 ? b : a) : 0u;
+    }
+
+    // p.v, k-steps of 16 positions: lane (gq, t) reads bytes BPL gq .. of
+    // rows 16 kk + 2t, + 1, + 8, + 9
+#pragma unroll
+    for (int kk = 0; kk < WP / 16; ++kk) {
+      uint32_t vw[4][BPL / 4];
+      float vsc[4];
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const int p = wbase + 16 * kk + 2 * t + (rr & 1) + 8 * (rr >> 1);
+        const unsigned char* at =
+            vt + vchunk_at<CPR>(p, BPL * gq / 16) + BPL * gq % 16;
+        if constexpr (BPL == 16) {
+          const uint4 w = *reinterpret_cast<const uint4*>(at);
+          vw[rr][0] = w.x;
+          vw[rr][1] = w.y;
+          vw[rr][2] = w.z;
+          vw[rr][3] = w.w;
+        } else {
+          const uint2 w = *reinterpret_cast<const uint2*>(at);
+          vw[rr][0] = w.x;
+          vw[rr][1] = w.y;
+        }
+        vsc[rr] = sc[TP + p];
+      }
+      // word w: channels BPL gq + 4w .. + 3, of m-tiles 2w and 2w + 1
+#pragma unroll
+      for (int w = 0; w < BPL / 4; ++w) {
+        float x[4][4];  // zeros past pos
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) dequant4(vw[rr][w], vsc[rr], x[rr]);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          mma_bf16(o[2 * w + hf], pack_bf16(x[0][2 * hf], x[1][2 * hf]),
+                   pack_bf16(x[0][2 * hf + 1], x[1][2 * hf + 1]),
+                   pack_bf16(x[2][2 * hf], x[3][2 * hf]),
+                   pack_bf16(x[2][2 * hf + 1], x[3][2 * hf + 1]),
+                   pb[2 * kk], pb[2 * kk + 1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the warps' states now
+
+  // the warp's state: l over the 4 lanes of each head; head t's channels
+  // BPL gq + 2i, + 1 as its hi and lo columns summed
+  l += __shfl_xor_sync(FULL, l, 1);
+  l += __shfl_xor_sync(FULL, l, 2);
+  float* wacc = reinterpret_cast<float*>(smem);  // (NW, G, HD)
+  float* wml = wacc + NW * G * HD;               // (NW, G, 2)
+  if (t < G) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      float* at = wacc + (warp * G + t) * HD + BPL * gq + 2 * i;
+      at[0] = o[i][0] + o[i][1];
+      at[1] = o[i][2] + o[i][3];
+    }
+  }
+  if (t == 0 && gq < G) {
+    wml[(warp * G + gq) * 2] = m;
+    wml[(warp * G + gq) * 2 + 1] = l;
+  }
+}
+
 // The block's partials from its warps' states (wacc: accumulators (NW, G,
 // HD), then (m, l) (NW, G, 2)): its kvg rows, row0 .. row0 + kvg - 1,
 // warp w holding row w % kvg; each written to out where its row has one
@@ -746,16 +1086,26 @@ __device__ __forceinline__ void int8_rows(
             __int_as_float(0x7fc00000);  // quiet NaN
     return;
   }
-  const int nact = pos / split_len + 1;  // splits holding a position <= pos
+  // walk_int8_mma spreads positions 0..pos evenly over the launch's
+  // nsplit splits (ceil((pos + 1) / nsplit) each, at most split_len), so
+  // that every block of the one wave the wrapper sizes holds as many
+  // positions, whatever pos is; walk_int8 takes splits of split_len
+  constexpr bool MMA = MMA_BODY<T, HD, G>;
+  const int len = MMA ? (pos + nsplit) / nsplit : split_len;
+  const int nact = pos / len + 1;  // splits holding a position <= pos
   if (split >= nact) return;
-  const int begin = split * split_len;
-  const int end = min(begin + split_len, pos + 1);
+  const int begin = split * len;
+  const int end = min(begin + len, pos + 1);
   const size_t row0 =  // (b, position 0, kv) of the group's first row
       static_cast<size_t>(row / KV) * S * KV + row % KV;
   const T* qr = q + static_cast<size_t>(row) * G * HD;
   extern __shared__ __align__(16) unsigned char dsmem[];
-  walk_int8<T, HD, G>(qr, k + row0 * HD, v + row0 * HD, k_scale + row0,
-                      v_scale + row0, KV, kvg, begin, end, dsmem);
+  if constexpr (MMA)
+    walk_int8_mma<HD, G>(qr, k + row0 * HD, v + row0 * HD, k_scale + row0,
+                         v_scale + row0, KV, kvg, begin, end, dsmem);
+  else
+    walk_int8<T, HD, G>(qr, k + row0 * HD, v + row0 * HD, k_scale + row0,
+                        v_scale + row0, KV, kvg, begin, end, dsmem);
   const float* wacc = reinterpret_cast<const float*>(dsmem);
   __syncthreads();
   merge<G, HD>(wacc, out, part_acc, part_ml, group, kvg, split, nsplit,
@@ -772,7 +1122,7 @@ __device__ __forceinline__ void int8_rows(
 // units; out (B*KV, G, HD). k_scale and v_scale (B, S, KV) are the int8
 // form's scales (unused otherwise).
 template <typename T, typename E, int HD, int G>
-__global__ void __launch_bounds__(NT, min_blocks<E, HD, G>())
+__global__ void __launch_bounds__(NT, min_blocks<T, E, HD, G>())
 decode_attn_kernel(const T* __restrict__ q, const E* __restrict__ k,
                    const E* __restrict__ v,
                    const float* __restrict__ k_scale,
@@ -1036,6 +1386,7 @@ struct Args {
   int pos, S, KV, kvg, groups, split_len, nsplit;
   float *out, *part_acc, *part_ml;
   cudaStream_t stream;
+  int* blocks_per_sm;  // not null: report the kernel's residency instead
 };
 
 template <typename T, typename E, int HD, int G>
@@ -1046,7 +1397,7 @@ int launch(const Args& a) {
     // the ring is dynamic shared memory, past 48 KB at hd 80: the limit is
     // raised on the launch's device, with the largest carveout, so that
     // min_blocks rings fit an SM
-    smem = Q8Plan<HD, G>::SMEM;
+    smem = q8_smem<T, HD, G>();
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess)
@@ -1055,6 +1406,9 @@ int launch(const Args& a) {
           cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  if (a.blocks_per_sm)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        a.blocks_per_sm, kernel, NT, smem));
   const dim3 grid = IS_INT8<E> ? dim3(a.groups, a.nsplit)
                                 : dim3(a.nsplit, a.groups);
   kernel<<<grid, NT, smem, a.stream>>>(
@@ -1103,12 +1457,13 @@ int by_cache(bool is_int8, int HD, int G, const Args& a) {
 // KV) and q bf16 or fp32; contiguous, 16-byte aligned (the scales 4-byte
 // aligned); positions 0..pos attend, pos being *pos_dev
 // (an int32 in device memory) when pos_dev is not null, else pos. Splits of
-// split_len positions cover 0..S-1: nsplit = ceil(S / split_len). A block
-// takes kvg consecutive KV heads: 1, or for the int8 cache 2 or 4 where
-// they divide KV. Scratch part_acc (B*KV*nsplit*G*HD) and part_ml
-// (B*KV*nsplit*G*2) fp32; out (B, KV, G, HD) fp32, NaN throughout if a
-// device pos lies outside 0..S-1. One launch on `stream`, nothing else;
-// returns its CUDA error, or 0.
+// split_len positions cover 0..S-1: nsplit = ceil(S / split_len)
+// (walk_int8_mma's instantiations split 0..pos into nsplit equal parts,
+// of at most split_len, instead). A block takes kvg consecutive KV heads:
+// 1, or for the int8 cache 2 or 4 where they divide KV. Scratch part_acc
+// (B*KV*nsplit*G*HD) and part_ml (B*KV*nsplit*G*2) fp32; out (B, KV, G,
+// HD) fp32, NaN throughout if a device pos lies outside 0..S-1. One launch
+// on `stream`, nothing else; returns its CUDA error, or 0.
 extern "C" int decode_attn(const void* q, const void* k, const void* v,
                            const float* k_scale, const float* v_scale,
                            const int* pos_dev, float* out, float* part_acc,
@@ -1127,7 +1482,23 @@ extern "C" int decode_attn(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, k_scale, v_scale, pos_dev, pos, S, KV, kvg,
                static_cast<int>(rows / kvg), split_len, nsplit, out,
-               part_acc, part_ml, static_cast<cudaStream_t>(stream)};
+               part_acc, part_ml, static_cast<cudaStream_t>(stream),
+               nullptr};
+  return is_bf16 ? by_cache<__nv_bfloat16>(is_int8, HD, G, a)
+                 : by_cache<float>(is_int8, HD, G, a);
+}
+
+// The blocks of decode_attn_kernel<T, E, HD, G> that one SM of the current
+// device holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+// with the int8 body's shared memory set as a launch sets it) into
+// *blocks; the wrapper sizes walk_int8_mma's one wave from it. Returns
+// the CUDA error, or 0.
+extern "C" int decode_attn_blocks_per_sm(int is_bf16, int is_int8, int HD,
+                                         int G, int* blocks) {
+  if (G < 1 || G > MAX_GROUP || blocks == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.blocks_per_sm = blocks;
   return is_bf16 ? by_cache<__nv_bfloat16>(is_int8, HD, G, a)
                  : by_cache<float>(is_int8, HD, G, a);
 }

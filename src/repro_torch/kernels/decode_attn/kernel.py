@@ -3,7 +3,9 @@
 ``decode_attn_cuda`` launches ``decode_attn_kernel`` once per call over
 splits of the cache, the last block of each (b, kv) merging its splits
 (it replaces ``repro/kernels/decode_attn/kernel.py::decode_attn_pallas``);
-on an int8 cache a block takes :func:`heads_per_block` KV heads at once.
+on an int8 cache a block takes :func:`heads_per_block` KV heads at once,
+and with a bf16 q at head dim 64 or 128 (:func:`mma_body`) its products
+run on the tensor cores, over one wave of splits (:func:`mma_split_plan`).
 It takes CUDA tensors, q, k and v all bf16 or all fp32, or k and v in the
 int8 form ``{"q": int8, "s": fp32 (..., 1)}`` beside a bf16 or fp32 q
 (read as ``cache_read(c, q.dtype)``, without a dequantized copy). It
@@ -32,15 +34,23 @@ MAX_GROUP = 8  # query heads per KV head (the kernel's MAX_GROUP)
 MAX_ROWS = 65535  # B * KV: grid.y and the kernel's tickets
 HEAD_DIMS = (32, 64, 80, 128)
 SPLIT_ALIGN = 64  # positions: a whole number of the bf16/fp32 body's tiles
-INT8_TILE = 128  # (position, head) rows of the int8 body's tile (Q8_TP)
+INT8_TILE = 128  # (position, head) rows of walk_int8's tile (Q8_TP)
 MIN_SPLIT, MAX_SPLIT = 128, 1024  # positions of a split
 # blocks over the whole cache, per SM: with the cache half full, about 4
 # hold positions, one wave at the kernel's 4 resident blocks per SM (the
-# int8 body's too, at G <= 2). On stablelm's int8 cache (128 groups of 4
-# heads) that is splits of 256 positions, chosen on the H100 over 128 and
-# 512
+# CUDA-core int8 body's too, walk_int8, at G <= 2). On stablelm's int8
+# cache (128 groups of 4 heads) that is splits of 256 positions, chosen
+# on the H100 over 128 and 512
 BLOCKS_PER_SM = 8
 INT8_BLOCKS_PER_SM = 8
+# the int8 body on the tensor cores (walk_int8_mma): bf16 q, these head
+# dims, at most this many query heads per KV head (the kernel's MMA_BODY).
+# Its splits give each SM about MMA_BLOCKS_PER_SM blocks, all resident at
+# once: on the H100 two long blocks an SM beat three shorter ones at
+# moonshot-v1-16b-a3b's shape (0.0357 against 0.0388 ms,
+# tools/decode_attn_splits.py)
+MMA_HEAD_DIMS, MMA_MAX_GROUP = (64, 128), 4
+MMA_BLOCKS_PER_SM = 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,12 +61,53 @@ def _lib():
     lib = build.load("decode_attn")
     lib.decode_attn.argtypes = [_P] * 9 + [_I] * 11 + [_P]
     lib.decode_attn.restype = _I
+    lib.decode_attn_blocks_per_sm.argtypes = [_I] * 4 + [_P]
+    lib.decode_attn_blocks_per_sm.restype = _I
     return lib
 
 
 @functools.lru_cache()
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def mma_body(q_dtype, int8: bool, hd: int, G: int) -> bool:
+    """Whether ``decode_attn_kernel`` takes its tensor-core int8 body
+    (``walk_int8_mma``) for q of ``q_dtype``: a bf16 q on the int8 cache at
+    head dim 64 or 128, at most 4 query heads per KV head."""
+    return (int8 and q_dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS
+            and G <= MMA_MAX_GROUP)
+
+
+@functools.lru_cache()
+def blocks_per_sm(device: torch.device, q_dtype, int8: bool, hd: int,
+                  G: int) -> int:
+    """Blocks of the kernel for (q's type, cache, hd, G) that one SM of
+    ``device`` holds at once, from the CUDA occupancy calculator on the
+    built kernel (its registers and shared memory)."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _lib().decode_attn_blocks_per_sm(
+            int(q_dtype == torch.bfloat16), int(int8), hd, G,
+            ctypes.addressof(blocks))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError(f"decode_attn's occupancy query failed with "
+                           f"cudaError_t {err} ({blocks.value} blocks)")
+    return blocks.value
+
+
+def mma_split_plan(rows: int, S: int, slots: int):
+    """(split_len, nsplit) of the tensor-core int8 body for ``rows`` blocks
+    of query groups over a cache of ``S`` positions, ``slots`` blocks to
+    run at once (SMs x :data:`MMA_BLOCKS_PER_SM`, or the fewer that fit):
+    as many splits as one wave holds (``slots // rows``, at least 1, at
+    most S), each at most ``split_len`` long; they cover 0..S-1 and none
+    starts past it. The kernel spreads positions 0..pos evenly over the
+    nsplit splits at run time, so the grid and scratch still depend on
+    (rows, S, slots) alone."""
+    nsplit = min(max(slots // rows, 1), S)
+    split_len = -(-S // nsplit)
+    return split_len, -(-S // split_len)
 
 
 def heads_per_block(KV: int, int8: bool) -> int:
@@ -84,6 +135,21 @@ def split_plan(rows: int, S: int, sms: int, int8: bool = False):
     split_len = -(-per_block // align) * align
     split_len = min(max(split_len, MIN_SPLIT), MAX_SPLIT)
     return split_len, -(-S // split_len)
+
+
+def launch_plan(device, q_dtype, int8: bool, B: int, KV: int, G: int,
+                hd: int, S: int):
+    """(KV heads a block, split_len, nsplit) of one call on ``device``:
+    :func:`mma_split_plan` over the SMs' :data:`MMA_BLOCKS_PER_SM` blocks
+    (or the fewer :func:`blocks_per_sm` that fit) for the tensor-core int8
+    body, else :func:`split_plan`."""
+    kvg = heads_per_block(KV, int8)
+    rows, sms = B * KV // kvg, _sm_count(device)
+    if mma_body(q_dtype, int8, hd, G):
+        slots = sms * min(MMA_BLOCKS_PER_SM,
+                          blocks_per_sm(device, q_dtype, True, hd, G))
+        return (kvg, *mma_split_plan(rows, S, slots))
+    return (kvg, *split_plan(rows, S, sms, int8=int8))
 
 
 def _check_tensor(name, t, q, dtype, align=16):
@@ -172,9 +238,8 @@ def decode_attn_cuda(q: torch.Tensor, k, v, pos) -> torch.Tensor:
         pos_ptr, pos = pos.data_ptr(), 0
     else:
         pos_ptr, pos = None, int(pos)
-    kvg = heads_per_block(KV, ks is not None)
-    split_len, nsplit = split_plan(B * KV // kvg, S, _sm_count(q.device),
-                                   int8=ks is not None)
+    kvg, split_len, nsplit = launch_plan(q.device, q.dtype, ks is not None,
+                                         B, KV, G, hd, S)
     with torch.cuda.device(q.device):
         out = torch.empty((B, KV, G, hd), dtype=torch.float32,
                           device=q.device)

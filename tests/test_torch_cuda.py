@@ -765,7 +765,7 @@ def _tie_scales(n, seed):
     return ((top << np.uint32(16)) | np.uint32(0x8000)).view(np.float32)
 
 
-@pytest.mark.parametrize("hd", [32, 64, 80])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decode_attn_int8_reads_v_bit_for_bit(cuda, hd, dtype):
     """At pos 0 the output of every query head is the dequantized V row
@@ -895,6 +895,63 @@ def test_decode_attn_head_dim_128_graph_replays_at_device_positions(cuda,
     assert bool(out.isnan().all())
 
 
+# the int8 body on the tensor cores (walk_int8_mma; bf16 q at hd 64 and 128,
+# G <= 4): moonshot-v1-16b-a3b's hd 128, G 1, yi-34b's G 2 and smollm's hd
+# 64, G 3
+@pytest.mark.parametrize("hd,G", [(128, 1), (128, 2), (64, 3)])
+def test_decode_attn_tensor_core_int8_body(cuda, hd, G):
+    """Over many splits (2 row groups of 4 KV heads: ~130 splits of 4500
+    positions) against the plain version at positions on and off
+    the splits' and tiles' edges, bit for bit a second call; one captured
+    call replayed at device positions equals eager calls bit for bit;
+    values and scales past pos (127 and NaN) change nothing."""
+    from repro_torch.kernels.decode_attn import kernel as dk
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    assert dk.mma_body(torch.bfloat16, True, hd, G)
+    q, k, v = _int8_attn_inputs(cuda, 2, 4500, 4, G, hd, torch.bfloat16,
+                                seed=300 + hd + G)
+    kvg, split_len, nsplit = dk.launch_plan(q.device, torch.bfloat16, True,
+                                            2, 4, G, hd, 4500)
+    assert kvg == 4 and nsplit > 100
+    for p in (0, 31, 32, 1087, 2222, 4499):
+        got = dk.decode_attn_cuda(q, k, v, p)
+        np.testing.assert_allclose(
+            got.cpu().numpy(), decode_attn_ref(q, k, v, p).cpu().numpy(),
+            atol=1e-5, rtol=1e-4)
+        assert torch.equal(dk.decode_attn_cuda(q, k, v, p), got)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda)
+    dk.decode_attn_cuda(q, k, v, pos)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dk.decode_attn_cuda(q, k, v, pos)
+    for p in (1087, 0, 255, 4499):
+        pos.fill_(p)
+        graph.replay()
+        assert torch.equal(out, dk.decode_attn_cuda(q, k, v, p))
+    clean = dk.decode_attn_cuda(q, k, v, 700)
+    for c in (k, v):
+        c["q"][:, 701:] = 127
+        c["s"][:, 701:] = float("nan")
+    assert torch.equal(dk.decode_attn_cuda(q, k, v, 700), clean)
+
+
+def test_decode_attn_int8_at_moonshot_decode_shape(cuda):
+    """moonshot-v1-16b-a3b's whole decode shape (B 16, S 2048, KV 16, G 1,
+    hd 128, pos 1087) on its int8 cache, against the plain version."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    q, k, v = _int8_attn_inputs(cuda, 16, 2048, 16, 1, 128, torch.bfloat16,
+                                seed=13)
+    got = decode_attn_cuda(q, k, v, 1087)
+    assert got.shape == (16, 16, 1, 128)
+    np.testing.assert_allclose(
+        got.cpu().numpy(), decode_attn_ref(q, k, v, 1087).cpu().numpy(),
+        atol=1e-5, rtol=1e-4)
+
+
 def _moe_pair(cuda, dtype, seed=0):
     """The same MoE on the CPU and on the card (olmoe-reduced's sizes)."""
     from repro_torch.models.moe import MoE
@@ -952,7 +1009,8 @@ def test_moe_on_the_card_keeps_tied_tokens_as_the_cpu(cuda):
 @pytest.mark.parametrize("arch,int8", [("smollm_360m", False),
                                        ("rwkv6_1b6", False),
                                        ("stablelm_3b", True),
-                                       ("olmoe_1b_7b", False)])
+                                       ("olmoe_1b_7b", False),
+                                       ("moonshot_v1_16b_a3b", True)])
 def test_graph_decode_equals_eager_decode(cuda, arch, int8):
     """The serving launcher's captured step replayed at every position gives
     the eager loop's tokens (reduced configs, bf16, random weights); the

@@ -1,7 +1,8 @@
 """The port's LM serving path against the reference, on the CPU.
 
 The reduced configurations (smollm-reduced: GQA with G=3, hd 32;
-rwkv6-reduced: hd 32; olmoe-reduced: MoE of 8 experts, top-2, hd 32) in
+rwkv6-reduced: hd 32; olmoe-reduced: MoE of 8 experts, top-2, hd 32;
+moonshot-reduced: MoE of 8 experts of d_ff 96, top-3, hd 32) in
 fp32, with the reference's weights from
 ``model.init(PRNGKey(0))`` carried across by ``lm_from_numpy`` and tokens
 from numpy seeds. On CPU tensors the model's grouped decode attention and
@@ -30,7 +31,7 @@ from repro_torch.models import layers as L
 from repro_torch.serve import steps
 from repro_torch.weights import lm_from_numpy, lm_to_numpy
 
-ARCHS = ["smollm_360m", "rwkv6_1b6", "olmoe_1b_7b"]
+ARCHS = ["smollm_360m", "rwkv6_1b6", "olmoe_1b_7b", "moonshot_v1_16b_a3b"]
 B, S, S1 = 2, 8, 4
 LOGIT_REL = 1e-4
 STATE_TOL = dict(atol=1e-5, rtol=1e-4)

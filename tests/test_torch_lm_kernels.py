@@ -25,6 +25,8 @@ from repro.models.rwkv6 import wkv_chunked as ref_wkv_chunked
 from repro_torch.kernels.decode_attn.kernel import (INT8_TILE, MAX_SPLIT,
                                                     MIN_SPLIT, SPLIT_ALIGN,
                                                     heads_per_block,
+                                                    mma_body,
+                                                    mma_split_plan,
                                                     split_plan)
 from repro_torch.kernels.decode_attn.ops import decode_attn
 from repro_torch.kernels.decode_attn.ref import decode_attn_ref
@@ -119,6 +121,40 @@ def test_decode_attn_split_plan_depends_on_the_cache_length_only(rows, sms,
         assert split_len % align == 0
         assert MIN_SPLIT <= split_len <= MAX_SPLIT
         assert (nsplit - 1) * split_len < S <= nsplit * split_len
+
+
+@pytest.mark.parametrize("rows,slots", [(64, 396), (80, 528), (1, 396),
+                                        (64, 64), (1000, 396), (3, 8)])
+def test_decode_attn_mma_split_plan_fills_one_wave(rows, slots):
+    """The tensor-core int8 body's grid: as many splits of each row group as
+    one wave of ``slots`` resident blocks holds (moonshot's 64 groups of 4
+    heads on 132 SMs x 3: 6), at least one, never more than S; they cover
+    0..S-1 and none starts past it, and the kernel's run-time split of
+    0..pos (ceil((pos + 1) / nsplit) positions each) fits split_len and
+    nsplit for every pos."""
+    assert list(inspect.signature(mma_split_plan).parameters) == [
+        "rows", "S", "slots"]
+    for S in list(range(1, 300)) + [2048, 4500, 32768]:
+        split_len, nsplit = mma_split_plan(rows, S, slots)
+        assert 1 <= nsplit <= max(slots // rows, 1)
+        assert rows * nsplit <= max(slots, rows)
+        assert (nsplit - 1) * split_len < S <= nsplit * split_len
+        for pos in {0, S // 2, S - 1}:
+            length = -(-(pos + 1) // nsplit)
+            assert length <= split_len and -(-(pos + 1) // length) <= nsplit
+
+
+@pytest.mark.parametrize("dtype,int8,hd,G,want", [
+    (torch.bfloat16, True, 128, 1, True),   # moonshot-v1-16b-a3b
+    (torch.bfloat16, True, 128, 2, True),   # yi-34b's KV 8
+    (torch.bfloat16, True, 64, 3, True),    # smollm's int8 shape
+    (torch.bfloat16, True, 80, 1, False),   # stablelm-3b: walk_int8
+    (torch.bfloat16, True, 128, 8, False),  # qwen's G 8
+    (torch.float32, True, 128, 1, False),   # fp32 q: not bf16 operands
+    (torch.bfloat16, False, 128, 1, False)])
+def test_decode_attn_mma_body_takes_bf16_q_at_hd_64_and_128(dtype, int8, hd,
+                                                             G, want):
+    assert mma_body(dtype, int8, hd, G) is want
 
 
 @pytest.mark.parametrize("KV,int8,kvg", [(32, True, 4), (5, True, 1),

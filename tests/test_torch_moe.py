@@ -33,6 +33,8 @@ OUT_TOL = dict(atol=1e-5, rtol=1e-4)
 AUX_TOL = 1e-6
 # (d, f, experts, top-k): olmoe-reduced's and moonshot-reduced's MoE
 SIZES = {"olmoe": (128, 64, 8, 2), "moonshot": (128, 96, 8, 3)}
+# moonshot-v1-16b-a3b's routing (64 experts, top-6) at a narrow width
+MOONSHOT_ROUTING = (64, 48, 64, 6)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -46,8 +48,9 @@ def _one_torch_thread():
 
 
 def _pair(size, cf, dtype=torch.float32):
-    """(reference MoE, its params, the port's MoE on the same weights)."""
-    d, f, E, k = SIZES[size]
+    """(reference MoE, its params, the port's MoE on the same weights);
+    ``size`` a key of SIZES or (d, f, experts, top-k)."""
+    d, f, E, k = SIZES.get(size, size)
     ref = RM.MoE(d, f, E, k, cf, impl="dense")
     params = jax.tree_util.tree_map(np.asarray,
                                     ref.init(jax.random.PRNGKey(0)))
@@ -199,8 +202,12 @@ def test_olmoe_weights_round_trip_with_the_router_in_fp32(dtype):
     (``blocks/sub0/ffn/{router/w, w_gate, w_up, w_down}``), the router
     fp32 under a bf16 ``dtype``; ``lm_to_numpy`` gives it back (exactly in
     fp32; the bf16 experts as their rounding)."""
-    cfg = get_reduced_config("olmoe_1b_7b")
-    params = _ref_params()
+    _check_weights_round_trip("olmoe_1b_7b", dtype)
+
+
+def _check_weights_round_trip(arch, dtype):
+    cfg = get_reduced_config(arch)
+    params = _ref_params(arch)
     model = lm_from_numpy(cfg, params, device="cpu", dtype=dtype)
     ffn = model.stack.blocks[0]["sub0"].ffn
     assert isinstance(ffn, MoE) and ffn.router.w.dtype == torch.float32
@@ -243,10 +250,62 @@ def test_olmoe_bf16_serving_runs_and_routes_on_the_cpu():
 
 
 def test_main_serves_olmoe_on_the_cpu(capsys):
-    argv = ["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu",
+    _check_main_serves("olmoe-1b-7b", capsys)
+
+
+def _check_main_serves(arch, capsys):
+    argv = ["--arch", arch, "--reduced", "--device", "cpu",
             "--requests", "2", "--prompt-len", "5", "--gen", "4"]
     assert serve.main(argv) == 0
     out = capsys.readouterr().out
-    for what in ("[serve] olmoe-1b-7b", "prefill:", "decode: p50=",
+    for what in (f"[serve] {arch}", "prefill:", "decode: p50=",
                  "sample:", "eager"):
         assert what in out
+
+
+# ---------------------------------------------------------------------------
+# moonshot-v1-16b-a3b
+# ---------------------------------------------------------------------------
+def test_moonshot_config_is_the_published_one():
+    for mine, theirs in ((get_config("moonshot-v1-16b-a3b"),
+                          ref_config("moonshot_v1_16b_a3b")),
+                         (get_reduced_config("moonshot_v1_16b_a3b"),
+                          ref_reduced_config("moonshot_v1_16b_a3b"))):
+        assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+    full = get_config("moonshot-v1-16b-a3b")
+    assert (full.n_layers, full.d_model, full.hd, full.n_kv_heads,
+            full.d_ff, full.n_experts, full.top_k, full.vocab_size,
+            full.rope_theta, full.kv_cache_dtype) == (
+        48, 2048, 128, 16, 1408, 64, 6, 163_840, 50_000.0, "int8")
+
+
+@pytest.mark.parametrize("T,C", [(16, 3), (16384, 1920)])
+def test_moonshot_capacity_at_top_6(T, C):
+    """moonshot's C at decode (16 tokens: 3) and prefill (16 x 1024:
+    1920), as the reference's at top-6 of 64 experts."""
+    port = MoE(2048, 8, 64, 6, device="cpu")
+    assert port.capacity(T) == RM.MoE(2048, 8, 64, 6)._capacity(T) == C
+
+
+@pytest.mark.parametrize("B,S", [(16, 1), (4, 16)])
+def test_moonshot_routing_matches_the_reference(B, S):
+    """moonshot's routing, 64 experts at top-6 (d 64, f 48), for a decode
+    step at batch 16 (C = 3) and 64 tokens: out within 1e-5, the drop
+    fraction within 1e-6 and aux within 1e-6 of its value (E = 64 makes
+    aux ~10, where one ulp is 1e-6), as the reference's dense path."""
+    ref, params, port = _pair(MOONSHOT_ROUTING, 1.25)
+    x = _x(B, S, port.d_model, seed=27 + B)
+    (out, aux, drop), (got, taux, tdrop) = _both(ref, params, port, x)
+    assert port.capacity(B * S) == ref._capacity(B * S)
+    np.testing.assert_allclose(got.numpy(), out, **OUT_TOL)
+    assert abs(float(taux) - aux) <= AUX_TOL * abs(aux)
+    assert abs(float(tdrop) - drop) <= AUX_TOL and float(tdrop) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moonshot_weights_round_trip_with_the_router_in_fp32(dtype):
+    _check_weights_round_trip("moonshot_v1_16b_a3b", dtype)
+
+
+def test_main_serves_moonshot_on_the_cpu(capsys):
+    _check_main_serves("moonshot-v1-16b-a3b", capsys)

@@ -72,7 +72,8 @@ def test_port_files_exist():
                    "checkpoint/manager.py", "configs/stablelm_3b.py",
                    "obs/profiler.py", "launch/__init__.py",
                    "launch/serve.py", "models/moe.py",
-                   "configs/olmoe_1b_7b.py"):
+                   "configs/olmoe_1b_7b.py",
+                   "configs/moonshot_v1_16b_a3b.py"):
         assert f"src/repro_torch/{module}" in names
     assert "chip_smoke.py" in names
     for source in ("mbcodec/csrc/mbcodec.cu",
@@ -174,7 +175,7 @@ def test_lm_modules_default_to_cuda_and_refuse_without_it(name):
 
 def test_lm_rejects_unported_archs_and_layers():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("moonshot-v1-16b-a3b")
+        get_config("llama-3.2-vision-90b")
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt-5")
     cfg = get_reduced_config("smollm_360m")

@@ -39,10 +39,14 @@ MARGIN = 1e-3
 STATE_TOL = dict(atol=1e-5, rtol=1e-4)
 # (arch, int8 cache): stablelm-reduced as published and with the int8
 # cache its full config serves with; smollm-reduced with it (the
-# reference test's arch)
+# reference test's arch); moonshot-reduced (MoE) with it, as its full
+# config serves
 INT8_CASES = [("stablelm_3b", False), ("stablelm_3b", True),
-              ("smollm_360m", True)]
-SERVE_ARCHS = ["smollm_360m", "rwkv6_1b6", "stablelm_3b", "olmoe_1b_7b"]
+              ("smollm_360m", True), ("moonshot_v1_16b_a3b", True)]
+SERVE_ARCHS = ["smollm_360m", "rwkv6_1b6", "stablelm_3b", "olmoe_1b_7b",
+               "moonshot_v1_16b_a3b"]
+# archs the serving loop test runs on the int8 cache of their full config
+SERVE_INT8 = {"moonshot_v1_16b_a3b"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -304,7 +308,7 @@ def _ref_serve(ref, params, prompts, gen):
 
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
 def test_serve_loop_tokens_equal_the_reference_loop(arch):
-    ref, params, port = _pair(arch)
+    ref, params, port = _pair(arch, arch in SERVE_INT8)
     prompts, gen = _tokens(port.cfg, 12, (B, 6)), 6  # margins >= 6e-3
     want, margin = _ref_serve(ref, params, prompts, gen)
     assert margin > MARGIN  # the seed's greedy choices are well posed

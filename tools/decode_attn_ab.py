@@ -29,7 +29,11 @@ ROWS = (("path,bf16", 16, 2048, 5, 3, 64, 1087, "bf16", False),
         ("stablelm,bf16", 16, 2048, 32, 1, 80, 1087, "bf16", False),
         ("stablelm,fp32", 16, 2048, 32, 1, 80, 1087, "fp32", False),
         ("stablelm,int8", 16, 2048, 32, 1, 80, 1087, "bf16", True),
-        ("smollm,int8", 16, 2048, 5, 3, 64, 1087, "bf16", True))
+        ("smollm,int8", 16, 2048, 5, 3, 64, 1087, "bf16", True),
+        ("olmoe,bf16", 16, 2048, 16, 1, 128, 1087, "bf16", False),
+        ("moonshot,int8", 16, 2048, 16, 1, 128, 1087, "bf16", True),
+        ("qwen,bf16", 16, 2048, 8, 8, 128, 1087, "bf16", False),
+        ("qwen,int8", 16, 2048, 8, 8, 128, 1087, "bf16", True))
 L2_FLUSH_BYTES = 128 << 20
 TOL = (1e-5, 1e-4)
 
