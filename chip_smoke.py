@@ -163,9 +163,12 @@ check it end to end.
    smollm path's shape (hd 64, G 3; off the path). At hd 128: olmoe-1b-7b's
    decode shape (B=16, S=2048, KV=16, G=1, pos=1087) on a bf16 cache, with
    the graph check, moonshot-v1-16b-a3b's (the same on an int8 cache,
-   the tensor-core int8 body; with the graph check), and off the path
-   qwen1.5-110b's (KV=8, G=8, a bf16 and an int8 cache), SDPA timed on
-   each bf16 cache. ``wkv6`` at the rwkv6
+   the tensor-core int8 body; with the graph check), llama-3.2-vision-
+   90b's self layers' (KV=8, G=8, pos=1087, the int8 cache; a bf16 one,
+   qwen1.5-110b's shape, off the path) and its cross layers' (B=16, the
+   whole int8 cache of S=6404 image tokens, pos=6403), SDPA timed on
+   each bf16 cache and, unmasked, on a bf16 copy of the cross cache.
+   ``wkv6`` at the rwkv6
    path's prefill (B=16, S=1024, H=32) and decode (S=1) shapes, r, k and v in
    bf16 (as the path passes them) and in fp32, against the reference
    model's chunked form,
@@ -176,13 +179,19 @@ check it end to end.
    rate.
 11. LM serving at full width and depth, random bf16 weights from a seeded
    generator: smollm-360m, rwkv6-1.6b, stablelm-3b (its int8 K/V cache),
-   olmoe-1b-7b (64 experts, top-8, the MoE layer's dense path; hd 128) and
+   olmoe-1b-7b (64 experts, top-8, the MoE layer's dense path; hd 128),
    moonshot-v1-16b-a3b (48 layers, 64 experts of d_ff 1408, top-6, vocab
-   163,840, ~56 GB of weights; its int8 cache at hd 128) each prefill 16
-   prompts of 1024 tokens (``make_prefill_step`` with room for 2048) and
-   take 64 greedy ``make_decode_step`` steps. The audited run must make
-   exactly 32 x 64 ``decode_attn`` launches in the decode steps (smollm,
-   stablelm; 16 x 64 for olmoe, 48 x 64 for moonshot) and none in the
+   163,840, ~56 GB of weights; its int8 cache at hd 128) and
+   llama-3.2-vision-90b (d 8192, 64 heads over 8, d_ff 28,672, vocab
+   128,256, the int8 cache; depth cut to 30 of its 100 layers, ~55.5 GB
+   of weights: 24 self layers and 6 cross layers over a context of 6,404
+   image tokens, (16, 6404, 8192) bf16 drawn on the card) each prefill 16
+   prompts of 1024 tokens (``make_prefill_step`` with room for 2048; the
+   VLM's context with them) and take 64 greedy ``make_decode_step``
+   steps. The audited run must make exactly 32 x 64 ``decode_attn``
+   launches in the decode steps (smollm, stablelm; 16 x 64 for olmoe, 48 x
+   64 for moonshot, 30 x 64 for llama-vision: 24 x 64 over the self
+   caches, 6 x 64 over the cross caches) and none in the
    prefill, and 24 ``wkv6`` launches in the prefill and 24 x 64 in the
    decode steps, with every op on the card and finite logits; the MoE
    drop fractions of a prefill and a decode step are logged, and each
@@ -199,13 +208,16 @@ check it end to end.
    between CUDA events). Then, in fp32, the decode logits after a
    256-token prefill must match the full forward pass for 16 steps within
    2e-3 of its largest logit (the reference's property), or 5e-2 with
-   stablelm's and moonshot's int8 caches, which are checked with an fp32
-   cache too; the MoE models at the dropless capacity factor 8.0, as the
-   reference's test, and on the int8 cache with each token's experts
+   stablelm's, moonshot's and llama-vision's int8 caches, which are
+   checked with an fp32 cache too; the MoE models at the dropless
+   capacity factor 8.0, as the reference's test, and on the int8 cache
+   with each token's experts
    pinned to the forward's (the cache's rounding flips near-tied expert
    choices; the freely routed error and the tokens whose experts differ
    are logged); moonshot at 16 of its 48 layers (~39 GB of fp32 weights;
-   all 48 would take ~112 GB), the cut logged on its line.
+   all 48 would take ~112 GB), llama-vision at 10 layers (8 self, 2
+   cross; ~42.6 GB, batch 4, a context of 6,404 tokens), the cuts logged
+   on their lines.
 12. Prints one JSON line of the rows at shapes or types the paths do not
    run (launches 0), then the ``{"kernels": [...]}`` line: one row for
    each kernel at each shape and type its path runs, with its launches
@@ -219,6 +231,8 @@ prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -261,7 +275,7 @@ WKV6_SOURCE = "src/repro_torch/kernels/wkv6/csrc/wkv6.cu"
 # LM serving: batch 16, prompts of 1024 tokens, cache room for 2048, 64
 # greedy steps; decode against forward in fp32 after a 256-token prefill
 LM_ARCHS = ("smollm-360m", "rwkv6-1.6b", "stablelm-3b", "olmoe-1b-7b",
-            "moonshot-v1-16b-a3b")
+            "moonshot-v1-16b-a3b", "llama-3.2-vision-90b")
 LM_BATCH, LM_PROMPT, LM_MAX_SEQ, LM_STEPS = 16, 1024, 2048, 64
 LM_CHECK_BATCH, LM_CHECK_PREFILL, LM_CHECK_STEPS = 4, 256, 16
 LM_DECODE_REL = 2e-3  # tests/test_models.py's bound
@@ -271,8 +285,14 @@ LM_INT8_REL = 5e-2  # its bound with the int8 cache (test_int8_kv_cache_decode)
 LM_MOE_DROPLESS_CF = 8.0
 # the fp32 check's depth where the whole model does not fit the card:
 # moonshot's 48 layers hold ~112 GB of fp32 weights, 16 hold ~39 GB (its
-# serving runs at full depth, in bf16)
-LM_CHECK_LAYERS = {"moonshot-v1-16b-a3b": 16}
+# serving runs at full depth, in bf16); llama-3.2-vision-90b's 10 (two
+# super-blocks: 8 self and 2 cross layers) hold ~42.6 GB
+LM_CHECK_LAYERS = {"moonshot-v1-16b-a3b": 16, "llama-3.2-vision-90b": 10}
+# the serving depth where the published one does not fit the card in
+# bf16: llama-3.2-vision-90b's 100 layers hold ~171 GB, 30 (six
+# super-blocks: 24 self and 6 cross layers) ~55.5 GB; width is not cut
+LM_SERVE_LAYERS = {"llama-3.2-vision-90b": 30}
+LM_CONTEXT_STD = 0.3  # the VLM's image tokens: N(0, 0.3), as launch.serve
 LM_PROFILE_STEPS = 8  # decode steps of each profiled window
 DECODE_32K = (128, 32768)  # the reference's decode_32k cell: batch, length
 ATTN_TOL = (1e-5, 1e-4)  # atol, rtol: the reference's kernel bounds
@@ -1910,11 +1930,13 @@ def decode_attn_kernel_phase():
     path's shape (bf16 and fp32), at one smollm layer of the reference's
     decode_32k cell (bf16), at stablelm-3b's decode shape (hd 80) with
     a bf16, an fp32 and an int8 cache (q bf16), and at hd 128 at
-    olmoe-1b-7b's (bf16), moonshot's (int8) and qwen1.5-110b's (KV 8, G 8,
-    bf16 and int8) shapes, with
-    ``scaled_dot_product_attention`` on the same inputs timed as the
-    library call (no library call reads the int8 cache); each int8 row
-    logs the blocks an SM of its instantiation holds."""
+    olmoe-1b-7b's (bf16), moonshot's (int8) and llama-3.2-vision-90b's
+    (KV 8, G 8: its self layers on the int8 cache, and a bf16 copy off
+    the path; its cross layers over the whole int8 cache of 6,404 image
+    tokens) shapes, with ``scaled_dot_product_attention`` on the same
+    inputs timed as the library call (no library call reads the int8
+    cache: the cross row's SDPA reads a bf16 copy of it, unmasked); each
+    int8 row logs the blocks an SM of its instantiation holds."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attn import kernel as dk
@@ -1924,10 +1946,13 @@ def decode_attn_kernel_phase():
 
     bf16, fp32 = torch.bfloat16, torch.float32
     path, last = (LM_BATCH, LM_MAX_SEQ), LM_PROMPT + 63
+    ctx = 6404  # llama-3.2-vision-90b's image tokens, its cross caches'
     # (tag, B, S, KV, G, hd, pos, q's type, int8 cache): smollm-360m's 15
     # heads over 5 KV heads; stablelm-3b's 32 over 32, hd 80; at hd 128
-    # olmoe-1b-7b's 16 over 16 (bf16, its path), and off the path
-    # moonshot's 16 over 16 on its int8 cache and qwen1.5-110b's 64 over 8
+    # olmoe-1b-7b's 16 over 16 (bf16), moonshot's 16 over 16 on its int8
+    # cache, and llama-3.2-vision-90b's 64 over 8 (G 8): its self layers'
+    # int8 cache (the bf16 one, qwen1.5-110b's shape too, off the path)
+    # and its cross layers' (the whole cache: pos S - 1)
     cases = (("path,bf16", *path, 5, 3, 64, last, bf16, False),
              ("path,fp32", *path, 5, 3, 64, last, fp32, False),
              ("decode_32k,bf16", *DECODE_32K, 5, 3, 64, DECODE_32K[1] - 1,
@@ -1939,7 +1964,9 @@ def decode_attn_kernel_phase():
              ("olmoe,bf16", *path, 16, 1, 128, last, bf16, False),
              ("moonshot,int8", *path, 16, 1, 128, last, bf16, True),
              ("qwen,bf16", *path, 8, 8, 128, last, bf16, False),
-             ("qwen,int8", *path, 8, 8, 128, last, bf16, True))
+             ("llama-vision,int8", *path, 8, 8, 128, last, bf16, True),
+             ("llama-vision-xattn,int8", LM_BATCH, ctx, 8, 8, 128, ctx - 1,
+              bf16, True))
     rows = {}
     for tag, B, S, cfg_kv, cfg_g, hd, pos, dtype, int8 in cases:
         gen = torch.Generator(device="cuda").manual_seed(S + pos + hd)
@@ -1967,6 +1994,10 @@ def decode_attn_kernel_phase():
         def library():  # GQA over the valid positions, never on the path
             return F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True)
 
+        # SDPA reads no int8 cache; the cross row's library time is SDPA
+        # on a bf16 copy of it (every position: no mask)
+        lib_on_copy = tag == "llama-vision-xattn,int8"
+
         want = plain()
         max_err = _check_close(name, kern(), want, ATTN_TOL)
         lib_err = float((library().float().reshape(q.shape)
@@ -1985,11 +2016,12 @@ def decode_attn_kernel_phase():
                                          + (4 * hd if int8 else 0))
         # the path's 22 MB would sit in L2 between calls, where on the path
         # each layer reads its own cache from device memory: L2 flushed
-        big = S > LM_MAX_SEQ  # the plain version's fp32 copies: 21 GB
+        big = (B, S) == DECODE_32K  # the plain version's copies: 21 GB
         rows[name] = timed_row(name, kern, plain, max_err,
                                roofline_ms(moved, flop), DECODE_ATTN_SOURCE,
                                cold=not big,
-                               library=None if int8 else library,
+                               library=(library if lib_on_copy or not int8
+                                        else None),
                                reps=1 if big else 10, moved=moved)
         if int8:
             kvg, split_len, nsplit = dk.launch_plan(q.device, dtype, True, B,
@@ -2003,7 +2035,7 @@ def decode_attn_kernel_phase():
                 f"{split_len} positions")
         bf16_twin = {"stablelm,int8": "stablelm,bf16",
                      "moonshot,int8": "olmoe,bf16",
-                     "qwen,int8": "qwen,bf16"}.get(tag)
+                     "llama-vision,int8": "qwen,bf16"}.get(tag)
         if bf16_twin:  # SDPA reads no int8 cache: its time on the bf16 one
             log(f"  {name}: kernel {rows[name]['ms']:.4f} ms on the int8 "
                 f"cache against SDPA "
@@ -2281,19 +2313,23 @@ def _param_bytes(model):
     return sum(p.numel() * p.element_size() for p in model.parameters())
 
 
-def _serve(model, prompt, max_seq, steps, marks=None):
-    """Prefill ``prompt`` with room for ``max_seq`` tokens, then ``steps``
-    greedy decode steps -> (generated tokens (B, steps + 1), whether every
-    logit was finite, prefill seconds, decode seconds per step); each
-    clock ends in a synchronize. ``marks["prefill"]``, where given, gets
-    the launch counts as the prefill ends."""
+def _serve(model, prompt, max_seq, steps, marks=None, context=None):
+    """Prefill ``prompt`` (and a VLM's image tokens ``context``) with room
+    for ``max_seq`` tokens, then ``steps`` greedy decode steps ->
+    (generated tokens (B, steps + 1), whether every logit was finite,
+    prefill seconds, decode seconds per step); each clock ends in a
+    synchronize. ``marks["prefill"]``, where given, gets the launch counts
+    as the prefill ends."""
     from repro_torch.serve.steps import make_decode_step, make_prefill_step
 
     prefill = make_prefill_step(model, model.cfg, max_seq=max_seq)
     decode = make_decode_step(model, model.cfg)
+    batch = {"tokens": prompt}
+    if context is not None:
+        batch["context"] = context
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cache, last = prefill({"tokens": prompt})
+    cache, last = prefill(batch)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     if marks is not None:
@@ -2352,15 +2388,17 @@ def _profiled(label, run, per):
                     f" x{e.count / per[1]:g}" for e in host))
 
 
-def _profile_serving(model, prompt, steps=8):
-    """One prefill and ``steps`` decode steps after it, each profiled."""
+def _profile_serving(model, prompt, steps=8, extras=None):
+    """One prefill (of ``prompt`` and ``extras``) and ``steps`` decode
+    steps after it, each profiled."""
     from repro_torch.serve.steps import make_decode_step
 
     decode = make_decode_step(model, model.cfg)
     out = {}
 
     def prefill():
-        out["cache"], out["last"] = model.prefill(prompt, max_seq=LM_MAX_SEQ)
+        out["cache"], out["last"] = model.prefill(prompt, extras,
+                                                  max_seq=LM_MAX_SEQ)
 
     _profiled("prefill", prefill, ("call", 1))
     tok = torch.argmax(out["last"][:, -1], dim=-1).to(torch.int32)
@@ -2376,13 +2414,14 @@ def _profile_serving(model, prompt, steps=8):
     _profiled(f"{steps} decode steps", decode_steps, ("step", steps))
 
 
-def _decode_errors(model, tokens, full, pin=None):
+def _decode_errors(model, tokens, full, pin=None, extras=None):
     """(steps + 1, B) largest |logit| errors of the prefill's last logits
-    and of each decode step's against ``full``, and, per MoE layer, the
-    experts the decode steps chose (steps, B, k). With ``pin`` (each MoE
-    layer's experts for every token of ``tokens``, (B, S, k)), every MoE
-    call takes its tokens' experts from it, their weights its own
-    softmax's at those experts (renormalised, as the router does)."""
+    (the prefill given ``extras``, a VLM's context) and of each decode
+    step's against ``full``, and, per MoE layer, the experts the decode
+    steps chose (steps, B, k). With ``pin`` (each MoE layer's experts for
+    every token of ``tokens``, (B, S, k)), every MoE call takes its
+    tokens' experts from it, their weights its own softmax's at those
+    experts (renormalised, as the router does)."""
     from repro_torch.models.moe import MoE
 
     B, P = tokens.shape[0], LM_CHECK_PREFILL
@@ -2410,7 +2449,8 @@ def _decode_errors(model, tokens, full, pin=None):
     hooks = [m.register_forward_hook(record(i)) for i, m in enumerate(moes)]
     try:
         at["sel"] = slice(0, P)
-        cache, last = model.prefill(tokens[:, :P], max_seq=tokens.shape[1])
+        cache, last = model.prefill(tokens[:, :P], extras,
+                                    max_seq=tokens.shape[1])
         errs = [(last[:, 0] - full[:, P - 1]).abs().amax(-1)]
         for c in chosen:
             c.clear()
@@ -2427,6 +2467,17 @@ def _decode_errors(model, tokens, full, pin=None):
                                for c in chosen]
 
 
+def _context(cfg, batch, dtype, seed):
+    """A VLM's image tokens (batch, n_frontend_tokens, d_model): N(0,
+    LM_CONTEXT_STD) in ``dtype``, drawn on the card from a seeded
+    generator (the frontend stub's input, as ``launch.serve`` draws it on
+    the host)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((batch, cfg.n_frontend_tokens, cfg.d_model),
+                       generator=gen, device="cuda",
+                       dtype=dtype).mul_(LM_CONTEXT_STD)
+
+
 def _decode_matches_forward(arch, kv_cache_dtype=None):
     """fp32 at full width: decode logits after a prefill of
     LM_CHECK_PREFILL tokens against ``hidden`` + ``logits`` over the whole
@@ -2434,7 +2485,8 @@ def _decode_matches_forward(arch, kv_cache_dtype=None):
     within LM_DECODE_REL, or LM_INT8_REL with the int8 cache), with the
     config's cache or ``kv_cache_dtype``; MoE at the dropless capacity
     factor LM_MOE_DROPLESS_CF, as the reference's test runs it; at the
-    depth of LM_CHECK_LAYERS where the arch has one there.
+    depth of LM_CHECK_LAYERS where the arch has one there; a VLM with a
+    context of its ``n_frontend_tokens`` image tokens.
 
     An MoE layer's top-k is a step function of its input. The int8
     cache's rounding moves the decode steps' inputs off the forward's by
@@ -2446,8 +2498,6 @@ def _decode_matches_forward(arch, kv_cache_dtype=None):
     pinned to the forward's, which leaves the cache's read as the one
     difference; the freely routed error and the tokens whose experts
     differ are logged beside it. Elsewhere the decode routes freely."""
-    import dataclasses
-
     from repro_torch.configs import get_config
     from repro_torch.models import DecoderLM
     from repro_torch.models.moe import MoE
@@ -2468,6 +2518,8 @@ def _decode_matches_forward(arch, kv_cache_dtype=None):
     S = P + LM_CHECK_STEPS
     tokens = torch.from_numpy(np.random.default_rng(7).integers(
         0, cfg.vocab_size, (B, S))).cuda()
+    extras = ({"context": _context(cfg, B, torch.float32, seed=3)}
+              if cfg.cross_attn_every else {})
     moes = [m for m in model.modules() if isinstance(m, MoE)]
     forward_routes = []
     hooks = [m.register_forward_hook(
@@ -2475,12 +2527,12 @@ def _decode_matches_forward(arch, kv_cache_dtype=None):
             inp[0].reshape(-1, mod.d_model))[1].reshape(B, S, -1)))
         for m in moes]
     try:
-        full = model.logits(model.hidden(tokens)[0])
+        full = model.logits(model.hidden(tokens, extras)[0])
     finally:
         for h in hooks:
             h.remove()
     scale = full.abs().max()
-    errs, chosen = _decode_errors(model, tokens, full)
+    errs, chosen = _decode_errors(model, tokens, full, extras=extras)
     rel = float(errs.max() / scale)
     note = ""
     if moes:
@@ -2493,8 +2545,8 @@ def _decode_matches_forward(arch, kv_cache_dtype=None):
                 f"tokens")
         if int8:
             free = rel
-            rel = float(_decode_errors(model, tokens, full,
-                                       pin=forward_routes)[0].max() / scale)
+            rel = float(_decode_errors(model, tokens, full, pin=forward_routes,
+                                       extras=extras)[0].max() / scale)
             note = (f" with each token's experts pinned to the forward's "
                     f"(routed freely {free:.3e}{note})")
     log(f"  {arch} fp32 decode vs forward ({'int8' if int8 else 'fp32'} "
@@ -2504,6 +2556,8 @@ def _decode_matches_forward(arch, kv_cache_dtype=None):
         + (f"; depth cut to {cfg.n_layers} of {full_depth} layers, "
            f"{_param_bytes(model) / 1e9:.2f} GB of fp32 weights"
            if cfg.n_layers != full_depth else "")
+        + (f"; a context of {cfg.n_frontend_tokens} image tokens"
+           if extras else "")
         + f"; batch {B}, prefill {P}, {LM_CHECK_STEPS} steps): max error "
         f"{rel:.3e} of max |logit|{note} (bound {bound})")
     if not rel < bound:
@@ -2541,11 +2595,19 @@ def _log_drop_fractions(model, prompt):
         f"{statistics.fmean(decode):.4f}, max {max(decode):.4f}")
 
 
+def _cross_layers(cfg):
+    """The XATTN layers of ``cfg``."""
+    from repro_torch.configs.base import XATTN
+
+    return sum(m == XATTN for m, _ in cfg.block_pattern) * cfg.n_blocks
+
+
 def _step_bytes(model, cfg, pos):
     """Bytes a decode step at ``pos`` must move: every weight but the
-    untied embedding's table (only its B rows are read), and the K/V cache
-    up to ``pos`` (an int8 row with its fp32 scale) or each layer's state
-    (read and written)."""
+    untied embedding's table (only its B rows are read), and each self
+    layer's K/V cache up to ``pos`` and each cross layer's whole (an int8
+    row with its fp32 scale), or each layer's state (read and
+    written)."""
     step = _param_bytes(model) - (0 if cfg.tie_embeddings else
                                   model.embed.emb.numel() * 2)
     if cfg.attn_free:
@@ -2553,8 +2615,31 @@ def _step_bytes(model, cfg, pos):
         return step + 2 * cfg.n_layers * LM_BATCH * (H * hd * hd * 4
                                                      + 2 * cfg.d_model * 2)
     row = cfg.hd + 4 if cfg.kv_cache_dtype == "int8" else cfg.hd * 2
-    return step + cfg.n_layers * 2 * LM_BATCH * (pos + 1) * cfg.n_kv_heads \
-        * row
+    cross = _cross_layers(cfg)
+    positions = (cfg.n_layers - cross) * (pos + 1) \
+        + cross * cfg.n_frontend_tokens
+    return step + 2 * LM_BATCH * positions * cfg.n_kv_heads * row
+
+
+@contextlib.contextmanager
+def _decode_attn_lengths():
+    """Counts ``decode_attn`` calls by the length of the cache they read
+    (a VLM's self layers read LM_MAX_SEQ positions, its cross layers the
+    context's): ``ops.decode_attn_cuda`` wrapped, the wrapper itself
+    still counting each launch."""
+    from repro_torch.kernels.decode_attn import ops
+
+    real, lengths = ops.decode_attn_cuda, collections.Counter()
+
+    def counted(q, k, v, pos):
+        lengths[(k["q"] if isinstance(k, dict) else k).shape[1]] += 1
+        return real(q, k, v, pos)
+
+    ops.decode_attn_cuda = counted
+    try:
+        yield lengths
+    finally:
+        ops.decode_attn_cuda = real
 
 
 def _profile_graph_steps(step, first_pos):
@@ -2584,7 +2669,10 @@ def lm_serving_phase(rows):
     ``serve_tokens``, the step captured once as a CUDA graph. The first
     run of each is audited (launches, or the capture's launches, and ops
     off the card); second runs give prefill tokens/s and decode ms per
-    step. Then fp32 decode against the forward pass."""
+    step. A VLM (llama-3.2-vision-90b, at the depth of LM_SERVE_LAYERS)
+    prefills its image tokens too, drawn on the card; its eager run must
+    read each self layer's cache and each cross layer's LM_STEPS times.
+    Then fp32 decode against the forward pass."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attn import kernel as dk
     from repro_torch.kernels.wkv6 import kernel as wk
@@ -2602,25 +2690,48 @@ def lm_serving_phase(rows):
               "olmoe-1b-7b": ("decode_attn",
                               {"decode": "decode_attn[olmoe,bf16]"}),
               "moonshot-v1-16b-a3b": (
-                  "decode_attn", {"decode": "decode_attn[moonshot,int8]"})}
+                  "decode_attn", {"decode": "decode_attn[moonshot,int8]"}),
+              "llama-3.2-vision-90b": (
+                  "decode_attn", {"decode": "decode_attn[llama-vision,int8]"})}
+    # a VLM's cross layers: their kernels-line row
+    cross_row = {"llama-3.2-vision-90b": "decode_attn[llama-vision-xattn,int8]"}
     for arch in LM_ARCHS:
         t_arch = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         cfg = get_config(arch)
+        full_depth = cfg.n_layers
+        if arch in LM_SERVE_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=LM_SERVE_LAYERS[arch])
         model = DecoderLM(cfg, torch.bfloat16, torch.bfloat16, device="cuda",
                           generator=torch.Generator(
                               device="cuda").manual_seed(0))
         prompt = torch.from_numpy(np.random.default_rng(0).integers(
             0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(torch.int32).cuda()
+        context = (_context(cfg, LM_BATCH, torch.bfloat16, seed=2)
+                   if cfg.cross_attn_every else None)
+        extras = {} if context is None else {"context": context}
+        n_cross = _cross_layers(cfg)
         weights = _param_bytes(model)
+        published = weights + _param_bytes(model.stack) * (
+            full_depth / cfg.n_layers - 1)  # every layer at full depth
         cache_kind = ("state" if cfg.attn_free else
                       "int8 K/V cache" if cfg.kv_cache_dtype == "int8"
                       else "bf16 K/V cache")
-        log(f"LM serving {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
-            f"vocab {cfg.vocab_size}, {weights / 1e9:.3f} GB of bf16 "
-            f"weights, {cache_kind}; batch {LM_BATCH}, prompt {LM_PROMPT}, "
-            f"cache room {LM_MAX_SEQ}, {LM_STEPS} greedy steps")
-        _serve(model, prompt[:, :8], 16, 2)  # loads cuBLAS and the kernels
+        log(f"LM serving {arch}: {cfg.n_layers} layers"
+            + (f" (depth cut from {full_depth}: {full_depth} would hold "
+               f"{published / 1e9:.1f} GB of bf16 weights, more than the "
+               f"card; width as published)"
+               if cfg.n_layers != full_depth else "")
+            + (f", {n_cross} of them cross-attention over "
+               f"{cfg.n_frontend_tokens} image tokens (context "
+               f"{tuple(context.shape)} bf16, N(0, {LM_CONTEXT_STD}), "
+               f"seeded, on the card)" if n_cross else "")
+            + f", d {cfg.d_model}, vocab {cfg.vocab_size}, "
+            f"{weights / 1e9:.3f} GB of bf16 weights, {cache_kind}; batch "
+            f"{LM_BATCH}, prompt {LM_PROMPT}, cache room {LM_MAX_SEQ}, "
+            f"{LM_STEPS} greedy steps")
+        # loads cuBLAS and the kernels
+        _serve(model, prompt[:, :8], 16, 2, context=context)
 
         kernel, row_of = stages[arch]
         expect = {"prefill": cfg.n_layers if "prefill" in row_of else 0,
@@ -2628,8 +2739,10 @@ def lm_serving_phase(rows):
         dk.LAUNCHES.clear()  # every count to 0 just before the path
         wk.LAUNCHES.clear()
         marks = {}
-        (tokens, finite, _, _), moved, off = audited(
-            lambda: _serve(model, prompt, LM_MAX_SEQ, LM_STEPS, marks))
+        with _decode_attn_lengths() as lengths:
+            (tokens, finite, _, _), moved, off = audited(
+                lambda: _serve(model, prompt, LM_MAX_SEQ, LM_STEPS, marks,
+                               context))
         at_prefill = marks["prefill"].get(kernel, 0)
         split = {"prefill": at_prefill,
                  "decode": moved.get(kernel, 0) - at_prefill}
@@ -2647,13 +2760,25 @@ def lm_serving_phase(rows):
                                  f"tokens {tuple(tokens.shape)}")
         for stage, name in row_of.items():
             rows[name]["launches"] = split[stage]
+        if n_cross:  # the decode steps' launches, self and cross layers
+            by_length = {LM_MAX_SEQ: (cfg.n_layers - n_cross) * LM_STEPS,
+                         cfg.n_frontend_tokens: n_cross * LM_STEPS}
+            log(f"  eager: decode_attn calls by the cache length read "
+                f"{dict(lengths)}, expected {by_length}")
+            if dict(lengths) != by_length:
+                raise AssertionError(f"{arch}: decode_attn read caches of "
+                                     f"{dict(lengths)}")
+            rows[row_of["decode"]]["launches"] = by_length[LM_MAX_SEQ]
+            rows[cross_row[arch]]["launches"] = \
+                by_length[cfg.n_frontend_tokens]
 
         # the graph: the launcher's loop, audited over the prefill, the
         # warm-up, the capture and the replays (which dispatch no op)
         dk.LAUNCHES.clear()
         wk.LAUNCHES.clear()
         graphed, moved, off = audited(lambda: serve_tokens(
-            model, prompt, LM_STEPS + 1, max_seq=LM_MAX_SEQ, graph=True))
+            model, prompt, LM_STEPS + 1, max_seq=LM_MAX_SEQ, graph=True,
+            extras=extras))
         captured = graphed.graph.launches
         log(f"  graph: captured in {graphed.capture_s:.4f} s (warm-up "
             f"included), {captured} kernel launches recorded in the "
@@ -2678,9 +2803,9 @@ def lm_serving_phase(rows):
         # the timed runs, outside the audit (whose hook on every op would
         # dominate the host clock)
         again, _, t_prefill, t_decode = _serve(model, prompt, LM_MAX_SEQ,
-                                               LM_STEPS)
+                                               LM_STEPS, context=context)
         timed = serve_tokens(model, prompt, LM_STEPS + 1, max_seq=LM_MAX_SEQ,
-                             graph=True)
+                             graph=True, extras=extras)
         same = bool((again == tokens).all()) and bool(
             torch.equal(timed.tokens, tokens))
         g_mean = statistics.fmean(timed.step_s)
@@ -2695,10 +2820,11 @@ def lm_serving_phase(rows):
             f"graph {g_mean * 1e3:.4f} ms (p50 {g_p50 * 1e3:.4f}, host clock "
             f"with a synchronize each step), {LM_BATCH / g_mean:.1f} "
             f"tokens/s; a step moves at least {step_bytes / 1e9:.4f} GB "
-            f"(weights and {cache_kind} at position {last_pos}): "
+            f"(weights and {cache_kind} at position {last_pos}"
+            + (", the cross layers' whole" if n_cross else "") + "): "
             f"{bound:.4f} ms at 3.35 TB/s; second runs' tokens identical: "
             f"{same}")
-        _profile_serving(model, prompt, LM_PROFILE_STEPS)
+        _profile_serving(model, prompt, LM_PROFILE_STEPS, extras)
         if cfg.n_experts:
             _log_drop_fractions(model, prompt)
         device_ms = _profile_graph_steps(timed.graph, LM_PROMPT + 1)
@@ -2708,7 +2834,7 @@ def lm_serving_phase(rows):
             f"of the serving runs "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
             f"({weights / 1e9:.2f} GB of weights)")
-        del model, timed
+        del model, timed, context, extras
         torch.cuda.empty_cache()
         _decode_matches_forward(arch)
         torch.cuda.empty_cache()

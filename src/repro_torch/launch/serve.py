@@ -6,6 +6,8 @@ CUDA graph and replayed for every position.
         --mesh single --requests 16 --prompt-len 1024 --gen 65
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \\
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch llama-3.2-vision-90b --reduced --device cpu
 
 The reference jits ``model.decode`` once and calls it for every ``pos``;
 here :class:`DecodeGraph` captures one step with the token and ``pos`` in
@@ -13,7 +15,10 @@ static device buffers (``pos`` a one-element int32 tensor the step reads
 on the card), the K/V cache written in place and RWKV's states copied back
 into their buffers inside the step, and the argmax token left in the
 token buffer for the next replay. A failed capture raises: there is no
-eager fallback on the card. On the CPU the same loop runs eagerly.
+eager fallback on the card. On the CPU the same loop runs eagerly. A
+VLM's image tokens (``extras["context"]``, drawn as the reference draws
+them) go into the prefill only: its XATTN layers' caches hold them for
+every step after.
 
 ``--mesh local`` serves in fp32, ``single`` in bf16 on the one card;
 ``multi`` (the reference's multi-pod mesh) waits for ROADMAP module 8.
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs, resolve_device, synchronize
+from repro_torch.configs.base import ATTN
 
 WARMUP_STEPS = 2  # eager steps on a side stream before the capture
 
@@ -57,12 +63,15 @@ def _is_state(path) -> bool:
     return "k" not in path and "v" not in path
 
 
-def cache_length(cache) -> Optional[int]:
-    """Positions the cache's K/V buffers hold (the int8 form's too), or
-    None for a cache of recurrent states only."""
-    for path, t in _leaves(cache):
-        if not _is_state(path):
-            return t.shape[1]
+def cache_length(cache, cfg) -> Optional[int]:
+    """Positions the self-attention K/V buffers of ``cache`` (a model of
+    ``cfg``'s) hold, the int8 form's too, or None where its block pattern
+    has no self-attention (recurrent states only). An XATTN layer's
+    buffers hold the context's positions, which no step writes."""
+    for i, (mixer, _ffn) in enumerate(cfg.block_pattern):
+        if mixer == ATTN:
+            k = cache[0][f"sub{i}"]["mixer"]["k"]
+            return (k["q"] if isinstance(k, dict) else k).shape[1]
     return None
 
 
@@ -93,7 +102,7 @@ class DecodeGraph:
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs CUDA tensors, got {dev}")
         self.model = model
-        self.max_seq = cache_length(cache)
+        self.max_seq = cache_length(cache, model.cfg)
         self.cache = _own_states(cache)
         self.token = token.to(torch.int32).reshape(-1, 1).clone()
         self.pos = torch.full((1,), pos, dtype=torch.int32, device=dev)
@@ -169,9 +178,11 @@ class ServeResult:
 
 
 def serve_tokens(model, prompts, gen: int, max_seq: Optional[int] = None,
-                 graph: Optional[bool] = None, tracer=None) -> ServeResult:
+                 graph: Optional[bool] = None, tracer=None,
+                 extras=None) -> ServeResult:
     """Prefill ``prompts`` (B, P) with room for ``max_seq`` tokens (default
-    P + gen), then ``gen - 1`` greedy decode steps at positions P, P + 1,
+    P + gen), and ``extras`` (a VLM's ``{"context": (B, n_frontend_tokens,
+    d)}``), then ``gen - 1`` greedy decode steps at positions P, P + 1,
     ... . ``graph`` (default: on a CUDA model) captures the step once and
     replays it; otherwise each step runs eagerly with the position as an
     int (``serve.steps.make_decode_step``). Each position is checked
@@ -184,7 +195,7 @@ def serve_tokens(model, prompts, gen: int, max_seq: Optional[int] = None,
     max_seq = P + gen if max_seq is None else max_seq
     synchronize(dev)
     t0 = time.perf_counter()
-    cache, last = model.prefill(prompts, max_seq=max_seq)
+    cache, last = model.prefill(prompts, extras, max_seq=max_seq)
     finite = torch.isfinite(last).all()
     tok = torch.argmax(last[:, -1], dim=-1).to(torch.int32)
     synchronize(dev)
@@ -258,10 +269,15 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P))
                                .astype(np.int32)).to(dev)
+    extras = {}
+    if cfg.cross_attn_every:  # the frontend stub's image tokens
+        extras["context"] = torch.from_numpy(rng.normal(
+            0, 0.3, (B, cfg.n_frontend_tokens, cfg.d_model))).to(
+                device=dev, dtype=dtype)
 
     tracer = obs.get_tracer()
     with obs.profile_region(args.profile):
-        res = serve_tokens(model, prompts, G, tracer=tracer)
+        res = serve_tokens(model, prompts, G, tracer=tracer, extras=extras)
     if tracer is not None:
         tracer.write(args.trace_out)
         print(f"[obs] Chrome trace -> {args.trace_out}")

@@ -191,40 +191,72 @@ def cache_write(c, new, pos):
 # ---------------------------------------------------------------------------
 
 
-def chunked_attention(q, k, v, q_chunk: int = 512):
-    """Exact causal attention over query chunks (memory O(chunk x Sk)):
-    scores in fp32, probabilities cast to v's type for the value product.
+Q_CHUNK = 512  # the reference's query chunk
+SCORE_BYTES = 1 << 30  # one query chunk's fp32 scores, at most
 
-    q (B, S, H, hd); k, v (B, Sk, H, hd) already head-expanded."""
+
+def query_chunk(B: int, H: int, S: int, Sk: int) -> int:
+    """The query chunk of :func:`chunked_attention` for ``S`` queries of
+    ``H`` heads over ``Sk`` keys at batch ``B``: the largest divisor of S
+    that is at most :data:`Q_CHUNK` and keeps one chunk's fp32 scores (B,
+    H, chunk, Sk) within :data:`SCORE_BYTES`, or 1. llama-3.2-vision-90b's
+    cross layers at batch 16 over 6,404 image tokens take 32 of a
+    1024-token prompt (0.84 GB of scores, where 512 would take 13.4 GB)."""
+    most = max(1, min(Q_CHUNK, S, SCORE_BYTES // (4 * B * H * Sk)))
+    return next(c for c in range(most, 0, -1) if S % c == 0)
+
+
+def chunked_attention(q, k, v, causal: bool = True,
+                      q_chunk: int = Q_CHUNK):
+    """Exact attention over query chunks (memory O(chunk x Sk)): scores
+    in fp32, probabilities cast to v's type for the value product; with
+    ``causal`` query i attends keys 0..i, else every key (no mask).
+
+    q (B, S, H, hd); k, v (B, Sk, KV, hd), KV dividing H: query head h
+    attends KV head h // (H // KV), as the reference's head-expanded K/V
+    (KV = H, which it passes, is the same call). A chunk that does not
+    divide S falls back to one block of all S rows. Each query row's
+    scores, mask, softmax and weighted sum involve that row and the keys
+    only, so the result does not depend on the chunk: only the blocking
+    of the products over hd and Sk may change the order of their sums."""
     B, S, H, hd = q.shape
-    Sk = k.shape[1]
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
     scale = 1.0 / math.sqrt(hd)
     c = min(q_chunk, S)
     if S % c != 0:  # a single exact block
         c = S
-    kf = k.float()
+    # (B, KV, Sk, hd) once, not per chunk: the products' batch is (B, KV),
+    # each KV head's G query heads stacked as rows
+    kf = k.float().transpose(1, 2).contiguous()
+    vh = v.transpose(1, 2).contiguous()
     cols = torch.arange(Sk, device=q.device)
     outs = []
     for idx in range(S // c):
-        qb = q[:, idx * c:(idx + 1) * c]
-        s = torch.einsum("bqhd,bshd->bhqs", qb.float(), kf) * scale
-        qpos = idx * c + torch.arange(c, device=q.device)
-        mask = qpos[:, None] >= cols[None, :]
-        s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
+        qb = q[:, idx * c:(idx + 1) * c].float().transpose(1, 2)
+        s = (qb.reshape(B, KV, G * c, hd) @ kf.transpose(-1, -2)) * scale
+        if causal:
+            qpos = idx * c + torch.arange(c, device=q.device)
+            mask = qpos[:, None] >= cols[None, :]
+            s.view(B, KV, G, c, Sk).masked_fill_(~mask, -1e30)
         p = torch.softmax(s, dim=-1)
-        outs.append(torch.einsum("bhqs,bshd->bqhd", p.to(v.dtype), v))
+        o = (p.to(v.dtype) @ vh).reshape(B, H, c, hd)
+        outs.append(o.transpose(1, 2))
     return torch.cat(outs, dim=1)
 
 
 class Attention(nn.Module):
-    """Causal self-attention with GQA and rotary embeddings."""
+    """GQA attention: causal self-attention with rotary embeddings, or
+    with ``cross`` cross-attention (the reference's XATTN), whose K and V
+    come from a context stream (B, Sk, d) with no rotary and no mask."""
 
     def __init__(self, d_model, n_heads, n_kv_heads, head_dim,
-                 qkv_bias=False, rope_theta=10_000.0, dtype=torch.float32,
-                 device="cuda"):
+                 qkv_bias=False, rope_theta=10_000.0, cross: bool = False,
+                 dtype=torch.float32, device="cuda"):
         super().__init__()
         self.n_heads, self.n_kv_heads = n_heads, n_kv_heads
         self.head_dim, self.rope_theta = head_dim, rope_theta
+        self.cross = cross
         h, kvh, hd = n_heads, n_kv_heads, head_dim
         self.wq = Linear(d_model, h * hd, qkv_bias, dtype, device=device)
         self.wk = Linear(d_model, kvh * hd, qkv_bias, dtype, device=device)
@@ -239,54 +271,67 @@ class Attention(nn.Module):
         for lin in (self.wq, self.wk, self.wv, self.wo):
             lin.reset(generator)
 
-    def forward(self, x, positions=None, return_kv: bool = False):
-        """x (B, S, d) -> (out, (k, v) in the unexpanded (B, S, n_kv, hd)
-        cache layout when ``return_kv``, else None)."""
+    def forward(self, x, positions=None, context=None,
+                return_kv: bool = False):
+        """x (B, S, d); ``context`` (B, Sk, d), the K/V source of a cross
+        layer -> (out, (k, v) in the unexpanded (B, Sk, n_kv, hd) cache
+        layout when ``return_kv``, else None)."""
         B, S, _ = x.shape
         h, kvh, hd = self.n_heads, self.n_kv_heads, self.head_dim
+        if self.cross and context is None:
+            raise ValueError("a cross-attention layer needs its context")
+        src = context if self.cross else x
+        Sk = src.shape[1]
         q = self.wq(x).reshape(B, S, h, hd)
-        k = self.wk(x).reshape(B, S, kvh, hd)
-        v = self.wv(x).reshape(B, S, kvh, hd)
-        if self.rope_theta > 0:
+        k = self.wk(src).reshape(B, Sk, kvh, hd)
+        v = self.wv(src).reshape(B, Sk, kvh, hd)
+        if self.rope_theta > 0 and not self.cross:
             if positions is None:
                 positions = torch.arange(S, device=x.device)
             cos, sin = rotary_embedding(positions, hd, self.rope_theta,
                                         x.dtype)
             q = apply_rotary(q, cos, sin)
             k = apply_rotary(k, cos, sin)
-        kv_out = (k, v) if return_kv else None
-        if self.group > 1:
-            k = torch.repeat_interleave(k, self.group, dim=2)
-            v = torch.repeat_interleave(v, self.group, dim=2)
-        out = chunked_attention(q, k, v)
-        return self.wo(out.reshape(B, S, h * hd)), kv_out
+        out = chunked_attention(q, k, v, causal=not self.cross,
+                                q_chunk=query_chunk(B, h, S, Sk))
+        return (self.wo(out.reshape(B, S, h * hd)),
+                (k, v) if return_kv else None)
 
     def decode(self, x, cache_k, cache_v, pos):
         """x (B, 1, d); cache_k/v (B, S_max, n_kv, hd) of x's type, or the
-        int8 form ``{"q", "s"}``, written in place at ``pos`` (an int, or a
-        one-element int32 tensor on x's device); positions 0..pos attend.
-        Grouped decode attention is ``kernels.decode_attn``: the CUDA
-        kernel on the card, which reads an int8 cache as it is stored, its
-        plain version on the CPU; both attend over ``cache_read(c,
-        x.dtype)``, and the fp32 output is cast to x's type before ``wo``.
-        Returns (out, cache_k, cache_v)."""
+        int8 form ``{"q", "s"}``. Self-attention writes the token's K/V
+        into them in place at ``pos`` (an int, or a one-element int32
+        tensor on x's device) and attends positions 0..pos; cross-attention
+        writes nothing and attends the whole cache (``pos`` unused: the
+        kernel's pos is the cache's last, which masks nothing), and returns
+        the very tensors it was given. Grouped decode attention is
+        ``kernels.decode_attn``: the CUDA kernel on the card, which reads
+        an int8 cache as it is stored, its plain version on the CPU; both
+        attend over ``cache_read(c, x.dtype)``, and the fp32 output is cast
+        to x's type before ``wo``. Returns (out, cache_k, cache_v)."""
         B = x.shape[0]
         h, kvh, hd = self.n_heads, self.n_kv_heads, self.head_dim
         q = self.wq(x).reshape(B, 1, kvh, self.group, hd)
-        kn = self.wk(x).reshape(B, 1, kvh, hd)
-        vn = self.wv(x).reshape(B, 1, kvh, hd)
-        if self.rope_theta > 0:
-            if isinstance(pos, torch.Tensor):
-                posv = pos.reshape(1, 1).expand(B, 1)
-            else:
-                posv = torch.full((B, 1), pos, dtype=torch.int32,
-                                  device=x.device)
-            cos, sin = rotary_embedding(posv, hd, self.rope_theta, x.dtype)
-            q = apply_rotary(q.reshape(B, 1, h, hd), cos, sin).reshape(
-                B, 1, kvh, self.group, hd)
-            kn = apply_rotary(kn, cos, sin)
-        cache_k = cache_write(cache_k, kn, pos)
-        cache_v = cache_write(cache_v, vn, pos)
+        if self.cross:
+            S = (cache_k["q"] if isinstance(cache_k, dict)
+                 else cache_k).shape[1]
+            pos = S - 1
+        else:
+            kn = self.wk(x).reshape(B, 1, kvh, hd)
+            vn = self.wv(x).reshape(B, 1, kvh, hd)
+            if self.rope_theta > 0:
+                if isinstance(pos, torch.Tensor):
+                    posv = pos.reshape(1, 1).expand(B, 1)
+                else:
+                    posv = torch.full((B, 1), pos, dtype=torch.int32,
+                                      device=x.device)
+                cos, sin = rotary_embedding(posv, hd, self.rope_theta,
+                                            x.dtype)
+                q = apply_rotary(q.reshape(B, 1, h, hd), cos, sin).reshape(
+                    B, 1, kvh, self.group, hd)
+                kn = apply_rotary(kn, cos, sin)
+            cache_k = cache_write(cache_k, kn, pos)
+            cache_v = cache_write(cache_v, vn, pos)
         out = decode_attn(q.reshape(B, kvh, self.group, hd), cache_k,
                           cache_v, pos)
         out = out.to(x.dtype).reshape(B, 1, h * hd)

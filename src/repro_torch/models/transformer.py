@@ -3,22 +3,25 @@
 A model is ``n_blocks`` repetitions of a super-block, a tuple of (mixer,
 ffn) sublayers from the config's ``block_pattern``; a Python loop over
 the blocks stands in for the reference's ``lax.scan``. Ported sublayers:
-ATTN and RWKV mixers; MLP, and the RWKV channel-mix as the FFN of an
-RWKV sublayer. MAMBA, MOE and XATTN sublayers and enc-dec models raise
+ATTN, XATTN (cross-attention over ``extras["context"]``, the VLM's image
+tokens) and RWKV mixers; MLP, MoE, and the RWKV channel-mix as the FFN of
+an RWKV sublayer. MAMBA sublayers and enc-dec models raise
 ``NotImplementedError`` (ROADMAP, module 9).
 
 API, as the reference's with the parameters held by the module:
-    hidden(tokens) -> (h, aux, kvs)     logits(h) -> (B, S, V)
-    prefill(tokens, max_seq) -> (cache, last_logits)
+    hidden(tokens, extras) -> (h, aux, kvs)     logits(h) -> (B, S, V)
+    prefill(tokens, extras, max_seq) -> (cache, last_logits)
     decode(cache, token, pos) -> (cache, logits)
     init_cache(batch, seq)              pad_cache(kvs, prefill_len, max_seq)
 
 A cache is a list with one entry per block, ``{"sub0": {"mixer": {"k",
 "v"} or {"shift", "wkv"}, "ffn": {"shift"}}}`` as the reference's tree
 without its leading block axis; with ``kv_cache_dtype="int8"`` each of
-"k" and "v" is the reference's ``{"q": int8, "s": fp32 (..., 1)}``.
-``decode`` writes the new token's K/V into the cache's buffers in place
-and replaces the recurrent states. Its ``pos`` is an int, or a
+"k" and "v" is the reference's ``{"q": int8, "s": fp32 (..., 1)}``. An
+XATTN sublayer's "k" and "v" hold the context's ``n_frontend_tokens``
+positions, written once by the prefill and read whole by every step.
+``decode`` writes the new token's K/V into the self-attention buffers in
+place and replaces the recurrent states. Its ``pos`` is an int, or a
 one-element int32 tensor on the model's device that the step reads on the
 card (``repro_torch.launch.serve`` captures such a step once as a CUDA
 graph).
@@ -30,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import (ATTN, MLP, MOE, NOFF, RWKV,
+from repro_torch.configs.base import (ATTN, MLP, MOE, NOFF, RWKV, XATTN,
                                       ArchConfig)
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoE
@@ -39,15 +42,17 @@ from repro_torch.models.rwkv6 import RWKV6ChannelMix, RWKV6TimeMix
 
 def _unported(what: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP, module "
-                               f"9); the port runs ATTN and RWKV mixers "
-                               f"with MLP, MoE or channel-mix FFNs")
+                               f"9); the port runs ATTN, XATTN and RWKV "
+                               f"mixers with MLP, MoE or channel-mix FFNs")
 
 
 def _mixer_module(cfg: ArchConfig, kind: str, dtype, device):
-    if kind == ATTN:
+    if kind in (ATTN, XATTN):
+        cross = kind == XATTN
         return L.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                           qkv_bias=cfg.qkv_bias, rope_theta=cfg.rope_theta,
-                           dtype=dtype, device=device)
+                           qkv_bias=cfg.qkv_bias,
+                           rope_theta=0.0 if cross else cfg.rope_theta,
+                           cross=cross, dtype=dtype, device=device)
     if kind == RWKV:
         return RWKV6TimeMix(cfg.d_model, cfg.rwkv_head_size,
                             cfg.rwkv_decay_lora, cfg.rwkv_gate_lora,
@@ -114,13 +119,14 @@ class SubLayer(nn.Module):
             return x + o, None, aux
         return x + self.ffn(h), None, None
 
-    def forward(self, x, collect_kv: bool):
-        """Full sequence: (x, the MoE's load-balancing loss or None, this
-        sublayer's cache entry or None)."""
+    def forward(self, x, collect_kv: bool, context=None):
+        """Full sequence (``context`` (B, Sk, d) for an XATTN mixer): (x,
+        the MoE's load-balancing loss or None, this sublayer's cache entry
+        or None)."""
         kv = {}
         h = self.norm1(x)
-        if self.mixer_kind == ATTN:
-            o, kv_pair = self.mixer(h, return_kv=collect_kv)
+        if self.mixer_kind in (ATTN, XATTN):
+            o, kv_pair = self.mixer(h, context=context, return_kv=collect_kv)
             if collect_kv:
                 k, v = kv_pair
                 if self.kv_int8:  # this layer's K/V only, never all layers'
@@ -138,7 +144,7 @@ class SubLayer(nn.Module):
         (x, new cache entry)."""
         nc = {}
         h = self.norm1(x)
-        if self.mixer_kind == ATTN:
+        if self.mixer_kind in (ATTN, XATTN):
             c = cache["mixer"]
             o, k, v = self.mixer.decode(h, c["k"], c["v"], pos)
             nc["mixer"] = {"k": k, "v": v}
@@ -170,16 +176,17 @@ class Stack(nn.Module):
             for sub in block.values():
                 sub.reset(generator)
 
-    def forward(self, x, collect_kv: bool = False):
-        """x (B, S, d) -> (x, the MoE sublayers' load-balancing losses
-        summed in block order (fp32, 0 without MoE), per-block caches or
-        None)."""
+    def forward(self, x, extras=None, collect_kv: bool = False):
+        """x (B, S, d), ``extras["context"]`` (B, Sk, d) for the XATTN
+        sublayers -> (x, the MoE sublayers' load-balancing losses summed
+        in block order (fp32, 0 without MoE), per-block caches or None)."""
+        context = (extras or {}).get("context")
         kvs = []
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.blocks:
             kv = {}
             for name, sub in block.items():
-                x, aux, kv[name] = sub(x, collect_kv)
+                x, aux, kv[name] = sub(x, collect_kv, context)
                 if aux is not None:
                     total = total + aux
             kvs.append(kv)
@@ -197,6 +204,9 @@ class Stack(nn.Module):
         return x, new_cache
 
     def init_cache(self, batch: int, seq: int):
+        """Zero buffers: ``seq`` positions of each self-attention layer,
+        the context's ``n_frontend_tokens`` of each XATTN layer, the
+        recurrent states."""
         cfg, dev = self.cfg, self.blocks[0]["sub0"].norm1.scale.device
         H, hd = cfg.rwkv_n_heads, cfg.rwkv_head_size
 
@@ -213,8 +223,10 @@ class Stack(nn.Module):
         for block in self.blocks:
             c = {}
             for name, sub in block.items():
-                if sub.mixer_kind == ATTN:
-                    shp = (batch, seq, cfg.n_kv_heads, cfg.hd)
+                if sub.mixer_kind in (ATTN, XATTN):
+                    n = seq if sub.mixer_kind == ATTN \
+                        else cfg.n_frontend_tokens
+                    shp = (batch, n, cfg.n_kv_heads, cfg.hd)
                     e = {"mixer": {"k": kv_buf(*shp), "v": kv_buf(*shp)}}
                 else:
                     e = {"mixer": {"shift": zeros(batch, cfg.d_model),
@@ -228,7 +240,8 @@ class Stack(nn.Module):
     def pad_cache(self, kvs, prefill_len: int, max_seq: int):
         """Pad the self-attention K/V collected at prefill out to
         ``max_seq`` tokens so that decode can keep writing (zeros, and for
-        the int8 form zero ``q`` and zero ``s``); states pass through."""
+        the int8 form zero ``q`` and zero ``s``); states and the XATTN
+        layers' context K/V pass through."""
         if max_seq < prefill_len:
             raise ValueError(f"max_seq {max_seq} < prefill length "
                              f"{prefill_len}")
@@ -249,8 +262,8 @@ class Stack(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """Decoder-only LM for the dense (ATTN + MLP), MoE (ATTN + MoE) and
-    RWKV families.
+    """Decoder-only LM for the dense (ATTN + MLP), MoE (ATTN + MoE), RWKV
+    and VLM (ATTN and XATTN over image tokens, + MLP) families.
 
     Parameters are held in ``param_dtype`` (the reference's fp32 norm,
     mix, decay and bonus parameters stay fp32) and drawn at construction
@@ -265,8 +278,6 @@ class DecoderLM(nn.Module):
         super().__init__()
         if cfg.enc_dec:
             raise _unported("the encoder-decoder LM")
-        if cfg.cross_attn_every:
-            raise _unported("cross-attention (XATTN)")
         self.cfg, self.compute_dtype = cfg, compute_dtype
         self.device = resolve_device(device)
         dev = self.device
@@ -291,12 +302,22 @@ class DecoderLM(nn.Module):
         return self
 
     # ---- forward ----------------------------------------------------------
+    def _extras(self, extras):
+        extras = dict(extras or {})
+        if self.cfg.cross_attn_every and "context" not in extras:
+            raise ValueError(f"{self.cfg.name} needs extras['context'] "
+                             f"(frontend stub)")
+        return extras
+
     @torch.no_grad()
-    def hidden(self, tokens, collect_kv: bool = False):
-        """tokens (B, S) int -> (h (B, S, d), the MoE sublayers' summed
-        load-balancing loss (0 without MoE), kvs)."""
+    def hidden(self, tokens, extras=None, collect_kv: bool = False):
+        """tokens (B, S) int; ``extras["context"]`` (B, n_frontend_tokens,
+        d), the image tokens a VLM's XATTN layers attend (required there)
+        -> (h (B, S, d), the MoE sublayers' summed load-balancing loss (0
+        without MoE), kvs)."""
+        extras = self._extras(extras)
         x = self.embed(tokens, self.compute_dtype)
-        x, aux, kvs = self.stack(x, collect_kv=collect_kv)
+        x, aux, kvs = self.stack(x, extras, collect_kv=collect_kv)
         x = self.final_norm(x)
         return x, aux, kvs
 
@@ -309,10 +330,11 @@ class DecoderLM(nn.Module):
 
     # ---- serving ----------------------------------------------------------
     @torch.no_grad()
-    def prefill(self, tokens, max_seq=None):
-        """-> (cache, logits of the last position (B, 1, V)); the K/V
-        buffers hold ``max_seq`` tokens (default: the prompt's length)."""
-        h, _aux, kvs = self.hidden(tokens, collect_kv=True)
+    def prefill(self, tokens, extras=None, max_seq=None):
+        """-> (cache, logits of the last position (B, 1, V)); the
+        self-attention K/V buffers hold ``max_seq`` tokens (default: the
+        prompt's length), the XATTN layers' the context's K/V."""
+        h, _aux, kvs = self.hidden(tokens, extras, collect_kv=True)
         if max_seq is not None:
             kvs = self.stack.pad_cache(kvs, tokens.shape[1], max_seq)
         return kvs, self.logits(h[:, -1:, :])

@@ -334,14 +334,17 @@ def make_tenant_accuracy_reduce_step(tenants, mesh=None):
 
 def make_prefill_step(model, cfg, max_seq=None):
     """``step(batch) -> (cache, last_logits)`` for ``batch["tokens"]`` (B,
-    S). The reference's step prefills without ``max_seq``, which leaves no
-    room in the K/V cache (its writes then clamp onto the last token); a
-    decoder that follows passes the length to serve up to."""
+    S) and, for a VLM, ``batch["context"]`` (B, n_frontend_tokens, d), the
+    image tokens its XATTN layers attend. The reference's step prefills
+    without ``max_seq``, which leaves no room in the K/V cache (its writes
+    then clamp onto the last token); a decoder that follows passes the
+    length to serve up to."""
     def prefill(batch):
-        if "context" in batch or "frames" in batch:
-            raise NotImplementedError("cross-attention and enc-dec inputs "
-                                      "are not ported (ROADMAP, module 9)")
-        return model.prefill(batch["tokens"], max_seq=max_seq)
+        if "frames" in batch:
+            raise NotImplementedError("enc-dec inputs are not ported "
+                                      "(ROADMAP, module 9)")
+        extras = {"context": batch["context"]} if "context" in batch else {}
+        return model.prefill(batch["tokens"], extras, max_seq=max_seq)
 
     return prefill
 

@@ -857,6 +857,45 @@ def test_decode_attn_head_dim_128_takes_every_group_and_cache(cuda, G,
     assert torch.equal(decode_attn_cuda(q, k, v, 2900), first)
 
 
+# G 8 at hd 128 (llama-3.2-vision-90b's 64 heads over 8) over caches whose
+# length no tile divides (64 positions of the bf16 and fp32 bodies, 128
+# of the int8 one): 1,601 patches of one image tile, and the cross layers'
+# 6,404 image tokens, read whole (pos S - 1, the cross decode) and up to a
+# smaller pos past which garbage lies; the same bound as above
+@pytest.mark.parametrize("dims", [
+    (2, 1601, 8, 8, 128, 1600),
+    (2, 1601, 8, 8, 128, 1000),
+    (2, 6404, 8, 8, 128, 6403),
+    (2, 6404, 8, 8, 128, 5000),
+    (16, 6404, 8, 8, 128, 6403)])  # the cross layers' decode shape
+@pytest.mark.parametrize("cache", ["bf16", "fp32", "int8,bf16", "int8,fp32"])
+def test_decode_attn_group_8_on_caches_no_tile_divides(cuda, dims, cache):
+    from repro_torch.kernels.decode_attn import kernel as dk
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    B, S, KV, G, hd, pos = dims
+    dtype = torch.bfloat16 if cache.endswith("bf16") else torch.float32
+    int8 = cache.startswith("int8")
+    make = _int8_attn_inputs if int8 else _attn_inputs
+    q, k, v = make(cuda, B, S, KV, G, hd, dtype, seed=S + pos)
+    before = dk.LAUNCHES["decode_attn"]
+    got = decode_attn(q, k, v, pos)
+    assert dk.LAUNCHES["decode_attn"] == before + 1
+    want = decode_attn_ref(q, k, v, pos)
+    assert got.dtype == torch.float32 and got.shape == (B, KV, G, hd)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-5, rtol=1e-4)
+    if pos < S - 1:  # garbage past pos changes nothing
+        if int8:
+            k["q"][:, pos + 1:], v["q"][:, pos + 1:] = 127, -127
+            k["s"][:, pos + 1:], v["s"][:, pos + 1:] = (float("inf"),
+                                                        float("nan"))
+        else:
+            k[:, pos + 1:], v[:, pos + 1:] = float("inf"), float("nan")
+        assert torch.equal(decode_attn(q, k, v, pos), got)
+
+
 @pytest.mark.parametrize("cache", ["bf16", "int8,bf16"])
 def test_decode_attn_head_dim_128_graph_replays_at_device_positions(cuda,
                                                                    cache):
@@ -1010,11 +1049,14 @@ def test_moe_on_the_card_keeps_tied_tokens_as_the_cpu(cuda):
                                        ("rwkv6_1b6", False),
                                        ("stablelm_3b", True),
                                        ("olmoe_1b_7b", False),
-                                       ("moonshot_v1_16b_a3b", True)])
+                                       ("moonshot_v1_16b_a3b", True),
+                                       ("llama3_2_vision_90b", False),
+                                       ("llama3_2_vision_90b", True)])
 def test_graph_decode_equals_eager_decode(cuda, arch, int8):
     """The serving launcher's captured step replayed at every position gives
     the eager loop's tokens (reduced configs, bf16, random weights); the
-    capture records one kernel launch per layer."""
+    capture records one kernel launch per layer, a VLM's cross layer's
+    too (llama-vision-reduced at head dim 32: the kernel has no 16)."""
     import dataclasses
 
     from repro_torch.configs import get_reduced_config
@@ -1024,12 +1066,20 @@ def test_graph_decode_equals_eager_decode(cuda, arch, int8):
     cfg = get_reduced_config(arch)
     if int8:
         cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    extras = {}
+    if cfg.cross_attn_every:
+        cfg = dataclasses.replace(cfg, head_dim=32)
+        extras["context"] = 0.3 * torch.randn(
+            4, cfg.n_frontend_tokens, cfg.d_model, device=cuda,
+            generator=torch.Generator(cuda).manual_seed(1)).to(torch.bfloat16)
     model = DecoderLM(cfg, torch.bfloat16, torch.bfloat16, device=cuda,
                       generator=torch.Generator(cuda).manual_seed(0))
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (4, 40)).astype(np.int32)).to(cuda)
-    eager = serve_tokens(model, prompts, 12, max_seq=64, graph=False)
-    graph = serve_tokens(model, prompts, 12, max_seq=64, graph=True)
+    eager = serve_tokens(model, prompts, 12, max_seq=64, graph=False,
+                         extras=extras)
+    graph = serve_tokens(model, prompts, 12, max_seq=64, graph=True,
+                         extras=extras)
     assert eager.finite and graph.finite and eager.graph is None
     kernel = "wkv6" if cfg.attn_free else "decode_attn"
     assert graph.graph.launches == {kernel: cfg.n_layers}

@@ -339,9 +339,9 @@ def test_decode_graph_replay_checks_the_position_on_the_host(arch, length):
     cfg = _configs(arch, arch == "stablelm_3b")[1]
     model = DecoderLM(cfg, compute_dtype=torch.float32, device="cpu",
                       generator=torch.Generator().manual_seed(0))
-    assert serve.cache_length(model.init_cache(B, 8)) == length
+    assert serve.cache_length(model.init_cache(B, 8), cfg) == length
     graph = object.__new__(serve.DecodeGraph)
-    graph.max_seq = serve.cache_length(model.init_cache(B, 8))
+    graph.max_seq = serve.cache_length(model.init_cache(B, 8), cfg)
     graph.pos = torch.zeros(1, dtype=torch.int32)
     if length is None:
         return
