@@ -164,7 +164,8 @@ check it end to end.
    decode shape (B=16, S=2048, KV=16, G=1, pos=1087) on a bf16 cache, with
    the graph check, moonshot-v1-16b-a3b's (the same on an int8 cache,
    the tensor-core int8 body; with the graph check), llama-3.2-vision-
-   90b's self layers' (KV=8, G=8, pos=1087, the int8 cache; a bf16 one,
+   90b's self layers' (KV=8, G=8, pos=1087, the int8 cache: the tensor-
+   core body with p.v as O += P V; with the graph check; a bf16 one,
    qwen1.5-110b's shape, off the path) and its cross layers' (B=16, the
    whole int8 cache of S=6404 image tokens, pos=6403), SDPA timed on
    each bf16 cache and, unmasked, on a bf16 copy of the cross cache.
@@ -2042,7 +2043,7 @@ def decode_attn_kernel_phase():
                 f"{rows[f'decode_attn[{bf16_twin}]']['library_ms']:.4f} ms "
                 f"on the bf16 cache, L2 flushed ({CARD})")
         if tag in ("path,bf16", "stablelm,int8", "olmoe,bf16",
-                   "moonshot,int8"):
+                   "moonshot,int8", "llama-vision,int8"):
             _decode_attn_graph_check(q, k, v)
         del q, k, v, qh, kh, vh, want
         torch.cuda.empty_cache()
@@ -2278,7 +2279,8 @@ def decode_attn_sass_report():
     """Logs the SASS (``cuobjdump -sass``) of the int8 reads on the served
     paths and smollm's int8 shape: stablelm-3b's ``decode_attn_kernel<bf16,
     int8_t, 80, 1>`` and the tensor-core body's ``<bf16, int8_t, 128, 1>``
-    (moonshot-v1-16b-a3b) and ``<bf16, int8_t, 64, 3>``: instruction count,
+    (moonshot-v1-16b-a3b), ``<bf16, int8_t, 128, 8>`` (llama-3.2-vision-
+    90b) and ``<bf16, int8_t, 64, 3>``: instruction count,
     conversions (I2F, F2F, F2FP: none a value but F2FP, one for two),
     shared-memory loads by width, tensor-core products (HMMA) and top
     opcodes. Checks nothing."""
@@ -2292,6 +2294,7 @@ def decode_attn_sass_report():
         label = _decode_attn_label(part.split()[0])
         if label not in ("decode_attn_kernel<bf16, int8_t, 80, 1>",
                          "decode_attn_kernel<bf16, int8_t, 128, 1>",
+                         "decode_attn_kernel<bf16, int8_t, 128, 8>",
                          "decode_attn_kernel<bf16, int8_t, 64, 3>"):
             continue
         ops = collections.Counter(re.findall(

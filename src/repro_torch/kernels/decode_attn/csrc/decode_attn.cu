@@ -88,19 +88,22 @@
 //    channels: lane = slot x chunk (32 / chunks slots; at hd 80 6 slots of
 //    5 chunks, 2 lanes idle), each slot a position of the warp at a time,
 //    its weights shuffled from the lane that scored it. No read of the
-//    int8 rows is narrower than 16 bytes. At hd 128 and G > 4 the 16 G
-//    accumulators of a lane reach the 255-register limit: there the loops
-//    over copies, q.k chunks and p.v passes stay rolled (TIGHT).
-// 6. The int8 cache with a bf16 q at hd 64 and 128, G <= 4 (MMA_BODY:
-//    moonshot-v1-16b-a3b's path, smollm's int8 shape): walk_int8_mma, the
-//    same dequantize straight into mma.sync m16n8k16 fragments, both
-//    products on the tensor cores (bf16 operands, exact for the
-//    dequantized values and for q; P as bf16 hi + lo, two columns of one
-//    product; fp32 sums), so no FMA, widening or weight shuffle a value.
+//    int8 rows is narrower than 16 bytes. At hd 128 and G > 4 (an fp32 q)
+//    the 16 G accumulators of a lane reach the 255-register limit: there
+//    the loops over copies, q.k chunks and p.v passes stay rolled (TIGHT).
+// 6. The int8 cache with a bf16 q at hd 64 and 128 (MMA_BODY:
+//    moonshot-v1-16b-a3b's path, llama-3.2-vision-90b's G 8, smollm's int8
+//    shape): walk_int8_mma, the same dequantize straight into mma.sync
+//    m16n8k16 fragments, both products on the tensor cores (bf16
+//    operands, exact for the dequantized values and for q; P as bf16 hi +
+//    lo, two columns of one product, or at G > 4 two rows of P as the A
+//    operand; fp32 sums), so no FMA, widening or weight shuffle a value.
 //    Its own tiles (MmaPlan): 16 positions of one head a warp, a ring of 4
-//    tiles (17 KB each at hd 128, three blocks an SM). Its splits spread
-//    positions 0..pos evenly over the launch's nsplit, which the wrapper
-//    sizes to two blocks an SM: one wave of long blocks whatever pos is.
+//    tiles (17 KB each at hd 128, three blocks an SM); at G > 4 8 warps a
+//    block, one KV head, a ring of 3 tiles of 34 KB, one block an SM. Its
+//    splits spread positions 0..pos evenly over the launch's nsplit, which
+//    the wrapper sizes to two blocks an SM (one at G > 4): one wave of long
+//    blocks whatever pos is.
 // 7. The grid and the scratch depend on (B*KV, S) and the cache's type
 //    only, never on pos: the wrapper's split plan is a function of them. A
 //    block whose split starts after pos leaves at once, and the merge
@@ -213,53 +216,84 @@ struct Q8Plan {
   static_assert(SMEM <= 227 * 1024, "dynamic shared memory of a block");
 };
 
+// walk_int8_mma at G > 4: the tiles of its ring and the warps of a block
+// (macros only so that tools/decode_attn_splits.py can build the variants
+// it sweeps)
+#ifndef DECODE_ATTN_WIDE_NSTAGE
+#define DECODE_ATTN_WIDE_NSTAGE 3
+#endif
+#ifndef DECODE_ATTN_WIDE_WARPS
+#define DECODE_ATTN_WIDE_WARPS 8
+#endif
+
 // walk_int8_mma's tiles: WP positions of one head a warp, TP (position,
-// head) rows a tile, a ring of NSTAGE tiles in dynamic shared memory
-template <int HD>
+// head) rows a tile for W warps, a ring of NS tiles in dynamic shared
+// memory
+template <int HD, int NS = 4, int W = NW>
 struct MmaPlan {
   static constexpr int WP = 16;
-  static constexpr int TP = NW * WP;
-  static constexpr int NSTAGE = 4;
+  static constexpr int BT = 32 * W;  // threads of a block
+  static constexpr int TP = W * WP;
+  static constexpr int NSTAGE = NS;
   static constexpr int CPR = HD / 16;         // 16-byte chunks of a row
   static constexpr int ROWS = TP * HD;        // bytes of K (of V) a tile
   static constexpr int STAGE = 2 * ROWS + 2 * 4 * TP;  // K, V, scales
   static constexpr int SMEM = NSTAGE * STAGE;
-  static constexpr int NCOPY = TP * CPR / NT;  // a thread's chunks of K
-  static_assert(WP % 16 == 0 && TP <= NT && (TP * CPR) % NT == 0,
-                "whole k-steps, a scale a thread, whole copies");
-  static_assert(4 * NW * MAX_GROUP * (HD + 2) <= SMEM,
+  static constexpr int NCOPY = TP * CPR / BT;  // a thread's chunks of K
+  static_assert(WP % 16 == 0 && TP <= BT && (TP * CPR) % BT == 0 &&
+                    NSTAGE >= 2,
+                "whole k-steps, a scale a thread, whole copies, a ring");
+  static_assert(4 * W * MAX_GROUP * (HD + 2) <= SMEM,
                 "merge area fits the ring");
 };
 
 // The int8 cache's body on the tensor cores (walk_int8_mma): bf16 q at hd
-// 64 and 128, G <= 4 (moonshot-v1-16b-a3b's hd 128, G 1; smollm's hd 64,
-// G 3). Every other int8 instantiation keeps walk_int8.
+// 64 and 128, any G (moonshot-v1-16b-a3b's hd 128, G 1; smollm's hd 64,
+// G 3; llama-3.2-vision-90b's hd 128, G 8). Every other int8
+// instantiation keeps walk_int8.
 template <typename T, int HD, int G>
 constexpr bool MMA_BODY = std::is_same<T, __nv_bfloat16>::value &&
-                          (HD == 64 || HD == 128) && G <= 4;
+                          (HD == 64 || HD == 128);
+
+// walk_int8_mma's ring: 4 tiles, DECODE_ATTN_WIDE_NSTAGE at G > 4; and
+// its warps: NW, DECODE_ATTN_WIDE_WARPS at G > 4
+template <int G>
+constexpr int MMA_STAGES = G > 4 ? DECODE_ATTN_WIDE_NSTAGE : 4;
+template <int G>
+constexpr int MMA_WARPS = G > 4 ? DECODE_ATTN_WIDE_WARPS : NW;
+
+// threads of a block of decode_attn_kernel<T, E, HD, G>
+template <typename T, typename E, int HD, int G>
+constexpr int block_threads() {
+  return IS_INT8<E> && MMA_BODY<T, HD, G> ? 32 * MMA_WARPS<G> : NT;
+}
 
 // dynamic shared memory of an int8 block: the ring, and q after it for
 // walk_int8 (walk_int8_mma keeps q in registers)
 template <typename T, int HD, int G>
 constexpr int q8_smem() {
   if constexpr (MMA_BODY<T, HD, G>)
-    return MmaPlan<HD>::SMEM;
+    return MmaPlan<HD, MMA_STAGES<G>, MMA_WARPS<G>>::SMEM;
   else
     return Q8Plan<HD, G>::SMEM;
 }
 
-// resident blocks per SM, at least (at most 65536 / (NT x this) registers
-// a thread). bf16, fp32 caches: 4, or 3 where G > 6, whose q and
-// accumulators do not fit 128 registers without spills. int8: 4 (44 KB of
-// shared memory a block at hd 80), or 2 where G > 2 (16 G accumulators a
-// lane, and G q.k sums; not walk_int8_mma, whose fragments do not grow
-// with G), and never more blocks than the ring and q (q8_smem) let an SM
+// resident blocks per SM, at least (at most 65536 / (block_threads x
+// this) registers a thread). bf16, fp32 caches: 4, or 3 where G > 6, whose
+// q and accumulators do not fit 128 registers without spills. int8: 4 (44
+// KB of shared memory a block at hd 80), or 2 where G > 2 (16 G
+// accumulators a lane, and G q.k sums), but for walk_int8_mma, whose
+// fragments do not grow with G: 4, or 8 / W at G > 4 (one block of 8
+// warps); and never more blocks than the ring and q (q8_smem) let an SM
 // hold: 3 at hd 128, G <= 2 (70 KB a block; 67.6 KB for walk_int8_mma)
 constexpr int SM_SMEM = 228 * 1024;      // an SM's, at the largest carveout
 constexpr int BLOCK_SMEM_RESERVED = 1024;  // the system's, per block
 template <typename T, typename E, int HD, int G>
 constexpr int min_blocks() {
-  if constexpr (IS_INT8<E>)
+  if constexpr (IS_INT8<E> && MMA_BODY<T, HD, G> && G > 4)
+    return cmin(8 / MMA_WARPS<G>,
+                SM_SMEM / (q8_smem<T, HD, G>() + BLOCK_SMEM_RESERVED));
+  else if constexpr (IS_INT8<E>)
     return cmin(G > 2 && !MMA_BODY<T, HD, G> ? 2 : 4,
                 SM_SMEM / (q8_smem<T, HD, G>() + BLOCK_SMEM_RESERVED));
   else
@@ -725,11 +759,12 @@ __device__ __forceinline__ int vchunk_at(int p, int c) {
   return 16 * (p * CPR + (c ^ (p & (CPR - 2))));
 }
 
-// walk_int8 on the tensor cores (MMA_BODY: bf16 q, hd 64 or 128, G <= 4):
-// the same copies of kvg heads' rows, but MmaPlan's tiles, each warp WP =
-// 16 positions of its head a tile in a ring of 4 (a short tile keeps 167
+// walk_int8 on the tensor cores (MMA_BODY: bf16 q, hd 64 or 128): the same
+// copies of kvg heads' rows, but MmaPlan's tiles, each warp WP = 16
+// positions of its head a tile in a ring of 4 (a short tile keeps 167
 // registers a thread, three blocks an SM, with the ring deep enough to
-// hide the reads), both products as mma.sync m16n8k16 (bf16 in, fp32 sums).
+// hide the reads; at G > 4 W = 8 warps and a ring of 3), both products as
+// mma.sync m16n8k16 (bf16 in, fp32 sums).
 // q.k: S (G x 8 positions) += Q (G x 16 channels) K^T, Q unscaled bf16 in
 // registers (rows G.. zero), K the dequantized tile; the lane (g, t) that
 // reads K row 8 nt + g takes its channels 4 (KS t + j) .. + 3 for k-step
@@ -740,22 +775,36 @@ __device__ __forceinline__ int vchunk_at(int p, int c) {
 // of q.k's two n-tiles (no exchange of scores), V's rows read in bytes
 // HD/8 r .. + HD/8 - 1 by lane (r, t), and P split into bf16 hi + lo in
 // columns 2 g and 2 g + 1 (fp32 P to 2^-17; V exact in bf16), added after
-// the loop. Per value: a byte permute, one FADD, one FMUL and half a cvt;
-// the FMAs, widening, weight shuffles and cross-slot sums of walk_int8's
-// chunked p.v are gone. Ends as walk_int8.
+// the loop. At G > 4 (PA: llama-3.2-vision-90b's G 8) the 2G columns of
+// hi and lo no longer fit one n-tile, and p.v turns around: O (16 x 8
+// channels) += P (16 x 16 positions) V, P the A operand taken as it lies
+// in q.k's accumulators (rows g: head g's hi, rows g + 8: its lo; lane
+// (g, t) holds columns 2t, 2t + 1 of both n-tiles of the k-step), so no
+// score moves between lanes and each lane rescales with its own head's
+// correction; V the B operand, n-tile n's column c channel BPL c + n, so
+// that lane (g, t) reads the same BPL bytes of rows 2t, + 1, + 8, + 9 as
+// above, and its HD / 8 n-tiles (64 fp32 sums at hd 128, still within
+// 167 registers) hold head g's channels BPL 2t + n and BPL (2t + 1) + n,
+// hi and lo rows summed after the loop. Per value: a byte permute, one
+// FADD, one FMUL and half a cvt; the FMAs, widening, weight shuffles and
+// cross-slot sums of walk_int8's chunked p.v are gone. Ends as walk_int8.
 template <int HD, int G>
 __device__ __forceinline__ void walk_int8_mma(
     const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kb,
     const int8_t* __restrict__ vb, const float* __restrict__ ks,
     const float* __restrict__ vs, int KV, int kvg, int begin, int end,
     unsigned char* smem) {
-  using M = MmaPlan<HD>;
+  constexpr int W = MMA_WARPS<G>;  // warps of the block
+  using M = MmaPlan<HD, MMA_STAGES<G>, W>;
   constexpr int CPR = M::CPR, TP = M::TP, WP = M::WP, NSTAGE = M::NSTAGE;
+  constexpr int BT = M::BT;
   constexpr int KS = HD / 16;   // q.k k-steps; a lane's words of a K row
   constexpr int BPL = HD / 8;   // bytes of a V row a lane reads
-  constexpr int MT = HD / 16;   // p.v m-tiles of 16 channels
+  constexpr bool PA = G > 4;    // p.v as O += P V
+  // p.v's tiles of sums: m-tiles of 16 channels (O^T), or n-tiles of 8 (O)
+  constexpr int MT = PA ? HD / 8 : HD / 16;
   constexpr int NTL = WP / 8;   // q.k n-tiles of a warp's positions
-  static_assert(G <= 4 && KS % 4 == 0 && BPL % 8 == 0, "walk_int8_mma");
+  static_assert(G <= 8 && KS % 4 == 0 && BPL % 8 == 0, "walk_int8_mma");
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane >> 2, t = lane & 3;  // fragment row group, column pair
   const int lk = kvg == 4 ? 2 : kvg - 1;   // log2(kvg)
@@ -765,11 +814,11 @@ __device__ __forceinline__ void walk_int8_mma(
 
   // tile tt into slot tt % NSTAGE as commit group tt (empty past the
   // last), as walk_int8's fetch, V's chunks at vchunk_at. Copy j of a
-  // thread is chunk ce of head hh's row at position p0 + j (NT / CPR /
+  // thread is chunk ce of head hh's row at position p0 + j (BT / CPR /
   // kvg) of the tile, its offsets hoisted out of the tiles; threads
   // below TP copy the scales of (position, head) row tid
   const int ce = tid % CPR, hh = (tid / CPR) & (kvg - 1);
-  const int p0 = (tid / CPR) >> lk, pstep = (NT / CPR) >> lk;
+  const int p0 = (tid / CPR) >> lk, pstep = (BT / CPR) >> lk;
   const int head = hh * tph * HD;
   const int8_t* kth = kb + hh * HD + 16 * ce;
   const int8_t* vth = vb + hh * HD + 16 * ce;
@@ -819,7 +868,9 @@ __device__ __forceinline__ void walk_int8_mma(
   }
   const float qscale = LOG2E / sqrtf(static_cast<float>(HD));
   float m = -INFINITY, l = 0.0f;  // head gq's, over this lane's positions
-  float o[MT][4];                 // O^T: rows of channels, columns 2t, 2t+1
+  // O^T: rows of channels, columns 2t, 2t+1; PA: O, rows gq (hi) and gq + 8
+  // (lo), columns 2t, 2t + 1
+  float o[MT][4];
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -891,24 +942,34 @@ __device__ __forceinline__ void walk_int8_mma(
       lo[nt] = pack_bf16(p0 - __uint_as_float(hi[nt] << 16),
                          p1 - __uint_as_float(hi[nt] & 0xffff0000u));
     }
-    // the accumulators' columns 2t, 2t + 1 are head t's: its correction
-    // (1 on every lane once the running maxima settle)
-    const float ct = __shfl_sync(FULL, corr, 4 * t);
-    if (__any_sync(FULL, ct != 1.0f)) {
+    uint32_t pb[NTL];  // P^T's column gq (not PA)
+    if constexpr (PA) {
+      // the accumulators are head gq's: its correction, this lane's own
+      if (__any_sync(FULL, corr != 1.0f)) {
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+        for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[i][e] *= ct;
-    }
-    // P^T's column gq: head gq / 2's hi (gq even) or lo, from the lane that
-    // scored it; zero past 2G
-    uint32_t pb[NTL];
-    const int src = 4 * (gq >> 1) + t;
+          for (int e = 0; e < 4; ++e) o[i][e] *= corr;
+      }
+    } else {
+      // the accumulators' columns 2t, 2t + 1 are head t's: its correction
+      // (1 on every lane once the running maxima settle)
+      const float ct = __shfl_sync(FULL, corr, 4 * t);
+      if (__any_sync(FULL, ct != 1.0f)) {
 #pragma unroll
-    for (int nt = 0; nt < NTL; ++nt) {
-      const uint32_t a = __shfl_sync(FULL, hi[nt], src);
-      const uint32_t b = __shfl_sync(FULL, lo[nt], src);
-      pb[nt] = gq < 2 * G ? (gq & 1 ? b : a) : 0u;
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[i][e] *= ct;
+      }
+      // head gq / 2's hi (gq even) or lo, from the lane that scored it;
+      // zero past 2G
+      const int src = 4 * (gq >> 1) + t;
+#pragma unroll
+      for (int nt = 0; nt < NTL; ++nt) {
+        const uint32_t a = __shfl_sync(FULL, hi[nt], src);
+        const uint32_t b = __shfl_sync(FULL, lo[nt], src);
+        pb[nt] = gq < 2 * G ? (gq & 1 ? b : a) : 0u;
+      }
     }
 
     // p.v, k-steps of 16 positions: lane (gq, t) reads bytes BPL gq .. of
@@ -935,19 +996,28 @@ __device__ __forceinline__ void walk_int8_mma(
         }
         vsc[rr] = sc[TP + p];
       }
-      // word w: channels BPL gq + 4w .. + 3, of m-tiles 2w and 2w + 1
+      // word w: channels BPL gq + 4w .. + 3, of m-tiles 2w and 2w + 1 (PA:
+      // channel BPL gq + 4w + e is column gq of n-tile 4w + e)
 #pragma unroll
       for (int w = 0; w < BPL / 4; ++w) {
         float x[4][4];  // zeros past pos
 #pragma unroll
         for (int rr = 0; rr < 4; ++rr) dequant4(vw[rr][w], vsc[rr], x[rr]);
+        if constexpr (PA) {
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
-          mma_bf16(o[2 * w + hf], pack_bf16(x[0][2 * hf], x[1][2 * hf]),
-                   pack_bf16(x[0][2 * hf + 1], x[1][2 * hf + 1]),
-                   pack_bf16(x[2][2 * hf], x[3][2 * hf]),
-                   pack_bf16(x[2][2 * hf + 1], x[3][2 * hf + 1]),
-                   pb[2 * kk], pb[2 * kk + 1]);
+          for (int e = 0; e < 4; ++e)
+            mma_bf16(o[4 * w + e], hi[2 * kk], lo[2 * kk], hi[2 * kk + 1],
+                     lo[2 * kk + 1], pack_bf16(x[0][e], x[1][e]),
+                     pack_bf16(x[2][e], x[3][e]));
+        } else {
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            mma_bf16(o[2 * w + hf], pack_bf16(x[0][2 * hf], x[1][2 * hf]),
+                     pack_bf16(x[0][2 * hf + 1], x[1][2 * hf + 1]),
+                     pack_bf16(x[2][2 * hf], x[3][2 * hf]),
+                     pack_bf16(x[2][2 * hf + 1], x[3][2 * hf + 1]),
+                     pb[2 * kk], pb[2 * kk + 1]);
+        }
       }
     }
   }
@@ -955,12 +1025,27 @@ __device__ __forceinline__ void walk_int8_mma(
   __syncthreads();  // the ring is free: it holds the warps' states now
 
   // the warp's state: l over the 4 lanes of each head; head t's channels
-  // BPL gq + 2i, + 1 as its hi and lo columns summed
+  // BPL gq + 2i, + 1 as its hi and lo columns summed (PA: head gq's
+  // channels BPL 2t + i, BPL (2t + 1) + i as its hi and lo rows summed)
   l += __shfl_xor_sync(FULL, l, 1);
   l += __shfl_xor_sync(FULL, l, 2);
-  float* wacc = reinterpret_cast<float*>(smem);  // (NW, G, HD)
-  float* wml = wacc + NW * G * HD;               // (NW, G, 2)
-  if (t < G) {
+  float* wacc = reinterpret_cast<float*>(smem);  // (W, G, HD)
+  float* wml = wacc + W * G * HD;                // (W, G, 2)
+  if constexpr (PA) {
+    if (gq < G) {
+      float4* at = reinterpret_cast<float4*>(wacc + (warp * G + gq) * HD +
+                                             2 * BPL * t);
+#pragma unroll
+      for (int i = 0; i < MT; i += 4) {
+        at[i / 4] = make_float4(o[i][0] + o[i][2], o[i + 1][0] + o[i + 1][2],
+                                o[i + 2][0] + o[i + 2][2],
+                                o[i + 3][0] + o[i + 3][2]);
+        at[(BPL + i) / 4] =
+            make_float4(o[i][1] + o[i][3], o[i + 1][1] + o[i + 1][3],
+                        o[i + 2][1] + o[i + 2][3], o[i + 3][1] + o[i + 3][3]);
+      }
+    }
+  } else if (t < G) {
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
       float* at = wacc + (warp * G + t) * HD + BPL * gq + 2 * i;
@@ -974,28 +1059,29 @@ __device__ __forceinline__ void walk_int8_mma(
   }
 }
 
-// The block's partials from its warps' states (wacc: accumulators (NW, G,
-// HD), then (m, l) (NW, G, 2)): its kvg rows, row0 .. row0 + kvg - 1,
+// The block's partials from its W warps' states (wacc: accumulators (W,
+// G, HD), then (m, l) (W, G, 2)): its kvg rows, row0 .. row0 + kvg - 1,
 // warp w holding row w % kvg; each written to out where its row has one
 // active split, else to the scratch, where the row group's last block
 // merges them.
-template <int G, int HD>
+template <int G, int HD, int W = NW>
 __device__ __forceinline__ void merge(const float* wacc, float* out,
                                       float* part_acc, float* part_ml,
                                       int group, int kvg, int split,
                                       int nsplit, int nact) {
+  constexpr int BT = 32 * W;  // threads of the block
   __shared__ bool is_last;
   const int tid = threadIdx.x;
-  const float* wml = wacc + NW * G * HD;
+  const float* wml = wacc + W * G * HD;
   // a row's partial: its warps merged in warp order (the first holds the
   // split's first position, so the max is finite)
-  for (int i = tid; i < kvg * G * HD; i += NT) {
+  for (int i = tid; i < kvg * G * HD; i += BT) {
     const int h = i / (G * HD), gi = i % (G * HD), g = gi / HD;
     const size_t row = static_cast<size_t>(group) * kvg + h;
     float M = -INFINITY;
-    for (int w = h; w < NW; w += kvg) M = fmaxf(M, wml[(w * G + g) * 2]);
+    for (int w = h; w < W; w += kvg) M = fmaxf(M, wml[(w * G + g) * 2]);
     float L = 0.0f, O = 0.0f;
-    for (int w = h; w < NW; w += kvg) {
+    for (int w = h; w < W; w += kvg) {
       const float c = exp2f(wml[(w * G + g) * 2] - M);  // 0 for m = -inf
       L = fmaf(c, wml[(w * G + g) * 2 + 1], L);
       O = fmaf(c, wacc[w * G * HD + gi], O);
@@ -1028,7 +1114,7 @@ __device__ __forceinline__ void merge(const float* wacc, float* out,
   // MERGE_GROUP at a time with their loads in flight together (L2 reads,
   // as other SMs wrote them), rescaling the running sums by each group's
   // max
-  for (int i = tid; i < kvg * G * HD; i += NT) {
+  for (int i = tid; i < kvg * G * HD; i += BT) {
     const int h = i / (G * HD), gi = i % (G * HD), g = gi / HD;
     const size_t row = static_cast<size_t>(group) * kvg + h;
     const float* ml = part_ml + row * nsplit * G * 2;
@@ -1079,9 +1165,11 @@ __device__ __forceinline__ void int8_rows(
   const int group = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
   const int row = group * kvg;  // the group's first row
   const int pos = pos_dev ? *pos_dev : pos_host;
+  constexpr bool MMA = MMA_BODY<T, HD, G>;
+  constexpr int W = MMA ? MMA_WARPS<G> : NW;  // warps of the block
   if (pos < 0 || pos >= S) {  // only a device pos gets here
     if (split == 0)
-      for (int i = tid; i < kvg * G * HD; i += NT)
+      for (int i = tid; i < kvg * G * HD; i += 32 * W)
         out[static_cast<size_t>(row) * G * HD + i] =
             __int_as_float(0x7fc00000);  // quiet NaN
     return;
@@ -1090,7 +1178,6 @@ __device__ __forceinline__ void int8_rows(
   // nsplit splits (ceil((pos + 1) / nsplit) each, at most split_len), so
   // that every block of the one wave the wrapper sizes holds as many
   // positions, whatever pos is; walk_int8 takes splits of split_len
-  constexpr bool MMA = MMA_BODY<T, HD, G>;
   const int len = MMA ? (pos + nsplit) / nsplit : split_len;
   const int nact = pos / len + 1;  // splits holding a position <= pos
   if (split >= nact) return;
@@ -1108,8 +1195,8 @@ __device__ __forceinline__ void int8_rows(
                         v_scale + row0, KV, kvg, begin, end, dsmem);
   const float* wacc = reinterpret_cast<const float*>(dsmem);
   __syncthreads();
-  merge<G, HD>(wacc, out, part_acc, part_ml, group, kvg, split, nsplit,
-               nact);
+  merge<G, HD, W>(wacc, out, part_acc, part_ml, group, kvg, split, nsplit,
+                  nact);
 }
 
 // One block per (split, b * KV + kv), grid (nsplit, B*KV): the bf16 or
@@ -1122,7 +1209,8 @@ __device__ __forceinline__ void int8_rows(
 // units; out (B*KV, G, HD). k_scale and v_scale (B, S, KV) are the int8
 // form's scales (unused otherwise).
 template <typename T, typename E, int HD, int G>
-__global__ void __launch_bounds__(NT, min_blocks<T, E, HD, G>())
+__global__ void __launch_bounds__(block_threads<T, E, HD, G>(),
+                                  min_blocks<T, E, HD, G>())
 decode_attn_kernel(const T* __restrict__ q, const E* __restrict__ k,
                    const E* __restrict__ v,
                    const float* __restrict__ k_scale,
@@ -1408,10 +1496,10 @@ int launch(const Args& a) {
   }
   if (a.blocks_per_sm)
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        a.blocks_per_sm, kernel, NT, smem));
+        a.blocks_per_sm, kernel, block_threads<T, E, HD, G>(), smem));
   const dim3 grid = IS_INT8<E> ? dim3(a.groups, a.nsplit)
                                 : dim3(a.nsplit, a.groups);
-  kernel<<<grid, NT, smem, a.stream>>>(
+  kernel<<<grid, block_threads<T, E, HD, G>(), smem, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const E*>(a.k),
           static_cast<const E*>(a.v), a.k_scale, a.v_scale, a.pos_dev, a.pos,
           a.S, a.KV, a.kvg, a.split_len, a.out, a.part_acc, a.part_ml);

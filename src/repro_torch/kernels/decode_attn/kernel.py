@@ -44,12 +44,15 @@ MIN_SPLIT, MAX_SPLIT = 128, 1024  # positions of a split
 BLOCKS_PER_SM = 8
 INT8_BLOCKS_PER_SM = 8
 # the int8 body on the tensor cores (walk_int8_mma): bf16 q, these head
-# dims, at most this many query heads per KV head (the kernel's MMA_BODY).
-# Its splits give each SM about MMA_BLOCKS_PER_SM blocks, all resident at
-# once: on the H100 two long blocks an SM beat three shorter ones at
-# moonshot-v1-16b-a3b's shape (0.0357 against 0.0388 ms,
-# tools/decode_attn_splits.py)
-MMA_HEAD_DIMS, MMA_MAX_GROUP = (64, 128), 4
+# dims, every group size (the kernel's MMA_BODY). Its splits give each SM
+# about MMA_BLOCKS_PER_SM blocks, all resident at once: on the H100 two
+# long blocks an SM beat three shorter ones at moonshot-v1-16b-a3b's shape
+# (0.0357 against 0.0388 ms, tools/decode_attn_splits.py). Past
+# MMA_WIDE_GROUP query heads a KV head (p.v as O += P V, 8 warps a block,
+# one resident an SM) a block takes one KV head: at llama-3.2-vision-90b's
+# G 8 one head and one split a block beat 4 heads over 4 to 8 splits,
+# whose merge cost more than it spread (tools/decode_attn_splits.py)
+MMA_HEAD_DIMS, MMA_WIDE_GROUP = (64, 128), 4
 MMA_BLOCKS_PER_SM = 2
 
 _P = ctypes.c_void_p
@@ -74,9 +77,10 @@ def _sm_count(device: torch.device) -> int:
 def mma_body(q_dtype, int8: bool, hd: int, G: int) -> bool:
     """Whether ``decode_attn_kernel`` takes its tensor-core int8 body
     (``walk_int8_mma``) for q of ``q_dtype``: a bf16 q on the int8 cache at
-    head dim 64 or 128, at most 4 query heads per KV head."""
+    head dim 64 or 128, any of the 1..8 query heads per KV head (P V turned
+    around past 4)."""
     return (int8 and q_dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS
-            and G <= MMA_MAX_GROUP)
+            and 1 <= G <= MAX_GROUP)
 
 
 @functools.lru_cache()
@@ -142,10 +146,12 @@ def launch_plan(device, q_dtype, int8: bool, B: int, KV: int, G: int,
     """(KV heads a block, split_len, nsplit) of one call on ``device``:
     :func:`mma_split_plan` over the SMs' :data:`MMA_BLOCKS_PER_SM` blocks
     (or the fewer :func:`blocks_per_sm` that fit) for the tensor-core int8
-    body, else :func:`split_plan`."""
-    kvg = heads_per_block(KV, int8)
+    body, one KV head a block past :data:`MMA_WIDE_GROUP`; else
+    :func:`split_plan`."""
+    mma = mma_body(q_dtype, int8, hd, G)
+    kvg = 1 if mma and G > MMA_WIDE_GROUP else heads_per_block(KV, int8)
     rows, sms = B * KV // kvg, _sm_count(device)
-    if mma_body(q_dtype, int8, hd, G):
+    if mma:
         slots = sms * min(MMA_BLOCKS_PER_SM,
                           blocks_per_sm(device, q_dtype, True, hd, G))
         return (kvg, *mma_split_plan(rows, S, slots))

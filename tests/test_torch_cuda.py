@@ -773,10 +773,22 @@ def test_decode_attn_int8_reads_v_bit_for_bit(cuda, hd, dtype):
     channels of 16 rows, against scales whose bf16 rounding ties, equal
     ``cache_read(v, q's type)`` bit for bit. Values and scales past pos are
     garbage (NaN scales), never read."""
+    _reads_v_bit_for_bit(cuda, hd, dtype, G=3)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_decode_attn_int8_reads_v_bit_for_bit_at_group_8(cuda, hd):
+    """The same at G 8 with a bf16 q, where the tensor-core body's p.v
+    takes V as its B operand, a lane's channels spread over 16 (8)
+    n-tiles and permuted back at the write."""
+    _reads_v_bit_for_bit(cuda, hd, torch.bfloat16, G=8)
+
+
+def _reads_v_bit_for_bit(cuda, hd, dtype, G):
     from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
     from repro_torch.models.layers import cache_read
 
-    B, S, KV, G = 4, 300, 4, 3
+    B, S, KV = 4, 300, 4
     rng = np.random.default_rng(hd)
     values = rng.permutation(np.resize(np.arange(-127, 128), B * KV * hd))
     q, k, v = _int8_attn_inputs(cuda, B, S, KV, G, hd, dtype, seed=hd)
@@ -934,25 +946,29 @@ def test_decode_attn_head_dim_128_graph_replays_at_device_positions(cuda,
     assert bool(out.isnan().all())
 
 
-# the int8 body on the tensor cores (walk_int8_mma; bf16 q at hd 64 and 128,
-# G <= 4): moonshot-v1-16b-a3b's hd 128, G 1, yi-34b's G 2 and smollm's hd
-# 64, G 3
-@pytest.mark.parametrize("hd,G", [(128, 1), (128, 2), (64, 3)])
+# the int8 body on the tensor cores (walk_int8_mma; bf16 q at hd 64 and
+# 128): moonshot-v1-16b-a3b's hd 128, G 1, yi-34b's G 2, smollm's hd 64,
+# G 3, and past G 4, where p.v runs as O += P V, llama-3.2-vision-90b's
+# hd 128, G 8, G 5 and hd 64 at G 8
+@pytest.mark.parametrize("hd,G", [(128, 1), (128, 2), (64, 3), (128, 8),
+                                  (128, 5), (64, 8)])
 def test_decode_attn_tensor_core_int8_body(cuda, hd, G):
-    """Over many splits (2 row groups of 4 KV heads: ~130 splits of 4500
-    positions) against the plain version at positions on and off
-    the splits' and tiles' edges, bit for bit a second call; one captured
-    call replayed at device positions equals eager calls bit for bit;
-    values and scales past pos (127 and NaN) change nothing."""
+    """Over many splits (2 row groups of 4 KV heads, or past G 4 one KV
+    head a block and one row: ~130 splits of 4500 positions) against the
+    plain version at positions on and off the splits' and tiles' edges,
+    bit for bit a second call; one captured call replayed at device
+    positions equals eager calls bit for bit; values and scales past pos
+    (127 and NaN) change nothing."""
     from repro_torch.kernels.decode_attn import kernel as dk
     from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 
     assert dk.mma_body(torch.bfloat16, True, hd, G)
-    q, k, v = _int8_attn_inputs(cuda, 2, 4500, 4, G, hd, torch.bfloat16,
+    B, KV = (2, 4) if G <= 4 else (1, 1)
+    q, k, v = _int8_attn_inputs(cuda, B, 4500, KV, G, hd, torch.bfloat16,
                                 seed=300 + hd + G)
     kvg, split_len, nsplit = dk.launch_plan(q.device, torch.bfloat16, True,
-                                            2, 4, G, hd, 4500)
-    assert kvg == 4 and nsplit > 100
+                                            B, KV, G, hd, 4500)
+    assert kvg == (4 if G <= 4 else 1) and nsplit > 100
     for p in (0, 31, 32, 1087, 2222, 4499):
         got = dk.decode_attn_cuda(q, k, v, p)
         np.testing.assert_allclose(
@@ -974,6 +990,31 @@ def test_decode_attn_tensor_core_int8_body(cuda, hd, G):
         c["q"][:, 701:] = 127
         c["s"][:, 701:] = float("nan")
     assert torch.equal(dk.decode_attn_cuda(q, k, v, 700), clean)
+
+
+@pytest.mark.parametrize("S,pos", [(2048, 1087), (6404, 6403)])
+def test_decode_attn_int8_at_llama_vision_decode_shapes(cuda, S, pos):
+    """llama-3.2-vision-90b's two decode shapes on its int8 cache (B 16,
+    KV 8, G 8, hd 128): its self layers' (S 2048, pos 1087) and its cross
+    layers' (the 6,404 image tokens read whole) take the tensor-core body
+    in one wave of blocks and match the plain version."""
+    from repro_torch.kernels.decode_attn import kernel as dk
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    bf16 = torch.bfloat16
+    assert dk.mma_body(bf16, True, 128, 8)
+    kvg, split_len, nsplit = dk.launch_plan(cuda, bf16, True, 16, 8, 8,
+                                            128, S)
+    slots = dk._sm_count(cuda) * min(dk.MMA_BLOCKS_PER_SM, dk.blocks_per_sm(
+        cuda, bf16, True, 128, 8))
+    assert 16 * 8 // kvg * nsplit <= slots
+    assert (nsplit - 1) * split_len < S <= nsplit * split_len
+    q, k, v = _int8_attn_inputs(cuda, 16, S, 8, 8, 128, bf16, seed=S)
+    got = dk.decode_attn_cuda(q, k, v, pos)
+    assert got.shape == (16, 8, 8, 128)
+    np.testing.assert_allclose(
+        got.cpu().numpy(), decode_attn_ref(q, k, v, pos).cpu().numpy(),
+        atol=1e-5, rtol=1e-4)
 
 
 def test_decode_attn_int8_at_moonshot_decode_shape(cuda):

@@ -22,6 +22,7 @@ from repro.kernels.decode_attn.ref import decode_attn_ref as ref_oracle
 from repro.kernels.wkv6.ops import wkv6 as ref_wkv6
 from repro.kernels.wkv6.ref import wkv6_ref as ref_wkv6_oracle
 from repro.models.rwkv6 import wkv_chunked as ref_wkv_chunked
+from repro_torch.kernels.decode_attn import kernel as dk
 from repro_torch.kernels.decode_attn.kernel import (INT8_TILE, MAX_SPLIT,
                                                     MIN_SPLIT, SPLIT_ALIGN,
                                                     heads_per_block,
@@ -124,7 +125,8 @@ def test_decode_attn_split_plan_depends_on_the_cache_length_only(rows, sms,
 
 
 @pytest.mark.parametrize("rows,slots", [(64, 396), (80, 528), (1, 396),
-                                        (64, 64), (1000, 396), (3, 8)])
+                                        (64, 64), (1000, 396), (3, 8),
+                                        (32, 264)])  # llama-vision's
 def test_decode_attn_mma_split_plan_fills_one_wave(rows, slots):
     """The tensor-core int8 body's grid: as many splits of each row group as
     one wave of ``slots`` resident blocks holds (moonshot's 64 groups of 4
@@ -149,12 +151,38 @@ def test_decode_attn_mma_split_plan_fills_one_wave(rows, slots):
     (torch.bfloat16, True, 128, 2, True),   # yi-34b's KV 8
     (torch.bfloat16, True, 64, 3, True),    # smollm's int8 shape
     (torch.bfloat16, True, 80, 1, False),   # stablelm-3b: walk_int8
-    (torch.bfloat16, True, 128, 8, False),  # qwen's G 8
+    (torch.bfloat16, True, 128, 8, True),   # llama-3.2-vision-90b's G 8
+    (torch.bfloat16, True, 128, 5, True),   # past G 4: p.v as O += P V
+    (torch.bfloat16, True, 128, 6, True),
+    (torch.bfloat16, True, 128, 7, True),
+    (torch.bfloat16, True, 64, 8, True),    # the same code at hd 64
     (torch.float32, True, 128, 1, False),   # fp32 q: not bf16 operands
+    (torch.float32, True, 128, 8, False),   # walk_int8 (TIGHT)
+    (torch.bfloat16, False, 128, 8, False),  # the bf16 cache's own body
     (torch.bfloat16, False, 128, 1, False)])
 def test_decode_attn_mma_body_takes_bf16_q_at_hd_64_and_128(dtype, int8, hd,
                                                              G, want):
     assert mma_body(dtype, int8, hd, G) is want
+
+
+@pytest.mark.parametrize("S", [2048, 6404])
+def test_decode_attn_launch_plan_at_llama_vision_shapes(monkeypatch, S):
+    """llama-3.2-vision-90b's int8 rows (B 16, KV 8, G 8, hd 128; the self
+    layers' S 2048, the cross layers' 6,404) on an H100's 132 SMs, one
+    resident block of the tensor-core body's 8 warps an SM: one KV head a
+    block, one split, one wave of 128 blocks on 132 slots; the split
+    covers 0..S-1."""
+    monkeypatch.setattr(dk, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(dk, "blocks_per_sm", lambda *args: 1)
+    kvg, split_len, nsplit = dk.launch_plan(torch.device("cuda"),
+                                            torch.bfloat16, True, 16, 8, 8,
+                                            128, S)
+    assert (kvg, split_len, nsplit) == (1, S, 1)
+    assert 16 * 8 // kvg * nsplit <= 132
+    # G <= 4 keeps 4 KV heads a block over two blocks an SM
+    monkeypatch.setattr(dk, "blocks_per_sm", lambda *args: 3)
+    assert dk.launch_plan(torch.device("cuda"), torch.bfloat16, True, 16, 8,
+                          4, 128, S)[::2] == (4, 8)
 
 
 @pytest.mark.parametrize("KV,int8,kvg", [(32, True, 4), (5, True, 1),

@@ -10,12 +10,17 @@ checkout's ``src/`` and builds its library there first; every row is
 checked against that checkout's plain version (atol 1e-5, rtol 1e-4) and
 timed as ``chip_smoke.py`` times it: the device time of a CUDA graph of
 10 calls with a 128 MB read before each, less that read alone, median of
-20. Prints one line per turn and row, then a JSON object with the medians
-of both sides and the card's name and power limit.
+20. Then it compares the SASS (``cuobjdump -sass``) of each
+``decode_attn_kernel`` instantiation in the two libraries and names those
+that differ. Prints one line per turn and row, then a JSON object with
+the medians of both sides, the instantiations whose SASS differs and the
+card's name and power limit.
 """
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -33,13 +38,16 @@ ROWS = (("path,bf16", 16, 2048, 5, 3, 64, 1087, "bf16", False),
         ("olmoe,bf16", 16, 2048, 16, 1, 128, 1087, "bf16", False),
         ("moonshot,int8", 16, 2048, 16, 1, 128, 1087, "bf16", True),
         ("qwen,bf16", 16, 2048, 8, 8, 128, 1087, "bf16", False),
-        ("qwen,int8", 16, 2048, 8, 8, 128, 1087, "bf16", True))
+        ("llama-vision,int8", 16, 2048, 8, 8, 128, 1087, "bf16", True),
+        ("llama-vision-xattn,int8", 16, 6404, 8, 8, 128, 6403, "bf16",
+         True))
 L2_FLUSH_BYTES = 128 << 20
 TOL = (1e-5, 1e-4)
 
 
 def _turn(checkout: Path) -> dict:
-    """This process's rows, timed with ``checkout``'s port."""
+    """This process's rows, timed with ``checkout``'s port, and the path of
+    its library."""
     import torch
 
     sys.path.insert(0, str(checkout / "src"))
@@ -91,7 +99,7 @@ def _turn(checkout: Path) -> dict:
         k, v = ((quantize_kv(k), quantize_kv(v)) if int8
                 else (k.to(dtype), v.to(dtype)))
         got = decode_attn_cuda(q, k, v, pos)
-        if S <= 2048:
+        if B * S <= 16 * 6404:  # not decode_32k: 21 GB of plain copies
             want = decode_attn_ref(q, k, v, pos)
             excess = float(((got - want).abs()
                             - TOL[1] * want.abs()).max())
@@ -101,7 +109,43 @@ def _turn(checkout: Path) -> dict:
         out[tag] = cold_ms(lambda: decode_attn_cuda(q, k, v, pos))
         del q, k, v, got
         torch.cuda.empty_cache()
+    return {"ms": out, "library": str(build.library_path("decode_attn"))}
+
+
+def sass_by_kernel(library: str) -> dict:
+    """{``<T, E, HD, G>``: its SASS instructions} of the decode_attn_kernel
+    instantiations in ``library`` (the mangled names carry a hash of the
+    source file's path, from the anonymous namespace): each instruction's
+    text at its offset, without the encodings and the listing around them,
+    and with the listing's labels (numbered across the whole library)
+    numbered within the function."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split()[0]
+        if "decode_attn_kernel" not in name:
+            continue
+        labels = {}
+
+        def local(m):
+            return f"L{labels.setdefault(m.group(0), len(labels))}"
+
+        out[_label(name)] = [
+            (at, re.sub(r"\.L_x_\d+|__internal_\d+", local, ins))
+            for at, ins in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*;)",
+                                      part)]
     return out
+
+
+def _label(fn):
+    """``<T, E, HD, G>`` of a mangled decode_attn_kernel name."""
+    m = re.search(r"decode_attn_kernelI(13__nv_bfloat16|f)(S1_|f|a)Li(\d+)E"
+                  r"Li(\d+)E", fn)
+    q = "bf16" if m.group(1) != "f" else "fp32"
+    cache = "int8_t" if m.group(2) == "a" else q
+    return f"<{q}, {cache}, {m.group(3)}, {m.group(4)}>"
 
 
 def main(argv):
@@ -120,20 +164,37 @@ def main(argv):
     print(card, flush=True)
     sides = {"A": Path(argv[1]).resolve(),
              "B": Path(__file__).resolve().parents[1]}
-    times = {"A": {}, "B": {}}
+    times, libraries = {"A": {}, "B": {}}, {}
     for side in ("A", "B", "B", "A"):
         run = subprocess.run([sys.executable, __file__, "--turn",
                               str(sides[side])], capture_output=True,
                              text=True, timeout=1200)
         if run.returncode:
             sys.exit(f"turn {side} failed:\n{run.stderr[-4000:]}")
-        for tag, ms in json.loads(run.stdout.splitlines()[-1]).items():
+        turn = json.loads(run.stdout.splitlines()[-1])
+        libraries[side] = turn["library"]
+        for tag, ms in turn["ms"].items():
             times[side].setdefault(tag, []).append(ms)
             print(f"{side} decode_attn[{tag}]: {ms:.4f} ms", flush=True)
+    sass = {side: sass_by_kernel(lib) for side, lib in libraries.items()}
+    differ = sorted(fn for fn in sass["B"]
+                    if sass["A"].get(fn) != sass["B"][fn])
+    print(f"SASS: {len(sass['B']) - len(differ)} of {len(sass['B'])} "
+          f"instantiations identical to A's; differ: {differ}", flush=True)
+    for fn in sass["B"]:  # where the first that differs starts to
+        a, b = sass["A"].get(fn, []), sass["B"][fn]
+        if a != b:
+            at = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                      min(len(a), len(b)))
+            print(f"  first difference in {fn} at instruction {at} "
+                  f"of {len(a)} / {len(b)}: {a[at:at + 2]} / {b[at:at + 2]}",
+                  flush=True)
+            break
     print(json.dumps({"card": card, "A": str(sides["A"]),
                       "median_ms": {side: {tag: statistics.median(v)
                                            for tag, v in rows.items()}
-                                    for side, rows in times.items()}}))
+                                    for side, rows in times.items()},
+                      "sass_differs": differ}))
 
 
 if __name__ == "__main__":

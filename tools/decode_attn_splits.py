@@ -7,22 +7,40 @@ timed at several split counts.
 CHECKOUT defaults to this one. It builds that checkout's library (as
 ``tools/decode_attn_ab.py`` does), then logs, for the bf16-q int8
 instantiations at moonshot-v1-16b-a3b's (hd 128, G 1), yi-34b's (hd 128,
-G 2), smollm's (hd 64, G 3) and stablelm-3b's (hd 80, G 1) shapes, the
-registers, static shared memory and stack that ``cuobjdump -res-usage``
-reports, the blocks an SM holds by registers alone (128 threads a block;
-the int8 ring's dynamic shared memory caps them further, at 3 for hd
-128), and the SASS instruction count with its most frequent opcodes.
-Then ``[moonshot,int8]`` and ``[smollm,int8]`` (B 16, S 2048, pos 1087)
-are timed with L2 flushed, as
-``tools/decode_attn_ab.py`` times them, through the library's C entry
-point at split lengths 128, 256, 384, 512 and 1024 (its own plan too,
-through the wrapper), each held to the plain version (atol 1e-5, rtol
-1e-4). A body that spreads positions 0..pos over its splits at run time
-takes the same nsplit = ceil(S / split_len). Prints one JSON line last.
+G 2), smollm's (hd 64, G 3), stablelm-3b's (hd 80, G 1) and
+llama-3.2-vision-90b's (hd 128, G 8) shapes, the registers, static
+shared memory and stack that ``cuobjdump -res-usage`` reports, the
+blocks an SM holds by registers alone at 128 threads a block (half as
+many for the 256-thread blocks of the tensor-core body past G 4; the
+int8 ring's dynamic shared memory caps them further, at 3 for hd 128),
+and the SASS instruction count with its most frequent opcodes. Then
+``[moonshot,int8]`` and ``[smollm,int8]`` (B 16, S 2048, pos 1087) are
+timed with L2 flushed, as ``tools/decode_attn_ab.py`` times them,
+through the library's C entry point at split lengths 128, 256, 384, 512
+and 1024 (its own plan too, through the wrapper), each held to the plain
+version (atol 1e-5, rtol 1e-4). A body that spreads positions 0..pos
+over its splits at run time takes the same nsplit = ceil(S / split_len).
+
+Then llama-3.2-vision-90b's two G-8 rows (its self layers: B 16, S 2048,
+KV 8, pos 1087; its cross layers: S 6404, pos 6403) are swept the same
+way over the KV heads a block (4, 2 and 1) and the split count (1 to 12
+a row group), and over library variants that nvcc builds beside the
+checkout's (``build/kernels/variants/``) with the G > 4 tensor-core
+body's warps a block and ring depth set by ``-DDECODE_ATTN_WIDE_WARPS``
+(4 and 8) and ``-DDECODE_ATTN_WIDE_NSTAGE`` (2, 3 and 4 tiles); each
+variant's registers and spills of the bf16-q int8 instantiations at hd
+64 and 128, G 5..8, are logged from ptxas; the one-head rows are timed
+in two more rounds, in turns. Then the own plan is timed at several
+positions of each G-8 row, and what a call costs beside its reads:
+one elementwise kernel timed the same way, each variant and the own
+plan at pos 0 (the plan twice in a row too), the bf16 cache's body and
+SDPA over one position, and the kernel alone under ``torch.profiler``
+(L2 hot) at pos 0 and at the row's pos. Prints one JSON line last.
 """
 from __future__ import annotations
 
 import collections
+import ctypes
 import json
 import re
 import shutil
@@ -38,7 +56,19 @@ SPLITS = (128, 256, 384, 512, 1024)
 ROWS = (("moonshot,int8", 16, 2048, 16, 1, 128, 1087),
         ("smollm,int8", 16, 2048, 5, 3, 64, 1087))
 # the int8 instantiations reported: (hd, G)
-SHAPES = ((128, 1), (128, 2), (64, 3), (80, 1))
+SHAPES = ((128, 1), (128, 2), (64, 3), (80, 1), (128, 8))
+# llama-3.2-vision-90b's G-8 rows, (row, B, S, KV, G, hd, pos), swept over
+# the KV heads a block, the splits a row group and the library variants
+# (warps a block, ring tiles) of the G > 4 tensor-core body; then the own
+# plan at these positions of each
+WIDE_ROWS = (("llama-vision,int8", 16, 2048, 8, 8, 128, 1087),
+             ("llama-vision-xattn,int8", 16, 6404, 8, 8, 128, 6403))
+WIDE_HEADS = (4, 2, 1)
+WIDE_SPLITS = (1, 2, 3, 4, 6, 8, 12)
+WIDE_VARIANTS = ((4, 2), (4, 3), (4, 4), (8, 2), (8, 3), (8, 4))
+WIDE_ROUNDS = 2  # more rounds of the one-head rows, in turns
+WIDE_POSITIONS = {"llama-vision,int8": (0, 255, 511, 1087, 2047),
+                  "llama-vision-xattn,int8": (0, 1600, 3200, 6403)}
 
 
 def _label(fn):
@@ -87,8 +117,45 @@ def resources(lib_path):
     return out
 
 
+def build_variants(build, lib_argtypes):
+    """{(warps, ring tiles): (library, {(hd, G): ptxas line})} of
+    WIDE_VARIANTS, one nvcc each, run together; the lines of the bf16-q
+    int8 instantiations at hd 64 and 128, G 5..8."""
+    out_dir = build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = build.KERNELS_DIR / build.SOURCES["decode_attn"]
+    procs = {}
+    for warps, ns in WIDE_VARIANTS:
+        lib = out_dir / f"libdecode_attn-w{warps}r{ns}.so"
+        cmd = [build._nvcc(), *build.NVCC_FLAGS,
+               f"-DDECODE_ATTN_WIDE_WARPS={warps}",
+               f"-DDECODE_ATTN_WIDE_NSTAGE={ns}", "-o", str(lib), str(src)]
+        procs[(warps, ns)] = (lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    variants = {}
+    for key, (lib, proc) in procs.items():
+        stdout, stderr = proc.communicate(timeout=900)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for variant {key}:\n{stderr}")
+        report, fn = stdout + stderr, None
+        lines = collections.defaultdict(list)
+        for text in report.splitlines():
+            m = re.search(r"entry function '(\w+)'", text)
+            if m:
+                fn = _label(m.group(1))
+            elif (fn and fn[0] in (64, 128) and fn[1] > 4
+                  and ("registers" in text or "spill" in text)):
+                lines[fn].append(text.strip())
+        handle = ctypes.CDLL(str(lib))
+        lib_argtypes(handle)
+        variants[key] = (handle, {f: " ".join(t) for f, t in
+                                  sorted(lines.items())})
+    return variants
+
+
 def main(argv):
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         sys.exit("decode_attn_splits: torch.cuda.is_available() is false")
@@ -98,15 +165,21 @@ def main(argv):
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attn import kernel as dk
     from repro_torch.kernels.decode_attn.ref import decode_attn_ref
-    from repro_torch.models.layers import quantize_kv
+    from repro_torch.models.layers import cache_read, quantize_kv
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
     print(card, flush=True)
     build.build(["decode_attn"])
+
+    def argtypes(handle):
+        handle.decode_attn.argtypes = dk._lib().decode_attn.argtypes
+        handle.decode_attn.restype = dk._lib().decode_attn.restype
+
+    variants = build_variants(build, argtypes)
     report = {"card": card, "checkout": str(checkout), "resources": {},
-              "ms": {}}
+              "ms": {}, "variants": {}}
     for (hd, G), r in sorted(resources(
             build.library_path("decode_attn")).items()):
         print(f"<bf16, int8_t, {hd}, {G}>: {r}", flush=True)
@@ -143,10 +216,25 @@ def main(argv):
             fn()
         return device_ms(both) - device_ms(scratch.sum)
 
-    def call(q, k, v, pos, split_len):
+    def kernel_ms(fn, calls=20):
+        """decode_attn_kernel's mean device time a call, from the CUDA
+        activity torch.profiler records over ``calls`` eager calls."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.self_device_time_total for e in prof.key_averages()
+                 if "decode_attn_kernel" in e.key]
+        return sum(times) / 1e3 / calls
+
+    def call(q, k, v, pos, split_len, kvg=None, handle=lib):
         B, KV, G, hd = q.shape
         S = k["q"].shape[1]
-        kvg = dk.heads_per_block(KV, True)
+        kvg = kvg or dk.heads_per_block(KV, True)
         nsplit = -(-S // split_len)
         out = torch.empty((B, KV, G, hd), dtype=torch.float32,
                           device="cuda")
@@ -154,7 +242,7 @@ def main(argv):
                          device="cuda")
         pm = torch.empty((B * KV * nsplit * G * 2,), dtype=torch.float32,
                          device="cuda")
-        err = lib.decode_attn(
+        err = handle.decode_attn(
             q.data_ptr(), k["q"].data_ptr(), v["q"].data_ptr(),
             k["s"].data_ptr(), v["s"].data_ptr(), None, out.data_ptr(),
             pa.data_ptr(), pm.data_ptr(), B, S, KV, G, hd, pos, split_len,
@@ -163,17 +251,46 @@ def main(argv):
             raise RuntimeError(f"decode_attn failed with cudaError_t {err}")
         return out
 
-    for tag, B, S, KV, G, hd, pos in ROWS:
+    for (warps, ns), (_, lines) in variants.items():
+        for (hd, G), line in lines.items():
+            name = f"{warps} warps, ring {ns}: <bf16, int8_t, {hd}, {G}>"
+            print(f"variant {name}: {line}", flush=True)
+            report["variants"][name] = line
+
+    for tag, B, S, KV, G, hd, pos in ROWS + WIDE_ROWS:
         gen = torch.Generator(device="cuda").manual_seed(S + pos + hd)
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                    for shape in ((B, KV, G, hd), (B, S, KV, hd),
                                  (B, S, KV, hd)))
         q, k, v = q.to(torch.bfloat16), quantize_kv(k), quantize_kv(v)
         want = decode_attn_ref(q, k, v, pos)
-        runs = [("own plan", lambda: dk.decode_attn_cuda(q, k, v, pos))]
-        runs += [(f"split_len {n}", lambda n=n: call(q, k, v, pos, n))
-                 for n in SPLITS]
-        for name, fn in runs:
+        # (name, call, its pos)
+        runs = [("own plan", lambda: dk.decode_attn_cuda(q, k, v, pos),
+                 pos)]
+        if G <= 4:
+            runs += [(f"split_len {n}", lambda n=n: call(q, k, v, pos, n),
+                      pos) for n in SPLITS]
+        else:  # ceil(S / split_len) = nsplit for these S and nsplit
+            runs += [(f"{warps} warps, ring {ns}, {kvg} heads, {n} splits",
+                      lambda n=n, kvg=kvg, h=handle: call(
+                          q, k, v, pos, -(-S // n), kvg, h), pos)
+                     for (warps, ns), (handle, _) in variants.items()
+                     for kvg in WIDE_HEADS for n in WIDE_SPLITS]
+            runs += [(f"{warps} warps, ring {ns}, 1 heads, {n} splits "
+                      f"(round {r + 2})",
+                      lambda n=n, h=handle: call(q, k, v, pos, -(-S // n),
+                                                 1, h), pos)
+                     for r in range(WIDE_ROUNDS)
+                     for (warps, ns), (handle, _) in variants.items()
+                     for n in (1, 2)]
+            runs += [(f"own plan at pos {p}",
+                      lambda p=p: dk.decode_attn_cuda(q, k, v, p), p)
+                     for p in WIDE_POSITIONS[tag]]
+        wants = {pos: want}
+        for name, fn, at in runs:
+            if at not in wants:
+                wants[at] = decode_attn_ref(q, k, v, at)
+            want = wants[at]
             got = fn()
             excess = float(((got - want).abs() - TOL[1] * want.abs()).max())
             if not bool(torch.isfinite(got).all()) or excess > TOL[0]:
@@ -182,7 +299,40 @@ def main(argv):
             ms = cold_ms(fn)
             print(f"decode_attn[{tag}] {name}: {ms:.5f} ms", flush=True)
             report["ms"][f"{tag} {name}"] = ms
-        del q, k, v, want
+        if G > 4:  # what a call costs beside its reads, timed the same way
+            small = torch.zeros(q.shape, device="cuda")
+            kb, vb = (cache_read(c, torch.bfloat16) for c in (k, v))
+            qh = q.reshape(B, KV * G, 1, hd)
+            kh, vh = (t.transpose(1, 2) for t in (kb, vb))
+            probes = [("floor: one elementwise kernel on a tensor of the "
+                       "output's size", lambda: small.add_(1.0))]
+            probes += [(f"{warps} warps, ring {ns}, 1 heads, 1 splits at "
+                        f"pos 0", lambda h=handle: call(q, k, v, 0, S, 1, h))
+                       for (warps, ns), (handle, _) in variants.items()]
+            probes += [("own plan at pos 0, two calls",
+                        lambda: (dk.decode_attn_cuda(q, k, v, 0),
+                                 dk.decode_attn_cuda(q, k, v, 0))),
+                       ("bf16 cache, own plan at pos 0",
+                        lambda: dk.decode_attn_cuda(q, kb, vb, 0)),
+                       ("SDPA over one position of the bf16 cache",
+                        lambda: F.scaled_dot_product_attention(
+                            qh, kh[:, :, :1], vh[:, :, :1],
+                            enable_gqa=True))]
+            for name, fn in probes:
+                ms = cold_ms(fn)
+                print(f"decode_attn[{tag}] {name}: {ms:.5f} ms", flush=True)
+                report["ms"][f"{tag} {name}"] = ms
+            # the kernel's own time, without launches
+            for name, p, c in (("own plan", 0, (k, v)),
+                               ("own plan", pos, (k, v)),
+                               ("bf16 cache, own plan", 0, (kb, vb))):
+                ms = kernel_ms(lambda p=p, c=c: dk.decode_attn_cuda(q, *c, p))
+                print(f"decode_attn[{tag}] {name} at pos {p}: the kernel "
+                      f"alone under torch.profiler, L2 hot: {ms:.5f} ms",
+                      flush=True)
+                report["ms"][f"{tag} {name} at pos {p}, profiler"] = ms
+            del small, kb, vb, qh, kh, vh
+        del q, k, v, want, wants
         torch.cuda.empty_cache()
     print(json.dumps(report))
 
