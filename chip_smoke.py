@@ -165,10 +165,14 @@ check it end to end.
    the graph check, moonshot-v1-16b-a3b's (the same on an int8 cache,
    the tensor-core int8 body; with the graph check), llama-3.2-vision-
    90b's self layers' (KV=8, G=8, pos=1087, the int8 cache: the tensor-
-   core body with p.v as O += P V; with the graph check; a bf16 one,
-   qwen1.5-110b's shape, off the path) and its cross layers' (B=16, the
-   whole int8 cache of S=6404 image tokens, pos=6403), SDPA timed on
-   each bf16 cache and, unmasked, on a bf16 copy of the cross cache.
+   core body with p.v as O += P V; with the graph check) and its cross
+   layers' (B=16, the whole int8 cache of S=6404 image tokens,
+   pos=6403), and jamba-1.5-large-398b's (the same KV=8, G=8 on a bf16
+   cache, qwen1.5-110b's shape too; with the graph check); at hd 64 and
+   G 1, seamless-m4t-large-v2's self layers' (KV=16, pos=1087, bf16; with
+   the graph check) and its cross layers' (the whole bf16 cache of 1,024
+   encoder positions, pos=1023); SDPA timed on each bf16 cache and,
+   unmasked, on a bf16 copy of llama-vision's cross cache.
    ``wkv6`` at the rwkv6
    path's prefill (B=16, S=1024, H=32) and decode (S=1) shapes, r, k and v in
    bf16 (as the path passes them) and in fp32, against the reference
@@ -186,22 +190,32 @@ check it end to end.
    llama-3.2-vision-90b (d 8192, 64 heads over 8, d_ff 28,672, vocab
    128,256, the int8 cache; depth cut to 30 of its 100 layers, ~55.5 GB
    of weights: 24 self layers and 6 cross layers over a context of 6,404
-   image tokens, (16, 6404, 8192) bf16 drawn on the card) each prefill 16
-   prompts of 1024 tokens (``make_prefill_step`` with room for 2048; the
-   VLM's context with them) and take 64 greedy ``make_decode_step``
-   steps. The audited run must make exactly 32 x 64 ``decode_attn``
-   launches in the decode steps (smollm, stablelm; 16 x 64 for olmoe, 48 x
-   64 for moonshot, 30 x 64 for llama-vision: 24 x 64 over the self
-   caches, 6 x 64 over the cross caches) and none in the
-   prefill, and 24 ``wkv6`` launches in the prefill and 24 x 64 in the
-   decode steps, with every op on the card and finite logits; the MoE
-   drop fractions of a prefill and a decode step are logged, and each
+   image tokens, (16, 6404, 8192) bf16 drawn on the card),
+   jamba-1.5-large-398b (d 8192, 64 heads over 8 with no rotary, the bf16
+   cache, Mamba d_inner 16,384 and N 16, 16 experts of d_ff 24,576, top-2;
+   its first 5 sublayers, ~48.2 GB: 4 Mamba, 1 attention, 3 MLP, 2 MoE,
+   where one whole 8-sublayer block holds ~90 GB) and
+   seamless-m4t-large-v2 (24 encoder and 24 decoder layers, d 1024, hd 64,
+   vocab 256,206; 1,024 audio frames, (16, 1024, 1024) bf16 drawn on the
+   card) each prefill 16 prompts of 1024 tokens (``make_prefill_step``
+   with room for 2048; the VLM's context or the frames with them) and
+   take 64 greedy ``make_decode_step`` steps. The audited run must make
+   exactly 32 x 64 ``decode_attn`` launches in the decode steps (smollm,
+   stablelm; 16 x 64 for olmoe, 48 x 64 for moonshot, 30 x 64 for
+   llama-vision: 24 x 64 over the self caches, 6 x 64 over the cross
+   caches; 1 x 64 for jamba; 48 x 64 for seamless: 24 x 64 over the self
+   caches, 24 x 64 over the cross caches) and none in the prefill, and 24
+   ``wkv6`` launches in the prefill and 24 x 64 in the decode steps, with
+   every op on the card and finite logits; the MoE drop fractions of a
+   prefill and a decode step are logged, jamba's prefill's Mamba and
+   selective-scan device ms (CUDA events around each call), and each
    model's peak device memory and seconds.
    Then the serving launcher's loop (``repro_torch.launch.serve.
    serve_tokens``) serves the same prompts with the decode step captured
    once as a CUDA graph and replayed at every position, audited over its
    warm-up and capture: the capture must record exactly one port kernel
-   launch per layer, every op on the card, finite logits and greedy
+   launch per attention call of a step (or per RWKV layer), every op on
+   the card, finite logits and greedy
    tokens identical to the eager steps'. Second runs give prefill
    tokens/s and decode ms per step, eager and graph, against the step's
    byte bound, and ``torch.profiler`` the card's busy share of a prefill,
@@ -217,8 +231,11 @@ check it end to end.
    choices; the freely routed error and the tokens whose experts differ
    are logged); moonshot at 16 of its 48 layers (~39 GB of fp32 weights;
    all 48 would take ~112 GB), llama-vision at 10 layers (8 self, 2
-   cross; ~42.6 GB, batch 4, a context of 6,404 tokens), the cuts logged
-   on their lines.
+   cross; ~42.6 GB, batch 4, a context of 6,404 tokens), jamba on its
+   sublayers 0, 1 and 4 ((MAMBA, MLP), (MAMBA, MOE), (ATTN, MLP); ~52
+   GB: a Mamba state handed from the prefill to decode, the MoE and the
+   attention layer), seamless whole (~6.5 GB, 1,024 frames), the cuts
+   logged on their lines.
 12. Prints one JSON line of the rows at shapes or types the paths do not
    run (launches 0), then the ``{"kernels": [...]}`` line: one row for
    each kernel at each shape and type its path runs, with its launches
@@ -276,7 +293,8 @@ WKV6_SOURCE = "src/repro_torch/kernels/wkv6/csrc/wkv6.cu"
 # LM serving: batch 16, prompts of 1024 tokens, cache room for 2048, 64
 # greedy steps; decode against forward in fp32 after a 256-token prefill
 LM_ARCHS = ("smollm-360m", "rwkv6-1.6b", "stablelm-3b", "olmoe-1b-7b",
-            "moonshot-v1-16b-a3b", "llama-3.2-vision-90b")
+            "moonshot-v1-16b-a3b", "llama-3.2-vision-90b",
+            "jamba-1.5-large-398b", "seamless-m4t-large-v2")
 LM_BATCH, LM_PROMPT, LM_MAX_SEQ, LM_STEPS = 16, 1024, 2048, 64
 LM_CHECK_BATCH, LM_CHECK_PREFILL, LM_CHECK_STEPS = 4, 256, 16
 LM_DECODE_REL = 2e-3  # tests/test_models.py's bound
@@ -293,7 +311,15 @@ LM_CHECK_LAYERS = {"moonshot-v1-16b-a3b": 16, "llama-3.2-vision-90b": 10}
 # bf16: llama-3.2-vision-90b's 100 layers hold ~171 GB, 30 (six
 # super-blocks: 24 self and 6 cross layers) ~55.5 GB; width is not cut
 LM_SERVE_LAYERS = {"llama-3.2-vision-90b": 30}
+# the sublayers of the block pattern kept where one block does not fit the
+# card: jamba-1.5-large-398b's block of 8 holds ~90 GB of bf16 weights. It
+# serves the first 5 (4 Mamba, 1 attention, 3 MLP and 2 MoE sublayers,
+# ~48.2 GB: every sublayer kind of the model); its fp32 check runs
+# sublayers 0, 1 and 4, (MAMBA, MLP), (MAMBA, MOE) and (ATTN, MLP), ~52 GB
+LM_SERVE_SUBLAYERS = {"jamba-1.5-large-398b": (0, 1, 2, 3, 4)}
+LM_CHECK_SUBLAYERS = {"jamba-1.5-large-398b": (0, 1, 4)}
 LM_CONTEXT_STD = 0.3  # the VLM's image tokens: N(0, 0.3), as launch.serve
+LM_FRAMES = 1024  # the encoder-decoder's input: audio frames, N(0, 0.3)
 LM_PROFILE_STEPS = 8  # decode steps of each profiled window
 DECODE_32K = (128, 32768)  # the reference's decode_32k cell: batch, length
 ATTN_TOL = (1e-5, 1e-4)  # atol, rtol: the reference's kernel bounds
@@ -1931,10 +1957,13 @@ def decode_attn_kernel_phase():
     path's shape (bf16 and fp32), at one smollm layer of the reference's
     decode_32k cell (bf16), at stablelm-3b's decode shape (hd 80) with
     a bf16, an fp32 and an int8 cache (q bf16), and at hd 128 at
-    olmoe-1b-7b's (bf16), moonshot's (int8) and llama-3.2-vision-90b's
-    (KV 8, G 8: its self layers on the int8 cache, and a bf16 copy off
-    the path; its cross layers over the whole int8 cache of 6,404 image
-    tokens) shapes, with ``scaled_dot_product_attention`` on the same
+    olmoe-1b-7b's (bf16), moonshot's (int8), llama-3.2-vision-90b's (KV
+    8, G 8: its self layers on the int8 cache; its cross layers over the
+    whole int8 cache of 6,404 image tokens) and jamba-1.5-large-398b's
+    (the same G 8 on a bf16 cache) shapes, and at hd 64 and G 1 at
+    seamless-m4t-large-v2's (its self layers, and its cross layers over
+    the whole bf16 cache of 1,024 encoder positions), with
+    ``scaled_dot_product_attention`` on the same
     inputs timed as the library call (no library call reads the int8
     cache: the cross row's SDPA reads a bf16 copy of it, unmasked); each
     int8 row logs the blocks an SM of its instantiation holds."""
@@ -1951,9 +1980,11 @@ def decode_attn_kernel_phase():
     # (tag, B, S, KV, G, hd, pos, q's type, int8 cache): smollm-360m's 15
     # heads over 5 KV heads; stablelm-3b's 32 over 32, hd 80; at hd 128
     # olmoe-1b-7b's 16 over 16 (bf16), moonshot's 16 over 16 on its int8
-    # cache, and llama-3.2-vision-90b's 64 over 8 (G 8): its self layers'
-    # int8 cache (the bf16 one, qwen1.5-110b's shape too, off the path)
-    # and its cross layers' (the whole cache: pos S - 1)
+    # cache, llama-3.2-vision-90b's 64 over 8 (G 8): its self layers'
+    # int8 cache and its cross layers' (the whole cache: pos S - 1), and
+    # jamba-1.5-large-398b's 64 over 8 on a bf16 cache (qwen1.5-110b's
+    # shape too); seamless-m4t-large-v2's 16 over 16 at hd 64, its self
+    # layers' and its cross layers' (the encoder's LM_FRAMES positions)
     cases = (("path,bf16", *path, 5, 3, 64, last, bf16, False),
              ("path,fp32", *path, 5, 3, 64, last, fp32, False),
              ("decode_32k,bf16", *DECODE_32K, 5, 3, 64, DECODE_32K[1] - 1,
@@ -1964,10 +1995,13 @@ def decode_attn_kernel_phase():
              ("smollm,int8", *path, 5, 3, 64, last, bf16, True),
              ("olmoe,bf16", *path, 16, 1, 128, last, bf16, False),
              ("moonshot,int8", *path, 16, 1, 128, last, bf16, True),
-             ("qwen,bf16", *path, 8, 8, 128, last, bf16, False),
+             ("jamba,bf16", *path, 8, 8, 128, last, bf16, False),
              ("llama-vision,int8", *path, 8, 8, 128, last, bf16, True),
              ("llama-vision-xattn,int8", LM_BATCH, ctx, 8, 8, 128, ctx - 1,
-              bf16, True))
+              bf16, True),
+             ("seamless,bf16", *path, 16, 1, 64, last, bf16, False),
+             ("seamless-xattn,bf16", LM_BATCH, LM_FRAMES, 16, 1, 64,
+              LM_FRAMES - 1, bf16, False))
     rows = {}
     for tag, B, S, cfg_kv, cfg_g, hd, pos, dtype, int8 in cases:
         gen = torch.Generator(device="cuda").manual_seed(S + pos + hd)
@@ -2036,14 +2070,15 @@ def decode_attn_kernel_phase():
                 f"{split_len} positions")
         bf16_twin = {"stablelm,int8": "stablelm,bf16",
                      "moonshot,int8": "olmoe,bf16",
-                     "llama-vision,int8": "qwen,bf16"}.get(tag)
+                     "llama-vision,int8": "jamba,bf16"}.get(tag)
         if bf16_twin:  # SDPA reads no int8 cache: its time on the bf16 one
             log(f"  {name}: kernel {rows[name]['ms']:.4f} ms on the int8 "
                 f"cache against SDPA "
                 f"{rows[f'decode_attn[{bf16_twin}]']['library_ms']:.4f} ms "
                 f"on the bf16 cache, L2 flushed ({CARD})")
         if tag in ("path,bf16", "stablelm,int8", "olmoe,bf16",
-                   "moonshot,int8", "llama-vision,int8"):
+                   "moonshot,int8", "llama-vision,int8", "jamba,bf16",
+                   "seamless,bf16"):
             _decode_attn_graph_check(q, k, v)
         del q, k, v, qh, kh, vh, want
         torch.cuda.empty_cache()
@@ -2316,9 +2351,10 @@ def _param_bytes(model):
     return sum(p.numel() * p.element_size() for p in model.parameters())
 
 
-def _serve(model, prompt, max_seq, steps, marks=None, context=None):
-    """Prefill ``prompt`` (and a VLM's image tokens ``context``) with room
-    for ``max_seq`` tokens, then ``steps`` greedy decode steps ->
+def _serve(model, prompt, max_seq, steps, marks=None, extras=None):
+    """Prefill ``prompt`` (and ``extras``: a VLM's image tokens
+    ``"context"``, an encoder-decoder's ``"frames"``) with room for
+    ``max_seq`` tokens, then ``steps`` greedy decode steps ->
     (generated tokens (B, steps + 1), whether every logit was finite,
     prefill seconds, decode seconds per step); each clock ends in a
     synchronize. ``marks["prefill"]``, where given, gets the launch counts
@@ -2327,9 +2363,7 @@ def _serve(model, prompt, max_seq, steps, marks=None, context=None):
 
     prefill = make_prefill_step(model, model.cfg, max_seq=max_seq)
     decode = make_decode_step(model, model.cfg)
-    batch = {"tokens": prompt}
-    if context is not None:
-        batch["context"] = context
+    batch = {"tokens": prompt, **(extras or {})}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cache, last = prefill(batch)
@@ -2470,15 +2504,56 @@ def _decode_errors(model, tokens, full, pin=None, extras=None):
                                for c in chosen]
 
 
-def _context(cfg, batch, dtype, seed):
-    """A VLM's image tokens (batch, n_frontend_tokens, d_model): N(0,
-    LM_CONTEXT_STD) in ``dtype``, drawn on the card from a seeded
-    generator (the frontend stub's input, as ``launch.serve`` draws it on
-    the host)."""
+def _extras(cfg, batch, dtype, seed):
+    """The frontend stub's input, N(0, LM_CONTEXT_STD) in ``dtype``, drawn
+    on the card from a seeded generator (as ``launch.serve`` draws it on
+    the host): a VLM's image tokens ``{"context": (batch,
+    n_frontend_tokens, d_model)}``, an encoder-decoder's audio frames
+    ``{"frames": (batch, LM_FRAMES, d_model)}``, else nothing."""
+    if not (cfg.cross_attn_every or cfg.enc_dec):
+        return {}
+    n = cfg.n_frontend_tokens if cfg.cross_attn_every else LM_FRAMES
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return torch.randn((batch, cfg.n_frontend_tokens, cfg.d_model),
-                       generator=gen, device="cuda",
-                       dtype=dtype).mul_(LM_CONTEXT_STD)
+    x = torch.randn((batch, n, cfg.d_model), generator=gen, device="cuda",
+                    dtype=dtype).mul_(LM_CONTEXT_STD)
+    return {"context" if cfg.cross_attn_every else "frames": x}
+
+
+def _lm(cfg, dtype, seed):
+    """The LM of ``cfg`` on the card (an ``EncDecLM`` for an enc-dec
+    config), weights and compute in ``dtype``, drawn from a seeded
+    generator."""
+    from repro_torch.models import DecoderLM, EncDecLM
+
+    return (EncDecLM if cfg.enc_dec else DecoderLM)(
+        cfg, dtype, dtype, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+
+
+def _sublayers(cfg, keep):
+    """``cfg`` cut to one block of the sublayers ``keep`` of its block
+    pattern (a config both packages build)."""
+    return dataclasses.replace(
+        cfg, n_layers=len(keep),
+        block_pattern=tuple(cfg.block_pattern[i] for i in keep))
+
+
+def _cut(cfg, arch, layers, sublayers):
+    """``cfg`` at the depth ``layers`` or the sublayers ``sublayers`` give
+    ``arch`` (published where neither names it), and a note of the cut
+    for the log ("" where nothing is cut)."""
+    if arch in sublayers:
+        keep = sublayers[arch]
+        return _sublayers(cfg, keep), (
+            f"depth cut to {len(keep)} of {cfg.n_layers} layers (sublayers "
+            f"{', '.join(map(str, keep))} of the {len(cfg.block_pattern)}-"
+            f"sublayer block: "
+            + ", ".join(f"({m}, {f})" for m, f in _sublayers(
+                cfg, keep).block_pattern) + ")")
+    if arch in layers:
+        return (dataclasses.replace(cfg, n_layers=layers[arch]),
+                f"depth cut to {layers[arch]} of {cfg.n_layers} layers")
+    return cfg, ""
 
 
 def _decode_matches_forward(arch, kv_cache_dtype=None):
@@ -2488,8 +2563,10 @@ def _decode_matches_forward(arch, kv_cache_dtype=None):
     within LM_DECODE_REL, or LM_INT8_REL with the int8 cache), with the
     config's cache or ``kv_cache_dtype``; MoE at the dropless capacity
     factor LM_MOE_DROPLESS_CF, as the reference's test runs it; at the
-    depth of LM_CHECK_LAYERS where the arch has one there; a VLM with a
-    context of its ``n_frontend_tokens`` image tokens.
+    depth of LM_CHECK_LAYERS, or the sublayers of LM_CHECK_SUBLAYERS,
+    where the arch has one there; a VLM with a context of its
+    ``n_frontend_tokens`` image tokens, an encoder-decoder with
+    LM_FRAMES frames.
 
     An MoE layer's top-k is a step function of its input. The int8
     cache's rounding moves the decode steps' inputs off the forward's by
@@ -2502,27 +2579,22 @@ def _decode_matches_forward(arch, kv_cache_dtype=None):
     difference; the freely routed error and the tokens whose experts
     differ are logged beside it. Elsewhere the decode routes freely."""
     from repro_torch.configs import get_config
-    from repro_torch.models import DecoderLM
     from repro_torch.models.moe import MoE
 
     cfg = get_config(arch)
-    full_depth = cfg.n_layers
     if kv_cache_dtype is not None:
         cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_cache_dtype)
     if cfg.n_experts:
         cfg = dataclasses.replace(cfg, capacity_factor=LM_MOE_DROPLESS_CF)
-    if arch in LM_CHECK_LAYERS:
-        cfg = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS[arch])
+    cfg, cut = _cut(cfg, arch, LM_CHECK_LAYERS, LM_CHECK_SUBLAYERS)
     int8 = cfg.kv_cache_dtype == "int8" and not cfg.attn_free
     bound = LM_INT8_REL if int8 else LM_DECODE_REL
-    model = DecoderLM(cfg, torch.float32, torch.float32, device="cuda",
-                      generator=torch.Generator(device="cuda").manual_seed(1))
+    model = _lm(cfg, torch.float32, seed=1)
     B, P = LM_CHECK_BATCH, LM_CHECK_PREFILL
     S = P + LM_CHECK_STEPS
     tokens = torch.from_numpy(np.random.default_rng(7).integers(
         0, cfg.vocab_size, (B, S))).cuda()
-    extras = ({"context": _context(cfg, B, torch.float32, seed=3)}
-              if cfg.cross_attn_every else {})
+    extras = _extras(cfg, B, torch.float32, seed=3)
     moes = [m for m in model.modules() if isinstance(m, MoE)]
     forward_routes = []
     hooks = [m.register_forward_hook(
@@ -2556,11 +2628,14 @@ def _decode_matches_forward(arch, kv_cache_dtype=None):
         f"cache"
         + (f", capacity factor {cfg.capacity_factor}" if cfg.n_experts
            else "")
-        + (f"; depth cut to {cfg.n_layers} of {full_depth} layers, "
-           f"{_param_bytes(model) / 1e9:.2f} GB of fp32 weights"
-           if cfg.n_layers != full_depth else "")
+        + (f"; {cut}, {_param_bytes(model) / 1e9:.2f} GB of fp32 weights"
+           if cut else "")
         + (f"; a context of {cfg.n_frontend_tokens} image tokens"
-           if extras else "")
+           if cfg.cross_attn_every else "")
+        + (f"; {LM_FRAMES} encoder frames, {cfg.n_layers} encoder and "
+           f"{cfg.n_layers} decoder layers, "
+           f"{_param_bytes(model) / 1e9:.2f} GB of fp32 weights"
+           if cfg.enc_dec else "")
         + f"; batch {B}, prefill {P}, {LM_CHECK_STEPS} steps): max error "
         f"{rel:.3e} of max |logit|{note} (bound {bound})")
     if not rel < bound:
@@ -2598,30 +2673,51 @@ def _log_drop_fractions(model, prompt):
         f"{statistics.fmean(decode):.4f}, max {max(decode):.4f}")
 
 
-def _cross_layers(cfg):
-    """The XATTN layers of ``cfg``."""
-    from repro_torch.configs.base import XATTN
+def _layers(cfg, *kinds):
+    """The sublayers of ``cfg`` whose mixer is of ``kinds``."""
+    return cfg.n_blocks * sum(m in kinds for m, _ in cfg.block_pattern)
 
-    return sum(m == XATTN for m, _ in cfg.block_pattern) * cfg.n_blocks
+
+def _attn_calls(cfg):
+    """``decode_attn`` calls of one decode step: (each self-attention
+    layer's over its own cache, each call over the context's: a VLM's
+    XATTN layers', an encoder-decoder's cross-attention in every decoder
+    layer)."""
+    from repro_torch.configs.base import ATTN, XATTN
+
+    return (_layers(cfg, ATTN),
+            _layers(cfg, XATTN) + (cfg.n_layers if cfg.enc_dec else 0))
+
+
+def _context_len(cfg):
+    """The positions a cross cache holds: a VLM's image tokens, an
+    encoder-decoder's frames."""
+    return LM_FRAMES if cfg.enc_dec else cfg.n_frontend_tokens
 
 
 def _step_bytes(model, cfg, pos):
-    """Bytes a decode step at ``pos`` must move: every weight but the
-    untied embedding's table (only its B rows are read), and each self
-    layer's K/V cache up to ``pos`` and each cross layer's whole (an int8
-    row with its fp32 scale), or each layer's state (read and
-    written)."""
+    """Bytes a decode step at ``pos`` must move: every weight the step
+    reads (all but the untied embedding's table, of which it reads B rows,
+    and an encoder-decoder's encoder, which runs at prefill only), each
+    self layer's K/V cache up to ``pos`` and each cross cache whole (an
+    int8 row with its fp32 scale), and each recurrent layer's state (read
+    and written: RWKV's, or Mamba's fp32 conv and SSM states)."""
+    from repro_torch.configs.base import MAMBA
+
     step = _param_bytes(model) - (0 if cfg.tie_embeddings else
                                   model.embed.emb.numel() * 2)
+    if cfg.enc_dec:
+        step -= _param_bytes(model.encoder) + _param_bytes(model.enc_norm)
     if cfg.attn_free:
         H, hd = cfg.rwkv_n_heads, cfg.rwkv_head_size
         return step + 2 * cfg.n_layers * LM_BATCH * (H * hd * hd * 4
                                                      + 2 * cfg.d_model * 2)
     row = cfg.hd + 4 if cfg.kv_cache_dtype == "int8" else cfg.hd * 2
-    cross = _cross_layers(cfg)
-    positions = (cfg.n_layers - cross) * (pos + 1) \
-        + cross * cfg.n_frontend_tokens
-    return step + 2 * LM_BATCH * positions * cfg.n_kv_heads * row
+    n_self, n_cross = _attn_calls(cfg)
+    positions = n_self * (pos + 1) + n_cross * _context_len(cfg)
+    states = 2 * _layers(cfg, MAMBA) * LM_BATCH * 4 * cfg.mamba_d_inner * (
+        cfg.mamba_d_conv - 1 + cfg.mamba_d_state)
+    return step + states + 2 * LM_BATCH * positions * cfg.n_kv_heads * row
 
 
 @contextlib.contextmanager
@@ -2663,6 +2759,51 @@ def _profile_graph_steps(step, first_pos):
     return start.elapsed_time(end) / LM_PROFILE_STEPS
 
 
+def _scan_share(model, prompt):
+    """One prefill of ``prompt`` with every Mamba mixer's call and its
+    selective scan (``models.mamba.selective_scan_chunked``, plain torch)
+    spanned by CUDA events: their summed device ms beside the prefill's
+    (logged; the prefill is device-bound, so the spans hold little idle
+    time)."""
+    from repro_torch.models import mamba
+
+    spans = {"scan": [], "mixer": []}
+
+    def spanned(fn, key):
+        def run(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans[key].append((start, end))
+            return out
+        return run
+
+    mixers = [m for m in model.modules() if isinstance(m, mamba.Mamba)]
+    scan = mamba.selective_scan_chunked
+    mamba.selective_scan_chunked = spanned(scan, "scan")
+    for m in mixers:
+        m.forward = spanned(m.forward, "mixer")
+    try:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        model.prefill(prompt, max_seq=LM_MAX_SEQ)
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        mamba.selective_scan_chunked = scan
+        for m in mixers:
+            del m.forward
+    total = start.elapsed_time(end)
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    log(f"  prefill's Mamba share ({CARD}): {len(mixers)} mixers "
+        f"{ms['mixer']:.2f} ms, of it the chunked selective scan (plain "
+        f"torch, {len(spans['scan'])} calls) {ms['scan']:.2f} ms, of a "
+        f"{total:.2f} ms prefill between CUDA events: mixers "
+        f"{ms['mixer'] / total:.3f}, scan {ms['scan'] / total:.3f}")
+
+
 def lm_serving_phase(rows):
     """The LM configurations at full width, bf16 weights and compute,
     random weights from a seeded generator: batch 16, 1024-token prompts,
@@ -2673,14 +2814,18 @@ def lm_serving_phase(rows):
     run of each is audited (launches, or the capture's launches, and ops
     off the card); second runs give prefill tokens/s and decode ms per
     step. A VLM (llama-3.2-vision-90b, at the depth of LM_SERVE_LAYERS)
-    prefills its image tokens too, drawn on the card; its eager run must
-    read each self layer's cache and each cross layer's LM_STEPS times.
+    prefills its image tokens too, and an encoder-decoder
+    (seamless-m4t-large-v2) its LM_FRAMES audio frames, each drawn on the
+    card; their eager runs must read each self layer's cache and each
+    cross cache LM_STEPS times. jamba-1.5-large-398b serves the sublayers
+    of LM_SERVE_SUBLAYERS; its prefill's selective-scan share is logged.
     Then fp32 decode against the forward pass."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import MAMBA
     from repro_torch.kernels.decode_attn import kernel as dk
     from repro_torch.kernels.wkv6 import kernel as wk
     from repro_torch.launch.serve import serve_tokens
-    from repro_torch.models import DecoderLM
+    from repro_torch.models import DecoderLM, EncDecLM
 
     # the kernel each model's serving run launches, and the kernels-line
     # row of each stage that launches it (at that stage's shape and type)
@@ -2695,57 +2840,72 @@ def lm_serving_phase(rows):
               "moonshot-v1-16b-a3b": (
                   "decode_attn", {"decode": "decode_attn[moonshot,int8]"}),
               "llama-3.2-vision-90b": (
-                  "decode_attn", {"decode": "decode_attn[llama-vision,int8]"})}
-    # a VLM's cross layers: their kernels-line row
-    cross_row = {"llama-3.2-vision-90b": "decode_attn[llama-vision-xattn,int8]"}
+                  "decode_attn", {"decode": "decode_attn[llama-vision,int8]"}),
+              "jamba-1.5-large-398b": (
+                  "decode_attn", {"decode": "decode_attn[jamba,bf16]"}),
+              "seamless-m4t-large-v2": (
+                  "decode_attn", {"decode": "decode_attn[seamless,bf16]"})}
+    # the cross caches' kernels-line row
+    cross_row = {"llama-3.2-vision-90b": "decode_attn[llama-vision-xattn,int8]",
+                 "seamless-m4t-large-v2": "decode_attn[seamless-xattn,bf16]"}
     for arch in LM_ARCHS:
         t_arch = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
-        cfg = get_config(arch)
-        full_depth = cfg.n_layers
-        if arch in LM_SERVE_LAYERS:
-            cfg = dataclasses.replace(cfg, n_layers=LM_SERVE_LAYERS[arch])
-        model = DecoderLM(cfg, torch.bfloat16, torch.bfloat16, device="cuda",
-                          generator=torch.Generator(
-                              device="cuda").manual_seed(0))
+        published_cfg = get_config(arch)
+        cfg, cut = _cut(published_cfg, arch, LM_SERVE_LAYERS,
+                        LM_SERVE_SUBLAYERS)
+        model = _lm(cfg, torch.bfloat16, seed=0)
+        drawn_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         prompt = torch.from_numpy(np.random.default_rng(0).integers(
             0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(torch.int32).cuda()
-        context = (_context(cfg, LM_BATCH, torch.bfloat16, seed=2)
-                   if cfg.cross_attn_every else None)
-        extras = {} if context is None else {"context": context}
-        n_cross = _cross_layers(cfg)
+        extras = _extras(cfg, LM_BATCH, torch.bfloat16, seed=2)
+        n_self, n_cross = _attn_calls(cfg)
         weights = _param_bytes(model)
-        published = weights + _param_bytes(model.stack) * (
-            full_depth / cfg.n_layers - 1)  # every layer at full depth
         cache_kind = ("state" if cfg.attn_free else
                       "int8 K/V cache" if cfg.kv_cache_dtype == "int8"
                       else "bf16 K/V cache")
-        log(f"LM serving {arch}: {cfg.n_layers} layers"
-            + (f" (depth cut from {full_depth}: {full_depth} would hold "
-               f"{published / 1e9:.1f} GB of bf16 weights, more than the "
-               f"card; width as published)"
-               if cfg.n_layers != full_depth else "")
+        note = ""
+        if cut:  # the published model's bytes, from parameters on no device
+            meta = (EncDecLM if cfg.enc_dec else DecoderLM)(
+                published_cfg, torch.bfloat16, torch.bfloat16, device="meta",
+                init=False)
+            note = (f" ({cut}; the published {published_cfg.n_layers} "
+                    f"would hold {_param_bytes(meta) / 1e9:.1f} GB of bf16 "
+                    f"weights, more than the card"
+                    + (f", one whole block of {len(published_cfg.block_pattern)}"
+                       f" sublayers {_param_bytes(meta.stack.blocks[0]) / 1e9:.2f}"
+                       f" GB" if arch in LM_SERVE_SUBLAYERS else "")
+                    + "; width not cut)")
+            del meta
+        ctx = next(iter(extras.values()), None)
+        log(f"LM serving {arch}: {cfg.n_layers} layers" + note
             + (f", {n_cross} of them cross-attention over "
-               f"{cfg.n_frontend_tokens} image tokens (context "
-               f"{tuple(context.shape)} bf16, N(0, {LM_CONTEXT_STD}), "
-               f"seeded, on the card)" if n_cross else "")
+               f"{cfg.n_frontend_tokens} image tokens" if cfg.cross_attn_every
+               else "")
+            + (f", {cfg.n_layers} encoder and {cfg.n_layers} decoder layers "
+               f"(each decoder layer a cross-attention) over {LM_FRAMES} "
+               f"audio frames" if cfg.enc_dec else "")
+            + (f" (input {tuple(ctx.shape)} bf16, N(0, {LM_CONTEXT_STD}), "
+               f"seeded, on the card)" if ctx is not None else "")
             + f", d {cfg.d_model}, vocab {cfg.vocab_size}, "
             f"{weights / 1e9:.3f} GB of bf16 weights, {cache_kind}; batch "
             f"{LM_BATCH}, prompt {LM_PROMPT}, cache room {LM_MAX_SEQ}, "
             f"{LM_STEPS} greedy steps")
         # loads cuBLAS and the kernels
-        _serve(model, prompt[:, :8], 16, 2, context=context)
+        _serve(model, prompt[:, :8], 16, 2, extras=extras)
 
         kernel, row_of = stages[arch]
+        per_step = cfg.n_layers if cfg.attn_free else n_self + n_cross
         expect = {"prefill": cfg.n_layers if "prefill" in row_of else 0,
-                  "decode": cfg.n_layers * LM_STEPS}
+                  "decode": per_step * LM_STEPS}
         dk.LAUNCHES.clear()  # every count to 0 just before the path
         wk.LAUNCHES.clear()
         marks = {}
         with _decode_attn_lengths() as lengths:
             (tokens, finite, _, _), moved, off = audited(
                 lambda: _serve(model, prompt, LM_MAX_SEQ, LM_STEPS, marks,
-                               context))
+                               extras))
         at_prefill = marks["prefill"].get(kernel, 0)
         split = {"prefill": at_prefill,
                  "decode": moved.get(kernel, 0) - at_prefill}
@@ -2763,9 +2923,9 @@ def lm_serving_phase(rows):
                                  f"tokens {tuple(tokens.shape)}")
         for stage, name in row_of.items():
             rows[name]["launches"] = split[stage]
-        if n_cross:  # the decode steps' launches, self and cross layers
-            by_length = {LM_MAX_SEQ: (cfg.n_layers - n_cross) * LM_STEPS,
-                         cfg.n_frontend_tokens: n_cross * LM_STEPS}
+        if n_cross:  # the decode steps' launches, self and cross caches
+            by_length = {LM_MAX_SEQ: n_self * LM_STEPS,
+                         _context_len(cfg): n_cross * LM_STEPS}
             log(f"  eager: decode_attn calls by the cache length read "
                 f"{dict(lengths)}, expected {by_length}")
             if dict(lengths) != by_length:
@@ -2773,7 +2933,7 @@ def lm_serving_phase(rows):
                                      f"{dict(lengths)}")
             rows[row_of["decode"]]["launches"] = by_length[LM_MAX_SEQ]
             rows[cross_row[arch]]["launches"] = \
-                by_length[cfg.n_frontend_tokens]
+                by_length[_context_len(cfg)]
 
         # the graph: the launcher's loop, audited over the prefill, the
         # warm-up, the capture and the replays (which dispatch no op)
@@ -2785,11 +2945,12 @@ def lm_serving_phase(rows):
         captured = graphed.graph.launches
         log(f"  graph: captured in {graphed.capture_s:.4f} s (warm-up "
             f"included), {captured} kernel launches recorded in the "
-            f"capture, one per layer; launches of the whole call {moved}")
-        if captured != {kernel: cfg.n_layers}:
+            f"capture, one per attention call (or RWKV layer); launches of "
+            f"the whole call {moved}")
+        if captured != {kernel: per_step}:
             raise AssertionError(f"{arch}: the captured step holds "
                                  f"{captured}, expected {kernel} "
-                                 f"{cfg.n_layers}")
+                                 f"{per_step}")
         if off:
             raise AssertionError(f"ops off the card: {sorted(off)}")
         if not graphed.finite:
@@ -2806,7 +2967,7 @@ def lm_serving_phase(rows):
         # the timed runs, outside the audit (whose hook on every op would
         # dominate the host clock)
         again, _, t_prefill, t_decode = _serve(model, prompt, LM_MAX_SEQ,
-                                               LM_STEPS, context=context)
+                                               LM_STEPS, extras=extras)
         timed = serve_tokens(model, prompt, LM_STEPS + 1, max_seq=LM_MAX_SEQ,
                              graph=True, extras=extras)
         same = bool((again == tokens).all()) and bool(
@@ -2824,10 +2985,13 @@ def lm_serving_phase(rows):
             f"with a synchronize each step), {LM_BATCH / g_mean:.1f} "
             f"tokens/s; a step moves at least {step_bytes / 1e9:.4f} GB "
             f"(weights and {cache_kind} at position {last_pos}"
-            + (", the cross layers' whole" if n_cross else "") + "): "
+            + (", the cross caches whole" if n_cross else "")
+            + (", the Mamba states" if _layers(cfg, MAMBA) else "") + "): "
             f"{bound:.4f} ms at 3.35 TB/s; second runs' tokens identical: "
             f"{same}")
         _profile_serving(model, prompt, LM_PROFILE_STEPS, extras)
+        if _layers(cfg, MAMBA):
+            _scan_share(model, prompt)
         if cfg.n_experts:
             _log_drop_fractions(model, prompt)
         device_ms = _profile_graph_steps(timed.graph, LM_PROMPT + 1)
@@ -2836,8 +3000,9 @@ def lm_serving_phase(rows):
             f"{bound / device_ms:.3f} of the byte bound; peak device memory "
             f"of the serving runs "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
-            f"({weights / 1e9:.2f} GB of weights)")
-        del model, timed, context, extras
+            f"({weights / 1e9:.2f} GB of weights; drawing them peaked at "
+            f"{drawn_peak / 1e9:.2f} GB)")
+        del model, timed, ctx, extras
         torch.cuda.empty_cache()
         _decode_matches_forward(arch)
         torch.cuda.empty_cache()

@@ -148,7 +148,8 @@ PUBLIC_IDS = {
 
 #: the archs whose configuration module the port carries
 PORTED = ("smollm_360m", "rwkv6_1b6", "stablelm_3b", "olmoe_1b_7b",
-          "moonshot_v1_16b_a3b", "llama3_2_vision_90b")
+          "moonshot_v1_16b_a3b", "llama3_2_vision_90b",
+          "jamba1_5_large_398b", "seamless_m4t_large_v2")
 
 
 def _module(arch: str):

@@ -8,6 +8,8 @@ CUDA graph and replayed for every position.
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch llama-3.2-vision-90b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch seamless-m4t-large-v2 --reduced --device cpu
 
 The reference jits ``model.decode`` once and calls it for every ``pos``;
 here :class:`DecodeGraph` captures one step with the token and ``pos`` in
@@ -18,7 +20,10 @@ token buffer for the next replay. A failed capture raises: there is no
 eager fallback on the card. On the CPU the same loop runs eagerly. A
 VLM's image tokens (``extras["context"]``, drawn as the reference draws
 them) go into the prefill only: its XATTN layers' caches hold them for
-every step after.
+every step after. So do an encoder-decoder's frames (``extras
+["frames"]``, ``prompt-len + gen`` of them, as the reference's): the
+prefill encodes them and writes each decoder layer's cross K/V once; a
+Mamba layer's states are replaced each step as RWKV's are.
 
 ``--mesh local`` serves in fp32, ``single`` in bf16 on the one card;
 ``multi`` (the reference's multi-pod mesh) waits for ROADMAP module 8.
@@ -182,7 +187,7 @@ def serve_tokens(model, prompts, gen: int, max_seq: Optional[int] = None,
                  extras=None) -> ServeResult:
     """Prefill ``prompts`` (B, P) with room for ``max_seq`` tokens (default
     P + gen), and ``extras`` (a VLM's ``{"context": (B, n_frontend_tokens,
-    d)}``), then ``gen - 1`` greedy decode steps at positions P, P + 1,
+    d)}``, an encoder-decoder's ``{"frames": (B, enc_len, d)}``), then ``gen - 1`` greedy decode steps at positions P, P + 1,
     ... . ``graph`` (default: on a CUDA model) captures the step once and
     replays it; otherwise each step runs eagerly with the position as an
     int (``serve.steps.make_decode_step``). Each position is checked
@@ -255,15 +260,15 @@ def main(argv=None):
     obs.enable_from_env()
 
     from repro_torch.configs import get_config, get_reduced_config
-    from repro_torch.models import DecoderLM
+    from repro_torch.models import DecoderLM, EncDecLM
 
     dev = resolve_device(args.device)
     cfg = get_reduced_config(args.arch) if args.reduced \
         else get_config(args.arch)
     dtype = torch.float32 if args.mesh == "local" else torch.bfloat16
-    model = DecoderLM(cfg, compute_dtype=dtype, param_dtype=dtype,
-                      device=dev,
-                      generator=torch.Generator(dev).manual_seed(0))
+    model = (EncDecLM if cfg.enc_dec else DecoderLM)(
+        cfg, compute_dtype=dtype, param_dtype=dtype, device=dev,
+        generator=torch.Generator(dev).manual_seed(0))
 
     B, P, G = args.requests, args.prompt_len, args.gen
     rng = np.random.default_rng(0)
@@ -274,6 +279,9 @@ def main(argv=None):
         extras["context"] = torch.from_numpy(rng.normal(
             0, 0.3, (B, cfg.n_frontend_tokens, cfg.d_model))).to(
                 device=dev, dtype=dtype)
+    if cfg.enc_dec:  # the frontend stub's audio frames
+        extras["frames"] = torch.from_numpy(rng.normal(
+            0, 0.3, (B, P + G, cfg.d_model))).to(device=dev, dtype=dtype)
 
     tracer = obs.get_tracer()
     with obs.profile_region(args.profile):

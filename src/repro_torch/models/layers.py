@@ -36,7 +36,9 @@ def draw_normal(shape, scale, dtype, generator, device):
     gdev = generator.device if generator is not None else device
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=gdev)
-    return (scale * x).to(device=device, dtype=dtype)
+    # scaled in place: one fp32 copy of the draw at a time (jamba's MoE
+    # weights are 12.9 GB each in fp32)
+    return x.mul_(scale).to(device=device, dtype=dtype)
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -138,6 +140,19 @@ def apply_rotary(x, cos, sin):
     else:  # (B, S, half)
         cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def sinusoidal_positions(positions, d_model: int, dtype):
+    """positions (...,) int, on the device the result goes to -> (...,
+    d_model): sin of each angle in the first half, cos in the second,
+    computed in fp32 and cast to ``dtype``. A decode step passes its
+    ``pos`` as a one-element tensor, read on the card."""
+    half = d_model // 2
+    freqs = 1.0 / (10_000.0 ** (torch.arange(0, half, dtype=torch.float32,
+                                             device=positions.device)
+                                / half))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -246,17 +261,19 @@ def chunked_attention(q, k, v, causal: bool = True,
 
 
 class Attention(nn.Module):
-    """GQA attention: causal self-attention with rotary embeddings, or
-    with ``cross`` cross-attention (the reference's XATTN), whose K and V
-    come from a context stream (B, Sk, d) with no rotary and no mask."""
+    """GQA attention: causal self-attention with rotary embeddings (none
+    at ``rope_theta`` 0; with ``causal=False`` every position attends
+    every other, as in an encoder), or with ``cross`` cross-attention (the
+    reference's XATTN), whose K and V come from a context stream (B, Sk,
+    d) with no rotary and no mask."""
 
     def __init__(self, d_model, n_heads, n_kv_heads, head_dim,
-                 qkv_bias=False, rope_theta=10_000.0, cross: bool = False,
-                 dtype=torch.float32, device="cuda"):
+                 qkv_bias=False, rope_theta=10_000.0, causal: bool = True,
+                 cross: bool = False, dtype=torch.float32, device="cuda"):
         super().__init__()
         self.n_heads, self.n_kv_heads = n_heads, n_kv_heads
         self.head_dim, self.rope_theta = head_dim, rope_theta
-        self.cross = cross
+        self.causal, self.cross = causal, cross
         h, kvh, hd = n_heads, n_kv_heads, head_dim
         self.wq = Linear(d_model, h * hd, qkv_bias, dtype, device=device)
         self.wk = Linear(d_model, kvh * hd, qkv_bias, dtype, device=device)
@@ -292,7 +309,8 @@ class Attention(nn.Module):
                                         x.dtype)
             q = apply_rotary(q, cos, sin)
             k = apply_rotary(k, cos, sin)
-        out = chunked_attention(q, k, v, causal=not self.cross,
+        out = chunked_attention(q, k, v,
+                                causal=self.causal and not self.cross,
                                 q_chunk=query_chunk(B, h, S, Sk))
         return (self.wo(out.reshape(B, S, h * hd)),
                 (k, v) if return_kv else None)

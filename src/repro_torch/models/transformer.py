@@ -1,12 +1,14 @@
-"""The decoder-only LM stack (port of ``repro.models.transformer``).
+"""The LM stack (port of ``repro.models.transformer``).
 
 A model is ``n_blocks`` repetitions of a super-block, a tuple of (mixer,
 ffn) sublayers from the config's ``block_pattern``; a Python loop over
-the blocks stands in for the reference's ``lax.scan``. Ported sublayers:
-ATTN, XATTN (cross-attention over ``extras["context"]``, the VLM's image
-tokens) and RWKV mixers; MLP, MoE, and the RWKV channel-mix as the FFN of
-an RWKV sublayer. MAMBA sublayers and enc-dec models raise
-``NotImplementedError`` (ROADMAP, module 9).
+the blocks stands in for the reference's ``lax.scan``. Every mixer kind
+of the reference is ported: ATTN (causal, or not in an encoder), XATTN
+(cross-attention over ``extras["context"]``, the VLM's image tokens),
+MAMBA and RWKV; so are the FFNs, MLP, MoE and the RWKV channel-mix of an
+RWKV sublayer. A ``Stack`` built ``with_cross`` (the encoder-decoder's
+decoder, ``models.encdec``) follows each mixer with a cross-attention
+over the encoder's output.
 
 API, as the reference's with the parameters held by the module:
     hidden(tokens, extras) -> (h, aux, kvs)     logits(h) -> (B, S, V)
@@ -15,11 +17,12 @@ API, as the reference's with the parameters held by the module:
     init_cache(batch, seq)              pad_cache(kvs, prefill_len, max_seq)
 
 A cache is a list with one entry per block, ``{"sub0": {"mixer": {"k",
-"v"} or {"shift", "wkv"}, "ffn": {"shift"}}}`` as the reference's tree
-without its leading block axis; with ``kv_cache_dtype="int8"`` each of
-"k" and "v" is the reference's ``{"q": int8, "s": fp32 (..., 1)}``. An
-XATTN sublayer's "k" and "v" hold the context's ``n_frontend_tokens``
-positions, written once by the prefill and read whole by every step.
+"v"}, {"conv", "ssm"} or {"shift", "wkv"}, "cross": {"k", "v"}, "ffn":
+{"shift"}}}`` as the reference's tree without its leading block axis;
+with ``kv_cache_dtype="int8"`` each of "k" and "v" is the reference's
+``{"q": int8, "s": fp32 (..., 1)}``. An XATTN sublayer's "k" and "v",
+and a ``with_cross`` sublayer's "cross", hold the context's positions,
+written once by the prefill and read whole by every step.
 ``decode`` writes the new token's K/V into the self-attention buffers in
 place and replaces the recurrent states. Its ``pos`` is an int, or a
 one-element int32 tensor on the model's device that the step reads on the
@@ -33,26 +36,34 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import (ATTN, MLP, MOE, NOFF, RWKV, XATTN,
-                                      ArchConfig)
+from repro_torch.configs.base import (ATTN, MAMBA, MLP, MOE, NOFF, RWKV,
+                                      XATTN, ArchConfig)
 from repro_torch.models import layers as L
+from repro_torch.models.mamba import Mamba
 from repro_torch.models.moe import MoE
 from repro_torch.models.rwkv6 import RWKV6ChannelMix, RWKV6TimeMix
 
 
 def _unported(what: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP, module "
-                               f"9); the port runs ATTN, XATTN and RWKV "
-                               f"mixers with MLP, MoE or channel-mix FFNs")
+                               f"9); the port runs ATTN, XATTN, MAMBA and "
+                               f"RWKV mixers with MLP, MoE or channel-mix "
+                               f"FFNs")
 
 
-def _mixer_module(cfg: ArchConfig, kind: str, dtype, device):
+def _mixer_module(cfg: ArchConfig, kind: str, dtype, device,
+                  causal: bool = True):
     if kind in (ATTN, XATTN):
         cross = kind == XATTN
         return L.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                            qkv_bias=cfg.qkv_bias,
                            rope_theta=0.0 if cross else cfg.rope_theta,
-                           cross=cross, dtype=dtype, device=device)
+                           causal=causal, cross=cross, dtype=dtype,
+                           device=device)
+    if kind == MAMBA:
+        return Mamba(cfg.d_model, cfg.mamba_d_state, cfg.mamba_d_conv,
+                     cfg.mamba_expand, cfg.mamba_dt_rank, dtype=dtype,
+                     device=device)
     if kind == RWKV:
         return RWKV6TimeMix(cfg.d_model, cfg.rwkv_head_size,
                             cfg.rwkv_decay_lora, cfg.rwkv_gate_lora,
@@ -85,14 +96,22 @@ def _pad_seq(t, pad: int):
 
 class SubLayer(nn.Module):
     """Pre-norm mixer and FFN with residuals: one (mixer, ffn) pair of the
-    block pattern."""
+    block pattern; with ``with_cross`` a pre-norm cross-attention over the
+    context (``norm_x``, ``cross``) between the two. ``causal=False``
+    makes an ATTN mixer attend every position (an encoder's)."""
 
-    def __init__(self, cfg: ArchConfig, mixer_kind, ffn_kind, dtype, device):
+    def __init__(self, cfg: ArchConfig, mixer_kind, ffn_kind, dtype, device,
+                 causal: bool = True, with_cross: bool = False):
         super().__init__()
         self.mixer_kind = mixer_kind
         self.kv_int8 = cfg.kv_cache_dtype == "int8"
         self.norm1 = L.Norm(cfg.d_model, cfg.norm, device=device)
-        self.mixer = _mixer_module(cfg, mixer_kind, dtype, device)
+        self.mixer = _mixer_module(cfg, mixer_kind, dtype, device, causal)
+        if with_cross:
+            self.norm_x = L.Norm(cfg.d_model, cfg.norm, device=device)
+            self.cross = _mixer_module(cfg, XATTN, dtype, device)
+        else:
+            self.norm_x = self.cross = None
         ffn = _ffn_module(cfg, mixer_kind, ffn_kind, dtype, device)
         if ffn is not None:
             self.norm2 = L.Norm(cfg.d_model, cfg.norm, device=device)
@@ -101,9 +120,17 @@ class SubLayer(nn.Module):
             self.norm2 = self.ffn = None
 
     def reset(self, generator):
-        for m in (self.norm1, self.mixer, self.norm2, self.ffn):
+        for m in (self.norm1, self.mixer, self.norm_x, self.cross,
+                  self.norm2, self.ffn):
             if m is not None:
                 m.reset(generator)
+
+    def _kv(self, k, v):
+        """A K/V pair as the cache holds it (quantized for the int8
+        form; this layer's only, never all layers')."""
+        if self.kv_int8:
+            k, v = L.quantize_kv(k), L.quantize_kv(v)
+        return {"k": k, "v": v}
 
     def _ffn(self, x, state):
         """x + ffn(norm2(x)), the FFN's new state (channel-mix) or None,
@@ -120,21 +147,25 @@ class SubLayer(nn.Module):
         return x + self.ffn(h), None, None
 
     def forward(self, x, collect_kv: bool, context=None):
-        """Full sequence (``context`` (B, Sk, d) for an XATTN mixer): (x,
-        the MoE's load-balancing loss or None, this sublayer's cache entry
-        or None)."""
+        """Full sequence (``context`` (B, Sk, d) for an XATTN mixer or the
+        cross-attention): (x, the MoE's load-balancing loss or None, this
+        sublayer's cache entry or None)."""
         kv = {}
         h = self.norm1(x)
         if self.mixer_kind in (ATTN, XATTN):
             o, kv_pair = self.mixer(h, context=context, return_kv=collect_kv)
             if collect_kv:
-                k, v = kv_pair
-                if self.kv_int8:  # this layer's K/V only, never all layers'
-                    k, v = L.quantize_kv(k), L.quantize_kv(v)
-                kv["mixer"] = {"k": k, "v": v}
+                kv["mixer"] = self._kv(*kv_pair)
         else:
             o, kv["mixer"] = self.mixer(h)
-        x, st, aux = self._ffn(x + o, None)
+        x = x + o
+        if self.cross is not None:
+            o, kv_pair = self.cross(self.norm_x(x), context=context,
+                                    return_kv=collect_kv)
+            if collect_kv:
+                kv["cross"] = self._kv(*kv_pair)
+            x = x + o
+        x, st, aux = self._ffn(x, None)
         if st is not None:
             kv["ffn"] = st
         return x, aux, kv if collect_kv else None
@@ -150,24 +181,33 @@ class SubLayer(nn.Module):
             nc["mixer"] = {"k": k, "v": v}
         else:
             o, nc["mixer"] = self.mixer(h, state=cache["mixer"])
-        x, st, _aux = self._ffn(x + o, cache.get("ffn"))
+        x = x + o
+        if self.cross is not None:
+            c = cache["cross"]
+            o, k, v = self.cross.decode(self.norm_x(x), c["k"], c["v"], pos)
+            nc["cross"] = {"k": k, "v": v}
+            x = x + o
+        x, st, _aux = self._ffn(x, cache.get("ffn"))
         if st is not None:
             nc["ffn"] = st
         return x, nc
 
 
 class Stack(nn.Module):
-    """``n_blocks`` super-blocks of sublayers ``sub0``, ``sub1``, ...; the
+    """``n_blocks`` super-blocks of sublayers ``sub0``, ``sub1``, ...;
+    ``causal=False`` for an encoder's, ``with_cross`` for the
+    encoder-decoder's decoder (a cross-attention in every sublayer). The
     default device is CUDA, which raises where there is none."""
 
     def __init__(self, cfg: ArchConfig, compute_dtype=torch.bfloat16,
-                 param_dtype=torch.float32, device="cuda"):
+                 param_dtype=torch.float32, device="cuda",
+                 causal: bool = True, with_cross: bool = False):
         super().__init__()
         self.cfg, self.compute_dtype = cfg, compute_dtype
         device = resolve_device(device)
         self.blocks = nn.ModuleList(
             nn.ModuleDict({f"sub{i}": SubLayer(cfg, m, f, param_dtype,
-                                               device)
+                                               device, causal, with_cross)
                            for i, (m, f) in enumerate(cfg.block_pattern)})
             for _ in range(cfg.n_blocks))
 
@@ -178,8 +218,9 @@ class Stack(nn.Module):
 
     def forward(self, x, extras=None, collect_kv: bool = False):
         """x (B, S, d), ``extras["context"]`` (B, Sk, d) for the XATTN
-        sublayers -> (x, the MoE sublayers' load-balancing losses summed
-        in block order (fp32, 0 without MoE), per-block caches or None)."""
+        sublayers or the cross-attentions -> (x, the MoE sublayers'
+        load-balancing losses summed in block order (fp32, 0 without
+        MoE), per-block caches or None)."""
         context = (extras or {}).get("context")
         kvs = []
         total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -203,34 +244,41 @@ class Stack(nn.Module):
             new_cache.append(nc)
         return x, new_cache
 
-    def init_cache(self, batch: int, seq: int):
+    def init_cache(self, batch: int, seq: int, ctx_len=None):
         """Zero buffers: ``seq`` positions of each self-attention layer,
-        the context's ``n_frontend_tokens`` of each XATTN layer, the
-        recurrent states."""
+        ``ctx_len`` (default the config's ``n_frontend_tokens``) of each
+        XATTN layer and cross-attention, the recurrent states."""
         cfg, dev = self.cfg, self.blocks[0]["sub0"].norm1.scale.device
-        H, hd = cfg.rwkv_n_heads, cfg.rwkv_head_size
+        ctx_len = cfg.n_frontend_tokens if ctx_len is None else ctx_len
 
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
-        def kv_buf(*shape):
+        def kv(n):
+            shape = (batch, n, cfg.n_kv_heads, cfg.hd)
             if cfg.kv_cache_dtype == "int8":
-                return {"q": zeros(*shape, dtype=torch.int8),
-                        "s": zeros(*shape[:-1], 1)}
-            return zeros(*shape, dtype=self.compute_dtype)
+                return {t: {"q": zeros(*shape, dtype=torch.int8),
+                            "s": zeros(*shape[:-1], 1)} for t in "kv"}
+            return {t: zeros(*shape, dtype=self.compute_dtype) for t in "kv"}
 
         cache = []
         for block in self.blocks:
             c = {}
             for name, sub in block.items():
+                m = sub.mixer
                 if sub.mixer_kind in (ATTN, XATTN):
-                    n = seq if sub.mixer_kind == ATTN \
-                        else cfg.n_frontend_tokens
-                    shp = (batch, n, cfg.n_kv_heads, cfg.hd)
-                    e = {"mixer": {"k": kv_buf(*shp), "v": kv_buf(*shp)}}
+                    e = {"mixer": kv(seq if sub.mixer_kind == ATTN
+                                     else ctx_len)}
+                elif sub.mixer_kind == MAMBA:
+                    e = {"mixer": {
+                        "conv": zeros(batch, m.d_conv - 1, m.d_inner),
+                        "ssm": zeros(batch, m.d_inner, m.d_state)}}
                 else:
+                    hd = m.head_size
                     e = {"mixer": {"shift": zeros(batch, cfg.d_model),
-                                   "wkv": zeros(batch, H, hd, hd)}}
+                                   "wkv": zeros(batch, m.n_heads, hd, hd)}}
+                if sub.cross is not None:
+                    e["cross"] = kv(ctx_len)
                 if isinstance(sub.ffn, RWKV6ChannelMix):
                     e["ffn"] = {"shift": zeros(batch, cfg.d_model)}
                 c[name] = e
@@ -240,8 +288,8 @@ class Stack(nn.Module):
     def pad_cache(self, kvs, prefill_len: int, max_seq: int):
         """Pad the self-attention K/V collected at prefill out to
         ``max_seq`` tokens so that decode can keep writing (zeros, and for
-        the int8 form zero ``q`` and zero ``s``); states and the XATTN
-        layers' context K/V pass through."""
+        the int8 form zero ``q`` and zero ``s``); states and the context's
+        K/V (XATTN layers, cross-attentions) pass through."""
         if max_seq < prefill_len:
             raise ValueError(f"max_seq {max_seq} < prefill length "
                              f"{prefill_len}")
@@ -262,8 +310,9 @@ class Stack(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """Decoder-only LM for the dense (ATTN + MLP), MoE (ATTN + MoE), RWKV
-    and VLM (ATTN and XATTN over image tokens, + MLP) families.
+    """Decoder-only LM for the dense (ATTN + MLP), MoE (ATTN + MoE), RWKV,
+    hybrid (MAMBA and ATTN with MLP and MoE) and VLM (ATTN and XATTN
+    over image tokens, + MLP) families.
 
     Parameters are held in ``param_dtype`` (the reference's fp32 norm,
     mix, decay and bonus parameters stay fp32) and drawn at construction
@@ -277,7 +326,8 @@ class DecoderLM(nn.Module):
                  init: bool = True):
         super().__init__()
         if cfg.enc_dec:
-            raise _unported("the encoder-decoder LM")
+            raise ValueError(f"{cfg.name} is an encoder-decoder: build it "
+                             f"with repro_torch.models.EncDecLM")
         self.cfg, self.compute_dtype = cfg, compute_dtype
         self.device = resolve_device(device)
         dev = self.device
@@ -294,7 +344,8 @@ class DecoderLM(nn.Module):
     def init(self, generator=None):
         """Draw every parameter from the reference's distributions: Linear
         weights N(0, 1/d_in), the embedding N(0, 0.02^2), norms at 1 and 0,
-        and the RWKV mixes, decays and bonus as ``RWKV6TimeMix.reset``.
+        the RWKV mixes, decays and bonus as ``RWKV6TimeMix.reset``, and
+        Mamba's as ``Mamba.reset``.
         The two packages' generators differ, so the values do too."""
         for m in (self.embed, self.stack, self.final_norm, self.lm_head):
             if m is not None:

@@ -335,15 +335,13 @@ def make_tenant_accuracy_reduce_step(tenants, mesh=None):
 def make_prefill_step(model, cfg, max_seq=None):
     """``step(batch) -> (cache, last_logits)`` for ``batch["tokens"]`` (B,
     S) and, for a VLM, ``batch["context"]`` (B, n_frontend_tokens, d), the
-    image tokens its XATTN layers attend. The reference's step prefills
-    without ``max_seq``, which leaves no room in the K/V cache (its writes
-    then clamp onto the last token); a decoder that follows passes the
-    length to serve up to."""
+    image tokens its XATTN layers attend, or, for an encoder-decoder,
+    ``batch["frames"]`` (B, enc_len, d), its encoder's input. The
+    reference's step prefills without ``max_seq``, which leaves no room in
+    the K/V cache (its writes then clamp onto the last token); a decoder
+    that follows passes the length to serve up to."""
     def prefill(batch):
-        if "frames" in batch:
-            raise NotImplementedError("enc-dec inputs are not ported "
-                                      "(ROADMAP, module 9)")
-        extras = {"context": batch["context"]} if "context" in batch else {}
+        extras = {k: batch[k] for k in ("context", "frames") if k in batch}
         return model.prefill(batch["tokens"], extras, max_seq=max_seq)
 
     return prefill

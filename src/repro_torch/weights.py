@@ -16,7 +16,10 @@ The LM's tree (``embed``, ``blocks``, ``final_norm``, ``lm_head``) maps
 key for key onto :class:`DecoderLM`'s modules, Linear weights staying in
 the reference's (d_in, d_out) layout; ``blocks`` carries a leading
 n_blocks axis, which is split across the port's per-block modules
-(:func:`lm_from_numpy`) and stacked back (:func:`lm_to_numpy`).
+(:func:`lm_from_numpy`) and stacked back (:func:`lm_to_numpy`). An
+encoder-decoder's tree (``embed``, ``encoder``, ``decoder``,
+``enc_norm``, ``final_norm``, ``lm_head``) maps onto :class:`EncDecLM`
+alike, ``encoder`` and ``decoder`` each stacked over the blocks.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.accmodel import AccModel
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.vision.dnn import FinalDNN
 
@@ -100,42 +104,55 @@ def accmodel_to_numpy(model: AccModel) -> dict:
     return flat_numpy(model.state_dict())
 
 
-def lm_from_numpy(cfg, params, device="cuda",
-                  dtype=torch.float32) -> DecoderLM:
-    """A :class:`DecoderLM` for ``cfg`` holding the reference's ``params``
-    (nested or flat ``"a/b"`` keys, numpy), with weights and compute in
-    ``dtype`` (the parameters the reference keeps in fp32 stay fp32).
-    Nothing is drawn: the strict load sets every parameter."""
-    model = DecoderLM(cfg, compute_dtype=dtype, param_dtype=dtype,
-                      device=device, init=False)
+def _stacks(cfg) -> dict:
+    """The reference tree's block-stacked subtrees of an LM of ``cfg``,
+    each with the port's prefix for its per-block modules."""
+    if cfg.enc_dec:
+        return {"encoder": "encoder.blocks", "decoder": "decoder.blocks"}
+    return {"blocks": "stack.blocks"}
+
+
+def lm_from_numpy(cfg, params, device="cuda", dtype=torch.float32):
+    """A :class:`DecoderLM` (an :class:`EncDecLM` for an enc-dec ``cfg``)
+    holding the reference's ``params`` (nested or flat ``"a/b"`` keys,
+    numpy), with weights and compute in ``dtype`` (the parameters the
+    reference keeps in fp32 stay fp32). Nothing is drawn: the strict load
+    sets every parameter."""
+    cls = EncDecLM if cfg.enc_dec else DecoderLM
+    model = cls(cfg, compute_dtype=dtype, param_dtype=dtype, device=device,
+                init=False)
+    stacks = _stacks(cfg)
     sd = {}
     for key, v in _flat(params).items():
         head, _, rest = key.partition("/")
-        if head != "blocks":
+        if head not in stacks:
             sd[key.replace("/", ".")] = torch.from_numpy(v.copy())
             continue
         if v.shape[0] != cfg.n_blocks:
             raise ValueError(f"{key}: leading axis {v.shape[0]}, expected "
                              f"{cfg.n_blocks} blocks")
         for b in range(cfg.n_blocks):
-            sd[f"stack.blocks.{b}.{rest.replace('/', '.')}"] = \
+            sd[f"{stacks[head]}.{b}.{rest.replace('/', '.')}"] = \
                 torch.from_numpy(v[b].copy())
     model.load_state_dict(sd)
     return model
 
 
-def lm_to_numpy(model: DecoderLM) -> dict:
-    """``model``'s parameters in the reference's flat form, fp32, the
-    blocks stacked on a leading axis."""
+def lm_to_numpy(model) -> dict:
+    """``model``'s parameters (a :class:`DecoderLM` or an
+    :class:`EncDecLM`) in the reference's flat form, fp32, the blocks
+    stacked on a leading axis."""
+    prefixes = {p + ".": head for head, p in _stacks(model.cfg).items()}
     flat, blocks = {}, {}
     for key, t in model.state_dict().items():
         v = t.detach().float().cpu().numpy()
-        if key.startswith("stack.blocks."):
-            _, _, b, rest = key.split(".", 3)
-            blocks.setdefault(rest, {})[int(b)] = v
-        else:
+        pre = next((p for p in prefixes if key.startswith(p)), None)
+        if pre is None:
             flat[key.replace(".", "/")] = v
-    for rest, per_block in blocks.items():
-        flat["blocks/" + rest.replace(".", "/")] = np.stack(
+            continue
+        b, rest = key[len(pre):].split(".", 1)
+        blocks.setdefault(f"{prefixes[pre]}/{rest}", {})[int(b)] = v
+    for name, per_block in blocks.items():
+        flat[name.replace(".", "/")] = np.stack(
             [per_block[b] for b in range(len(per_block))])
     return flat

@@ -1032,6 +1032,88 @@ def test_decode_attn_int8_at_moonshot_decode_shape(cuda):
         atol=1e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("S,pos", [(2048, 1087), (1024, 1023)])
+def test_decode_attn_at_seamless_decode_shapes(cuda, S, pos):
+    """seamless-m4t-large-v2's two decode shapes on its bf16 caches (B 16,
+    KV 16, G 1, hd 64): its self layers' (S 2048, pos 1087) and its cross
+    layers' (the 1,024 encoder positions read whole), against the plain
+    version."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    q, k, v = _attn_inputs(cuda, 16, S, 16, 1, 64, torch.bfloat16, seed=S)
+    got = decode_attn_cuda(q, k, v, pos)
+    assert got.shape == (16, 16, 1, 64)
+    np.testing.assert_allclose(
+        got.cpu().numpy(), decode_attn_ref(q, k, v, pos).cpu().numpy(),
+        atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_step_graph_replays_as_the_eager_step(cuda, dtype):
+    """A Mamba layer (d 256, N 16) on the card: its prefill within atol
+    1e-5, rtol 1e-4 of the CPU's in fp32; a single-token step with the
+    prefill's state, captured as a CUDA graph, replays bit for bit as the
+    eager step (output and both states)."""
+    from repro_torch.models.mamba import Mamba
+
+    cpu = Mamba(256, 16, dtype=dtype, device="cpu")
+    cpu.reset(torch.Generator().manual_seed(0))
+    card = Mamba(256, 16, dtype=dtype, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (4, 70, 256)).astype(np.float32)).to(dtype)
+    with torch.no_grad():
+        out, st = card(x[:, :69].to(cuda))
+        if dtype == torch.float32:
+            want, wst = cpu(x[:, :69])
+            np.testing.assert_allclose(out.cpu().numpy(), want.numpy(),
+                                       atol=1e-5, rtol=1e-4)
+            for key in ("conv", "ssm"):
+                np.testing.assert_allclose(st[key].cpu().numpy(),
+                                           wst[key].numpy(), atol=1e-5,
+                                           rtol=1e-4)
+        xs = x[:, 69:].to(cuda)
+        eager, est = card(xs, state=st)
+        static = {key: t.clone() for key, t in st.items()}
+        card(xs, state=static)  # warm-up
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed, gst = card(xs, state=static)
+        graph.replay()
+    assert torch.equal(replayed, eager)
+    assert all(torch.equal(gst[key], est[key]) for key in est)
+
+
+def test_encdec_graph_step_equals_the_eager_step(cuda):
+    """seamless-reduced (bf16, hd 32) on the card: ``DecodeGraph``'s step
+    replayed at the prompt's end gives the eager decode's logits bit for
+    bit, from two prefills of the same prompt and frames; its capture
+    records two ``decode_attn`` launches a decoder layer (self and
+    cross)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch.serve import DecodeGraph
+    from repro_torch.models import EncDecLM
+
+    cfg = get_reduced_config("seamless_m4t_large_v2")
+    model = EncDecLM(cfg, torch.bfloat16, torch.bfloat16, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(0))
+    gen = torch.Generator(cuda).manual_seed(1)
+    extras = {"frames": 0.3 * torch.randn(4, 48, cfg.d_model, device=cuda,
+                                          generator=gen).to(torch.bfloat16)}
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 40)).astype(np.int32)).to(cuda)
+    cache, last = model.prefill(prompts, extras, max_seq=64)
+    tok = torch.argmax(last[:, -1], dim=-1).to(torch.int32)
+    step = DecodeGraph(model, cache, tok, 40)
+    assert step.launches == {"decode_attn": 2 * cfg.n_layers}
+    step.replay(40)
+    cache2, _ = model.prefill(prompts, extras, max_seq=64)
+    _, eager = model.decode(cache2, tok[:, None], 40)
+    assert torch.equal(step.logits, eager)
+
+
 def _moe_pair(cuda, dtype, seed=0):
     """The same MoE on the CPU and on the card (olmoe-reduced's sizes)."""
     from repro_torch.models.moe import MoE
@@ -1092,17 +1174,22 @@ def test_moe_on_the_card_keeps_tied_tokens_as_the_cpu(cuda):
                                        ("olmoe_1b_7b", False),
                                        ("moonshot_v1_16b_a3b", True),
                                        ("llama3_2_vision_90b", False),
-                                       ("llama3_2_vision_90b", True)])
+                                       ("llama3_2_vision_90b", True),
+                                       ("jamba1_5_large_398b", False),
+                                       ("seamless_m4t_large_v2", False)])
 def test_graph_decode_equals_eager_decode(cuda, arch, int8):
     """The serving launcher's captured step replayed at every position gives
     the eager loop's tokens (reduced configs, bf16, random weights); the
-    capture records one kernel launch per layer, a VLM's cross layer's
-    too (llama-vision-reduced at head dim 32: the kernel has no 16)."""
+    capture records one kernel launch per attention or RWKV layer, a
+    VLM's cross layer's too (llama-vision-reduced at head dim 32: the
+    kernel has no 16), two per decoder layer of an encoder-decoder (self
+    and cross), and none for jamba's Mamba layers."""
     import dataclasses
 
     from repro_torch.configs import get_reduced_config
+    from repro_torch.configs.base import ATTN, XATTN
     from repro_torch.launch.serve import serve_tokens
-    from repro_torch.models import DecoderLM
+    from repro_torch.models import DecoderLM, EncDecLM
 
     cfg = get_reduced_config(arch)
     if int8:
@@ -1113,8 +1200,13 @@ def test_graph_decode_equals_eager_decode(cuda, arch, int8):
         extras["context"] = 0.3 * torch.randn(
             4, cfg.n_frontend_tokens, cfg.d_model, device=cuda,
             generator=torch.Generator(cuda).manual_seed(1)).to(torch.bfloat16)
-    model = DecoderLM(cfg, torch.bfloat16, torch.bfloat16, device=cuda,
-                      generator=torch.Generator(cuda).manual_seed(0))
+    if cfg.enc_dec:
+        extras["frames"] = 0.3 * torch.randn(
+            4, 48, cfg.d_model, device=cuda,
+            generator=torch.Generator(cuda).manual_seed(1)).to(torch.bfloat16)
+    model = (EncDecLM if cfg.enc_dec else DecoderLM)(
+        cfg, torch.bfloat16, torch.bfloat16, device=cuda,
+        generator=torch.Generator(cuda).manual_seed(0))
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (4, 40)).astype(np.int32)).to(cuda)
     eager = serve_tokens(model, prompts, 12, max_seq=64, graph=False,
@@ -1122,8 +1214,14 @@ def test_graph_decode_equals_eager_decode(cuda, arch, int8):
     graph = serve_tokens(model, prompts, 12, max_seq=64, graph=True,
                          extras=extras)
     assert eager.finite and graph.finite and eager.graph is None
-    kernel = "wkv6" if cfg.attn_free else "decode_attn"
-    assert graph.graph.launches == {kernel: cfg.n_layers}
+    if cfg.attn_free:
+        want = {"wkv6": cfg.n_layers}
+    elif cfg.enc_dec:
+        want = {"decode_attn": 2 * cfg.n_layers}
+    else:
+        want = {"decode_attn": cfg.n_blocks * sum(
+            m in (ATTN, XATTN) for m, _ in cfg.block_pattern)}
+    assert graph.graph.launches == want
     assert torch.equal(graph.tokens, eager.tokens)
 
 

@@ -19,8 +19,9 @@ from repro_torch.control import (ControlKnobs, ControlledAccMPEGPolicy,
 from repro_torch.core.accmodel import AccModel
 from repro_torch.core.training import accmodel_init
 from repro_torch.engine import EngineConfig, StreamingEngine
-from repro_torch.models import DecoderLM, Stack
+from repro_torch.models import DecoderLM, EncDecLM, Stack
 from repro_torch.models import layers as L
+from repro_torch.models.mamba import Mamba
 from repro_torch.models.moe import MoE
 from repro_torch.models.rwkv6 import RWKV6ChannelMix, RWKV6TimeMix
 from repro_torch.serve.tenants import TenantSpec
@@ -74,7 +75,10 @@ def test_port_files_exist():
                    "launch/serve.py", "models/moe.py",
                    "configs/olmoe_1b_7b.py",
                    "configs/moonshot_v1_16b_a3b.py",
-                   "configs/llama3_2_vision_90b.py"):
+                   "configs/llama3_2_vision_90b.py",
+                   "configs/jamba1_5_large_398b.py",
+                   "configs/seamless_m4t_large_v2.py", "models/mamba.py",
+                   "models/encdec.py"):
         assert f"src/repro_torch/{module}" in names
     assert "chip_smoke.py" in names
     for source in ("mbcodec/csrc/mbcodec.cu",
@@ -161,6 +165,9 @@ _LM_MODULES = {
     "MoE": lambda **kw: MoE(8, 16, 4, 2, **kw),
     "RWKV6TimeMix": lambda **kw: RWKV6TimeMix(8, 4, 2, 2, **kw),
     "RWKV6ChannelMix": lambda **kw: RWKV6ChannelMix(8, 16, **kw),
+    "Mamba": lambda **kw: Mamba(8, 4, **kw),
+    "EncDecLM": lambda **kw: EncDecLM(
+        get_reduced_config("seamless-m4t-large-v2"), **kw),
 }
 
 
@@ -175,15 +182,23 @@ def test_lm_modules_default_to_cuda_and_refuse_without_it(name):
 
 
 def test_lm_rejects_unported_archs_and_layers():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("seamless-m4t-large-v2")
+    """yi-34b and qwen1.5-110b wait for their slice, and a mixer or FFN
+    kind the reference does not know raises; an encoder-decoder config is
+    refused by the decoder-only LM, and the other way round."""
+    for arch in ("yi-34b", "qwen1.5-110b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(arch)
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt-5")
     cfg = get_reduced_config("smollm_360m")
-    for bad in (dict(block_pattern=(("mamba", "mlp"),)),
-                dict(enc_dec=True)):
+    for bad in (dict(block_pattern=(("conv", "mlp"),)),
+                dict(block_pattern=(("attn", "glu"),))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DecoderLM(dataclasses.replace(cfg, **bad), device="cpu")
+    with pytest.raises(ValueError, match="EncDecLM"):
+        DecoderLM(dataclasses.replace(cfg, enc_dec=True), device="cpu")
+    with pytest.raises(ValueError, match="DecoderLM"):
+        EncDecLM(cfg, device="cpu")
 
 
 def test_engine_rejects_unported_modes_and_unknown_backends():

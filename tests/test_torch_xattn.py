@@ -318,7 +318,9 @@ def test_decode_matches_forward(int8):
 def test_serving_steps_pass_the_context(params):
     """``make_prefill_step`` with ``batch["context"]``, then
     ``make_decode_step``: the reference's steps' tokens and logits; no
-    context raises ``ValueError`` as the reference's ``_extras``."""
+    context raises ``ValueError`` as the reference's ``_extras``. The step
+    passes ``batch["frames"]`` on as the reference's does, and the VLM, a
+    decoder-only model, leaves them unread: the same cache and logits."""
     ref, port = _pair(params)
     tokens, ctx = _tokens(port.cfg, 2), _context(port.cfg, 3)
     ref_pre = ref_steps.make_prefill_step(ref, ref.cfg, None)
@@ -339,8 +341,14 @@ def test_serving_steps_pass_the_context(params):
         _close_logits(tlg, lg, scale)
     with pytest.raises(ValueError, match="context"):
         pre({"tokens": _t(tokens[:, :S1])})
-    with pytest.raises(NotImplementedError, match="module 9"):
+    with pytest.raises(ValueError, match="context"):
         pre({"tokens": _t(tokens[:, :S1]), "frames": _t(ctx)})
+    fcache, flast = pre({"tokens": _t(tokens[:, :S1]), "context": _t(ctx),
+                         "frames": _t(ctx)})
+    again, alast = pre({"tokens": _t(tokens[:, :S1]), "context": _t(ctx)})
+    assert torch.equal(flast, alast)
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        serve._leaves(fcache), serve._leaves(again)))
 
 
 def test_serve_loop_tokens_equal_the_reference_loop(params):
