@@ -168,7 +168,8 @@ check it end to end.
    core body with p.v as O += P V; with the graph check) and its cross
    layers' (B=16, the whole int8 cache of S=6404 image tokens,
    pos=6403), and jamba-1.5-large-398b's (the same KV=8, G=8 on a bf16
-   cache, qwen1.5-110b's shape too; with the graph check); at hd 64 and
+   cache, qwen1.5-110b's shape too: the tensor-core bf16 body; with the
+   graph check); each row logs its body, blocks an SM and splits; at hd 64 and
    G 1, seamless-m4t-large-v2's self layers' (KV=16, pos=1087, bf16; with
    the graph check) and its cross layers' (the whole bf16 cache of 1,024
    encoder positions, pos=1023); SDPA timed on each bf16 cache and,
@@ -1966,7 +1967,8 @@ def decode_attn_kernel_phase():
     ``scaled_dot_product_attention`` on the same
     inputs timed as the library call (no library call reads the int8
     cache: the cross row's SDPA reads a bf16 copy of it, unmasked); each
-    int8 row logs the blocks an SM of its instantiation holds."""
+    row logs the body it takes (tensor-core or CUDA-core), the blocks an
+    SM of its instantiation holds and its splits."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attn import kernel as dk
@@ -2058,16 +2060,16 @@ def decode_attn_kernel_phase():
                                library=(library if lib_on_copy or not int8
                                         else None),
                                reps=1 if big else 10, moved=moved)
-        if int8:
-            kvg, split_len, nsplit = dk.launch_plan(q.device, dtype, True, B,
-                                                    cfg_kv, cfg_g, hd, S)
-            body = ("tensor-core" if dk.mma_body(dtype, True, hd, cfg_g)
-                    else "CUDA-core")
-            resident = dk.blocks_per_sm(q.device, dtype, True, hd, cfg_g)
-            log(f"  {name}: {body} int8 body, {resident} blocks an SM "
-                f"resident (occupancy calculator), {B * cfg_kv // kvg} "
-                f"groups of {kvg} heads, {nsplit} splits of at most "
-                f"{split_len} positions")
+        kvg, split_len, nsplit = dk.launch_plan(q.device, dtype, int8, B,
+                                                cfg_kv, cfg_g, hd, S)
+        body = ("tensor-core" if dk.mma_body(dtype, int8, hd, cfg_g)
+                or dk.bf16_mma_body(dtype, int8, hd, cfg_g) else "CUDA-core")
+        resident = dk.blocks_per_sm(q.device, dtype, int8, hd, cfg_g)
+        log(f"  {name}: {body} "
+            + ("int8" if int8 else str(dtype).split(".")[-1])
+            + f" body, {resident} blocks an SM resident (occupancy "
+            f"calculator), {B * cfg_kv // kvg} groups of {kvg} heads, "
+            f"{nsplit} splits of at most {split_len} positions")
         bf16_twin = {"stablelm,int8": "stablelm,bf16",
                      "moonshot,int8": "olmoe,bf16",
                      "llama-vision,int8": "jamba,bf16"}.get(tag)
@@ -2315,10 +2317,11 @@ def decode_attn_sass_report():
     paths and smollm's int8 shape: stablelm-3b's ``decode_attn_kernel<bf16,
     int8_t, 80, 1>`` and the tensor-core body's ``<bf16, int8_t, 128, 1>``
     (moonshot-v1-16b-a3b), ``<bf16, int8_t, 128, 8>`` (llama-3.2-vision-
-    90b) and ``<bf16, int8_t, 64, 3>``: instruction count,
+    90b) and ``<bf16, int8_t, 64, 3>``, and the tensor-core bf16 body's
+    ``<bf16, bf16, 128, 8>`` (jamba-1.5-large-398b): instruction count,
     conversions (I2F, F2F, F2FP: none a value but F2FP, one for two),
-    shared-memory loads by width, tensor-core products (HMMA) and top
-    opcodes. Checks nothing."""
+    shared-memory loads by width (LDSM: ldmatrix), tensor-core products
+    (HMMA) and top opcodes. Checks nothing."""
     from repro_torch.kernels import build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -2330,13 +2333,14 @@ def decode_attn_sass_report():
         if label not in ("decode_attn_kernel<bf16, int8_t, 80, 1>",
                          "decode_attn_kernel<bf16, int8_t, 128, 1>",
                          "decode_attn_kernel<bf16, int8_t, 128, 8>",
-                         "decode_attn_kernel<bf16, int8_t, 64, 3>"):
+                         "decode_attn_kernel<bf16, int8_t, 64, 3>",
+                         "decode_attn_kernel<bf16, bf16, 128, 8>"):
             continue
         ops = collections.Counter(re.findall(
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
             r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)", part))
         picked = {op: n for op, n in sorted(ops.items()) if op.split(".")[0]
-                  in ("I2F", "F2F", "F2FP", "LDS", "HMMA")}
+                  in ("I2F", "F2F", "F2FP", "LDS", "LDSM", "HMMA")}
         top = collections.Counter()
         for op, n in ops.items():
             top[op.split(".")[0]] += n

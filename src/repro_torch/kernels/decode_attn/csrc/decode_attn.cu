@@ -21,7 +21,10 @@
 // a row with its scale: 93.6 MB, 27.9 us (a dequantize adds 2 operations
 // a value, still far below the bytes). On olmoe-1b-7b's (B=16, KV=16, G=1,
 // hd=128, pos=1087) bf16 cache: 142.6 MB, 42.6 us; on moonshot-v1-16b-a3b's
-// int8 one (the same shape): 73.5 MB, 21.9 us. What bounds the int8 body
+// int8 one (the same shape): 73.5 MB, 21.9 us. On jamba-1.5-large-398b's
+// (B=16, KV=8, G=8, hd=128, pos=1087) bf16 cache: 71.3 MB, 21.3 us; its
+// 16 operations a cache value are still far below the tensor cores' ~295
+// a byte. What bounds the int8 body
 // in practice is instruction issue: an exact dequantize takes ~3.75
 // instructions a value, so moonshot's 71 M values a call are ~8 M warp
 // instructions, about a third of the card's issue over the bytes' time.
@@ -51,17 +54,18 @@
 //    its own positions of every tile and keeps its own online softmax (m,
 //    l, accumulator) for all G query rows. The warps merge once, after the
 //    split, with the same log-sum-exp weights as the merge across splits.
-// 4. A bf16 or fp32 cache: a ring of NSTAGE tiles of about 4 KB of
-//    K in static shared memory. The lanes of a warp split each position's
-//    channels and q (pre-scaled) lives in registers; bf16 is widened to
-//    fp32 in registers where it is used. At hd 32, 64 and 128 a lane reads
-//    16 (or 8) bytes of a row, so the unpadded rows of a tile are read
-//    without bank conflicts (at hd 128 16 or 32 lanes share a position, and
-//    a tile holds 16 or 8 positions); at hd 80 (5 x 16 channels) 8 or 16
-//    lanes share a position, 10 or 5 channels a lane, read in 8-, 4- or
-//    2-byte pieces. G is a template parameter (1..8), as hd is (32, 64,
-//    80, 128): the channels of a lane shrink as G grows, so q and the
-//    accumulator stay within about 2 x QA_REGS registers.
+// 4. A bf16 or fp32 cache (but 6b's instantiations): a ring of NSTAGE
+//    tiles of about 4 KB of K in static shared memory. The lanes of a
+//    warp split each position's channels and q (pre-scaled) lives in
+//    registers; bf16 is widened to fp32 in registers where it is used.
+//    At hd 32, 64 and 128 a lane reads 16 (or 8) bytes of a row, so the
+//    unpadded rows of a tile are read without bank conflicts (at hd 128
+//    16 or 32 lanes share a position, and a tile holds 16 or 8
+//    positions); at hd 80 (5 x 16 channels) 8 or 16 lanes share a
+//    position, 10 or 5 channels a lane, read in 8-, 4- or 2-byte pieces.
+//    G is a template parameter (1..8), as hd is (32, 64, 80, 128): the
+//    channels of a lane shrink as G grows, so q and the accumulator stay
+//    within about 2 x QA_REGS registers.
 // 5. The int8 cache (walk_int8): the dequantize is most of the work (89 M
 //    values a call on stablelm's path), so it stays off the conversion
 //    pipe, which issues 16 results a clock per SM against 64 to 128 for
@@ -104,6 +108,27 @@
 //    splits spread positions 0..pos evenly over the launch's nsplit, which
 //    the wrapper sizes to two blocks an SM (one at G > 4): one wave of long
 //    blocks whatever pos is.
+// 6b. The bf16 cache with a bf16 q at hd 64 and 128 and G 5..8
+//    (BF16_MMA_BODY: jamba-1.5-large-398b's attention layer, G 8 at hd
+//    128): walk_bf16_mma, walk_int8_mma's structure at G > 4 without a
+//    dequantize. At G 8 the CUDA-core body's lanes split each position's
+//    channels (4 a lane at hd 128), so a score took 5 shuffle rounds and
+//    the products 40 shuffles a position and warp, more issue than the
+//    bytes' time. Here both products run as mma.sync m16n8k16 (bf16
+//    operands, fp32 sums): q.k as S (G x 8 positions) += Q (G x 16
+//    channels) K^T, Q's fragments in registers (rows G.. zero); p.v as O
+//    += P V, P as the A operand as it lies in q.k's accumulators (rows g
+//    head g's bf16 hi, rows g + 8 its lo). K and V stay bf16 in shared
+//    memory and reach the fragments by ldmatrix (K) and ldmatrix.trans
+//    (V as the B operand); each row's 16-byte chunks are swizzled (chunk
+//    c of row p at c ^ (p & 7)), so the 8 rows of an 8x8 matrix, and the
+//    copies' 8 consecutive chunks, hit 8 distinct bank groups. Its own
+//    tiles (Bf16MmaPlan): 16 positions of one KV head a warp, 4 warps a
+//    block, a ring of 6 tiles of 32 KB at hd 128 (one block an SM, five
+//    tiles in flight); its splits spread 0..pos as walk_int8_mma's, one
+//    a row at jamba's shape (tools/decode_attn_splits.py: 4 or 8 warps,
+//    rings of 2, 3 or 6 tiles and 1 to 4 splits a row; one split of one
+//    block an SM was fastest, 4 warps and 6 tiles by 1-2%).
 // 7. The grid and the scratch depend on (B*KV, S) and the cache's type
 //    only, never on pos: the wrapper's split plan is a function of them. A
 //    block whose split starts after pos leaves at once, and the merge
@@ -113,10 +138,10 @@
 //    raised without a synchronise, so the kernel writes NaN to every
 //    output of the call instead.
 // Numerics: fp32 throughout, no fast math; scores in log2 units (q scaled
-// by log2(e) / sqrt(hd), exp2f; walk_int8_mma scales q.k's fp32 sums
-// instead); the result differs from the plain version (fp32 einsum and
-// softmax over all of S) in rounding and summation order, and in
-// walk_int8_mma by P's hi + lo split (to 2^-17 of a weight), only.
+// by log2(e) / sqrt(hd), exp2f; the tensor-core bodies scale q.k's fp32
+// sums instead); the result differs from the plain version (fp32 einsum
+// and softmax over all of S) in rounding and summation order, and in the
+// tensor-core bodies by P's hi + lo split (to 2^-17 of a weight), only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -262,10 +287,55 @@ constexpr int MMA_STAGES = G > 4 ? DECODE_ATTN_WIDE_NSTAGE : 4;
 template <int G>
 constexpr int MMA_WARPS = G > 4 ? DECODE_ATTN_WIDE_WARPS : NW;
 
+// walk_bf16_mma: the tiles of its ring and the warps of a block (macros
+// only so that tools/decode_attn_splits.py can build the variants it
+// sweeps)
+#ifndef DECODE_ATTN_BF16_NSTAGE
+#define DECODE_ATTN_BF16_NSTAGE 6
+#endif
+#ifndef DECODE_ATTN_BF16_WARPS
+#define DECODE_ATTN_BF16_WARPS 4
+#endif
+
+// walk_bf16_mma's tiles: WP positions of one KV head a warp, TP a tile for
+// W warps, K's rows then V's, 2 HD bytes a row in 16-byte chunks swizzled
+// by bf16_chunk_at, a ring of NS tiles in dynamic shared memory
+template <int HD, int NS, int W>
+struct Bf16MmaPlan {
+  static constexpr int WP = 16;
+  static constexpr int BT = 32 * W;  // threads of a block
+  static constexpr int TP = W * WP;
+  static constexpr int NSTAGE = NS;
+  static constexpr int CPR = 2 * HD / 16;      // 16-byte chunks of a row
+  static constexpr int ROWS = TP * 2 * HD;     // bytes of K (of V) a tile
+  static constexpr int STAGE = 2 * ROWS;       // K, V
+  static constexpr int SMEM = NSTAGE * STAGE;
+  static constexpr int NCOPY = TP * CPR / BT;  // a thread's chunks of K
+  // floats between rows (warp, head) of the warps' accumulators after the
+  // loop: 8 past HD, so that a warp's stores of 8 heads' rows spread over
+  // the banks (2 wavefronts a float2 store, not 8)
+  static constexpr int RS = HD + 8;
+  static_assert(CPR % 8 == 0 && (TP * CPR) % BT == 0 && NSTAGE >= 2,
+                "swizzled 8-chunk groups, whole copies, a ring");
+  static_assert(4 * W * MAX_GROUP * (RS + 2) <= SMEM,
+                "merge area fits the ring");
+};
+
+// The bf16 cache's body on the tensor cores (walk_bf16_mma): q and cache
+// bf16 at hd 64 and 128, G 5..8 (jamba-1.5-large-398b's hd 128, G 8).
+// Every other bf16 and fp32 instantiation keeps the CUDA-core body.
+template <typename T, typename E, int HD, int G>
+constexpr bool BF16_MMA_BODY = std::is_same<T, __nv_bfloat16>::value &&
+                               std::is_same<E, T>::value &&
+                               (HD == 64 || HD == 128) && G > 4;
+
 // threads of a block of decode_attn_kernel<T, E, HD, G>
 template <typename T, typename E, int HD, int G>
-constexpr int block_threads() {
-  return IS_INT8<E> && MMA_BODY<T, HD, G> ? 32 * MMA_WARPS<G> : NT;
+__host__ __device__ constexpr int block_threads() {
+  if constexpr (BF16_MMA_BODY<T, E, HD, G>)
+    return 32 * DECODE_ATTN_BF16_WARPS;
+  else
+    return IS_INT8<E> && MMA_BODY<T, HD, G> ? 32 * MMA_WARPS<G> : NT;
 }
 
 // dynamic shared memory of an int8 block: the ring, and q after it for
@@ -278,6 +348,19 @@ constexpr int q8_smem() {
     return Q8Plan<HD, G>::SMEM;
 }
 
+// dynamic shared memory of a block: the int8 bodies' and walk_bf16_mma's
+// rings; 0 for the CUDA-core body, whose ring is static
+template <typename T, typename E, int HD, int G>
+constexpr int ring_smem() {
+  if constexpr (BF16_MMA_BODY<T, E, HD, G>)
+    return Bf16MmaPlan<HD, DECODE_ATTN_BF16_NSTAGE,
+                       DECODE_ATTN_BF16_WARPS>::SMEM;
+  else if constexpr (IS_INT8<E>)
+    return q8_smem<T, HD, G>();
+  else
+    return 0;
+}
+
 // resident blocks per SM, at least (at most 65536 / (block_threads x
 // this) registers a thread). bf16, fp32 caches: 4, or 3 where G > 6, whose
 // q and accumulators do not fit 128 registers without spills. int8: 4 (44
@@ -285,12 +368,17 @@ constexpr int q8_smem() {
 // accumulators a lane, and G q.k sums), but for walk_int8_mma, whose
 // fragments do not grow with G: 4, or 8 / W at G > 4 (one block of 8
 // warps); and never more blocks than the ring and q (q8_smem) let an SM
-// hold: 3 at hd 128, G <= 2 (70 KB a block; 67.6 KB for walk_int8_mma)
+// hold: 3 at hd 128, G <= 2 (70 KB a block; 67.6 KB for walk_int8_mma).
+// walk_bf16_mma: 8 / W, and no more than its ring lets an SM hold (1 at
+// hd 128 with 6 tiles of 32 KB)
 constexpr int SM_SMEM = 228 * 1024;      // an SM's, at the largest carveout
 constexpr int BLOCK_SMEM_RESERVED = 1024;  // the system's, per block
 template <typename T, typename E, int HD, int G>
 constexpr int min_blocks() {
-  if constexpr (IS_INT8<E> && MMA_BODY<T, HD, G> && G > 4)
+  if constexpr (BF16_MMA_BODY<T, E, HD, G>)
+    return cmin(8 / DECODE_ATTN_BF16_WARPS,
+                SM_SMEM / (ring_smem<T, E, HD, G>() + BLOCK_SMEM_RESERVED));
+  else if constexpr (IS_INT8<E> && MMA_BODY<T, HD, G> && G > 4)
     return cmin(8 / MMA_WARPS<G>,
                 SM_SMEM / (q8_smem<T, HD, G>() + BLOCK_SMEM_RESERVED));
   else if constexpr (IS_INT8<E>)
@@ -1059,12 +1147,224 @@ __device__ __forceinline__ void walk_int8_mma(
   }
 }
 
+// byte offset of 16-byte chunk c of row p of walk_bf16_mma's tile (rows of
+// CPR chunks, a multiple of 8): c ^ (p & 7), so that 8 consecutive rows'
+// chunk c (an ldmatrix matrix) and a row's 8 chunks of one aligned group
+// (a quarter-warp's copies) each hit 8 distinct bank groups
+template <int CPR>
+__device__ __forceinline__ int bf16_chunk_at(int p, int c) {
+  return 16 * (p * CPR + (c ^ (p & 7)));
+}
+
+// four 8x8 matrices of 16-bit values from shared memory: lanes 8i..8i + 7
+// give the addresses of matrix i's rows; r[i] of lane 4g + t holds its row
+// g, columns 2t, 2t + 1 (.trans: rows 2t, 2t + 1 of its column g)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], unsigned at) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(at));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  unsigned at) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(at));
+}
+
+// The bf16 cache's body on the tensor cores (BF16_MMA_BODY: bf16 q and
+// cache, hd 64 or 128, G 5..8): one KV head of one b, positions
+// begin..end-1; q its G rows; kb, vb the cache at position 0 of the head.
+// Bf16MmaPlan's tiles, warp w taking positions 16 w .. + 15 of each, in a
+// ring filled by 16-byte cp.async copies as walk_int8_mma's. q.k: S (G x
+// 8 positions) += Q (G x 16 channels) K^T, two n-tiles a warp, Q's
+// fragments (head gq's channels 16 j + 2t, + 1 and + 8, + 9 for k-step j;
+// rows G.. zero) unscaled in registers; K's fragments by ldmatrix.x4 of
+// the warp's 8 rows of an n-tile, 4 chunks (2 k-steps) at a time; the
+// scores of positions 8 nt + 2t, + 1 of head gq come out on lane (gq, t),
+// times log2(e) / sqrt(HD). p.v as walk_int8_mma's at G > 4: O (16 x 8
+// channels) += P (16 x 16 positions) V, P the A operand as it lies in the
+// scores (rows g: head g's bf16 hi, rows g + 8: its lo), so no score
+// moves between lanes and each lane rescales by its own head's
+// correction; V's B fragments (rows 2t, + 1 and 2t + 8, + 9 of column g
+// of an n-tile) by ldmatrix.x4.trans, 2 n-tiles a time; HD / 8 n-tiles
+// of sums a lane (64 fp32 at hd 128), head gq's channels 8 n + 2t, + 1
+// as hi and lo rows summed after the loop. Per 16 positions a warp: 2 HD
+// / 16 + HD / 8 mma.sync and HD / 8 ldmatrix.x4, no widening, FMA or
+// shuffle a value. Ends as walk_int8, but for the accumulators' row
+// stride: each warp's state in smem, accumulators (W, G, M::RS), then (m,
+// l) (W, G, 2), before a barrier.
+template <int HD, int G>
+__device__ __forceinline__ void walk_bf16_mma(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kb,
+    const __nv_bfloat16* __restrict__ vb, int KV, int begin, int end,
+    unsigned char* smem) {
+  constexpr int W = DECODE_ATTN_BF16_WARPS;
+  using M = Bf16MmaPlan<HD, DECODE_ATTN_BF16_NSTAGE, W>;
+  constexpr int CPR = M::CPR, TP = M::TP, WP = M::WP, NSTAGE = M::NSTAGE;
+  constexpr int KS = HD / 16;  // q.k k-steps
+  constexpr int NO = HD / 8;   // p.v n-tiles of 8 channels
+  static_assert(G <= 8 && WP == 16 && KS % 2 == 0, "walk_bf16_mma");
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, t = lane & 3;  // fragment row group, column pair
+  const int ntile = (end - begin + TP - 1) / TP;
+  const size_t step = static_cast<size_t>(KV) * HD;  // between positions
+  const unsigned ring = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+
+  // tile tt into slot tt % NSTAGE as commit group tt (empty past the
+  // last): copy j of a thread is chunk ce of the row at position p0 + j
+  // (BT / CPR) of the tile, its offsets hoisted out of the tiles;
+  // consecutive threads read consecutive 16 bytes of a row
+  const int ce = tid % CPR, p0 = tid / CPR;
+  constexpr int PSTEP = M::BT / CPR;
+  const __nv_bfloat16* kc = kb + 8 * ce;
+  const __nv_bfloat16* vc = vb + 8 * ce;
+  auto fetch = [&](int tt) {
+    if (tt < ntile) {
+      unsigned char* kt = smem + (tt % NSTAGE) * M::STAGE;
+      unsigned char* vt = kt + M::ROWS;
+      const int t0 = begin + tt * TP, n = end - t0;  // rows of the tile
+      const size_t base = static_cast<size_t>(t0) * step;
+#pragma unroll
+      for (int j = 0; j < M::NCOPY; ++j) {
+        const int p = p0 + j * PSTEP;
+        const size_t off = p < n ? base + p * step : 0;
+        const int at = bf16_chunk_at<CPR>(p, ce);
+        cp_async16(kt + at, kc + off, p < n ? 16 : 0);
+        cp_async16(vt + at, vc + off, p < n ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int tt = 0; tt < NSTAGE; ++tt) fetch(tt);  // the whole ring
+
+  uint32_t qa[KS][2];  // a0 and a2 of k-step j; a1 and a3 (rows 8..) zero
+#pragma unroll
+  for (int j = 0; j < KS; ++j) {
+    qa[j][0] = qa[j][1] = 0u;
+    if (gq < G) {
+      const uint32_t* qw =
+          reinterpret_cast<const uint32_t*>(q + gq * HD + 16 * j + 2 * t);
+      qa[j][0] = qw[0];
+      qa[j][1] = qw[4];  // channels + 8
+    }
+  }
+  const float qscale = LOG2E / sqrtf(static_cast<float>(HD));
+  float m = -INFINITY, l = 0.0f;  // head gq's, over this lane's positions
+  float o[NO][4];  // O: rows gq (hi) and gq + 8 (lo), columns 2t, 2t + 1
+#pragma unroll
+  for (int i = 0; i < NO; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.0f;
+  const int wbase = warp * WP;  // this warp's first position of a tile
+  // the rows whose addresses this lane gives ldmatrix: q.k's matrices are
+  // 8 positions of an n-tile by chunks 4 j2 + lane / 8; p.v's are
+  // positions 0..7, 8..15 of the warp by chunks 2 n2, 2 n2 + 1
+  const int kr = wbase + (lane & 7), kc4 = lane >> 3;
+  const int vr = wbase + (lane & 15), vc2 = lane >> 4;
+
+  for (int tt = 0; tt < ntile; ++tt) {
+    cp_async_wait<NSTAGE - 2>();
+    __syncthreads();  // tile tt is in; every warp is done with tt - 1
+    if (tt > 0) fetch(tt - 1 + NSTAGE);
+    const int t0 = begin + tt * TP;
+    if (t0 + wbase >= end) continue;  // the warp's positions lie past pos
+    const unsigned kt = ring + (tt % NSTAGE) * M::STAGE;
+    const unsigned vt = kt + M::ROWS;
+
+    // q.k: lane (gq, t) holds the scores of positions 8 nt + 2t, + 1
+    float s[2][2];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      float d[2][4] = {};  // even and odd k-steps: two chains of products
+#pragma unroll
+      for (int j2 = 0; j2 < KS / 2; ++j2) {
+        uint32_t b[4];  // k-step 2 j2: b[0], b[1]; 2 j2 + 1: b[2], b[3]
+        ldmatrix_x4(b, kt + bf16_chunk_at<CPR>(kr + 8 * nt, 4 * j2 + kc4));
+        mma_bf16(d[0], qa[2 * j2][0], 0u, qa[2 * j2][1], 0u, b[0], b[1]);
+        mma_bf16(d[1], qa[2 * j2 + 1][0], 0u, qa[2 * j2 + 1][1], 0u, b[2],
+                 b[3]);
+      }
+      s[nt][0] = (d[0][0] + d[1][0]) * qscale;
+      s[nt][1] = (d[0][1] + d[1][1]) * qscale;
+    }
+
+    // online softmax of head gq over the 4 lanes that hold its scores
+    float mx = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool valid = t0 + wbase + 8 * nt + 2 * t + e < end;
+        s[nt][e] = valid ? s[nt][e] : -INFINITY;
+        mx = fmaxf(mx, s[nt][e]);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+    const float mn = fmaxf(m, mx);  // finite: the warp's first position
+    const float corr = exp2f(m - mn);  // 0 while m is -inf
+    m = mn;
+    l *= corr;
+    uint32_t hi[2], lo[2];  // P of positions 8 nt + 2t, + 1: hi, lo
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const float p0 = exp2f(s[nt][0] - mn), p1 = exp2f(s[nt][1] - mn);
+      l += p0 + p1;
+      hi[nt] = pack_bf16(p0, p1);
+      lo[nt] = pack_bf16(p0 - __uint_as_float(hi[nt] << 16),
+                         p1 - __uint_as_float(hi[nt] & 0xffff0000u));
+    }
+    if (__any_sync(FULL, corr != 1.0f)) {  // head gq's, this lane's own
+#pragma unroll
+      for (int i = 0; i < NO; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][e] *= corr;
+    }
+
+    // p.v, one k-step of the warp's 16 positions, 2 n-tiles an ldmatrix
+#pragma unroll
+    for (int n2 = 0; n2 < NO / 2; ++n2) {
+      uint32_t b[4];  // n-tile 2 n2: b[0], b[1]; 2 n2 + 1: b[2], b[3]
+      ldmatrix_x4_trans(b, vt + bf16_chunk_at<CPR>(vr, 2 * n2 + vc2));
+      mma_bf16(o[2 * n2], hi[0], lo[0], hi[1], lo[1], b[0], b[1]);
+      mma_bf16(o[2 * n2 + 1], hi[0], lo[0], hi[1], lo[1], b[2], b[3]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the warps' states now
+
+  // the warp's state: l over the 4 lanes of each head; head gq's channels
+  // 8 n + 2t, + 1 as its hi and lo rows summed
+  l += __shfl_xor_sync(FULL, l, 1);
+  l += __shfl_xor_sync(FULL, l, 2);
+  float* wacc = reinterpret_cast<float*>(smem);  // (W, G, M::RS)
+  float* wml = wacc + W * G * M::RS;             // (W, G, 2)
+  if (gq < G) {
+    float2* at = reinterpret_cast<float2*>(wacc + (warp * G + gq) * M::RS +
+                                           2 * t);
+#pragma unroll
+    for (int i = 0; i < NO; ++i)
+      at[4 * i] = make_float2(o[i][0] + o[i][2], o[i][1] + o[i][3]);
+    if (t == 0) {
+      wml[(warp * G + gq) * 2] = m;
+      wml[(warp * G + gq) * 2 + 1] = l;
+    }
+  }
+}
+
 // The block's partials from its W warps' states (wacc: accumulators (W,
-// G, HD), then (m, l) (W, G, 2)): its kvg rows, row0 .. row0 + kvg - 1,
-// warp w holding row w % kvg; each written to out where its row has one
-// active split, else to the scratch, where the row group's last block
-// merges them.
-template <int G, int HD, int W = NW>
+// G, RS), rows of HD floats RS apart, then (m, l) (W, G, 2)): its kvg
+// rows, row0 .. row0 + kvg - 1, warp w holding row w % kvg; each written
+// to out where its row has one active split, else to the scratch, where
+// the row group's last block merges them. KVG > 0: kvg is KVG, known at
+// compile time, so the loops over a row's warps have a constant trip
+// count and unroll (walk_bf16_mma's one row: its W warps' loads and
+// exponentials in flight together, not one after another).
+template <int G, int HD, int W = NW, int KVG = 0, int RS = HD>
 __device__ __forceinline__ void merge(const float* wacc, float* out,
                                       float* part_acc, float* part_ml,
                                       int group, int kvg, int split,
@@ -1072,19 +1372,22 @@ __device__ __forceinline__ void merge(const float* wacc, float* out,
   constexpr int BT = 32 * W;  // threads of the block
   __shared__ bool is_last;
   const int tid = threadIdx.x;
-  const float* wml = wacc + W * G * HD;
+  const float* wml = wacc + W * G * RS;
+  if constexpr (KVG > 0) kvg = KVG;
   // a row's partial: its warps merged in warp order (the first holds the
   // split's first position, so the max is finite)
   for (int i = tid; i < kvg * G * HD; i += BT) {
-    const int h = i / (G * HD), gi = i % (G * HD), g = gi / HD;
+    const int h = KVG == 1 ? 0 : i / (G * HD), gi = i % (G * HD);
+    const int g = gi / HD;
     const size_t row = static_cast<size_t>(group) * kvg + h;
     float M = -INFINITY;
     for (int w = h; w < W; w += kvg) M = fmaxf(M, wml[(w * G + g) * 2]);
     float L = 0.0f, O = 0.0f;
+    const int at = RS == HD ? gi : g * RS + gi % HD;  // in warp w's rows
     for (int w = h; w < W; w += kvg) {
       const float c = exp2f(wml[(w * G + g) * 2] - M);  // 0 for m = -inf
       L = fmaf(c, wml[(w * G + g) * 2 + 1], L);
-      O = fmaf(c, wacc[w * G * HD + gi], O);
+      O = fmaf(c, wacc[w * G * RS + at], O);
     }
     if (nact == 1) {
       out[row * G * HD + gi] = O / fmaxf(L, 1e-30f);
@@ -1149,12 +1452,14 @@ __device__ __forceinline__ void merge(const float* wacc, float* out,
   }
 }
 
-// The int8 cache: one block per (group of kvg consecutive rows b * KV +
-// kv, split), grid (B*KV / kvg, nsplit); the rest as decode_attn_kernel.
-template <typename T, int HD, int G>
-__device__ __forceinline__ void int8_rows(
-    const T* __restrict__ q, const int8_t* __restrict__ k,
-    const int8_t* __restrict__ v, const float* __restrict__ k_scale,
+// The bodies whose ring is dynamic shared memory, the int8 cache's and
+// walk_bf16_mma: one block per (group of kvg consecutive rows b * KV + kv,
+// split), grid (B*KV / kvg, nsplit), kvg 1 for walk_bf16_mma; the rest as
+// decode_attn_kernel.
+template <typename T, typename E, int HD, int G>
+__device__ __forceinline__ void ring_rows(
+    const T* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ pos_dev,
     int pos_host, int S, int KV, int kvg, int split_len,
     float* __restrict__ out, float* __restrict__ part_acc,
@@ -1165,8 +1470,8 @@ __device__ __forceinline__ void int8_rows(
   const int group = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
   const int row = group * kvg;  // the group's first row
   const int pos = pos_dev ? *pos_dev : pos_host;
-  constexpr bool MMA = MMA_BODY<T, HD, G>;
-  constexpr int W = MMA ? MMA_WARPS<G> : NW;  // warps of the block
+  constexpr bool MMA = !IS_INT8<E> || MMA_BODY<T, HD, G>;  // tensor cores
+  constexpr int W = block_threads<T, E, HD, G>() / 32;  // warps a block
   if (pos < 0 || pos >= S) {  // only a device pos gets here
     if (split == 0)
       for (int i = tid; i < kvg * G * HD; i += 32 * W)
@@ -1174,10 +1479,11 @@ __device__ __forceinline__ void int8_rows(
             __int_as_float(0x7fc00000);  // quiet NaN
     return;
   }
-  // walk_int8_mma spreads positions 0..pos evenly over the launch's
-  // nsplit splits (ceil((pos + 1) / nsplit) each, at most split_len), so
-  // that every block of the one wave the wrapper sizes holds as many
-  // positions, whatever pos is; walk_int8 takes splits of split_len
+  // the tensor-core bodies spread positions 0..pos evenly over the
+  // launch's nsplit splits (ceil((pos + 1) / nsplit) each, at most
+  // split_len), so that every block of the one wave the wrapper sizes
+  // holds as many positions, whatever pos is; walk_int8 takes splits of
+  // split_len
   const int len = MMA ? (pos + nsplit) / nsplit : split_len;
   const int nact = pos / len + 1;  // splits holding a position <= pos
   if (split >= nact) return;
@@ -1187,7 +1493,10 @@ __device__ __forceinline__ void int8_rows(
       static_cast<size_t>(row / KV) * S * KV + row % KV;
   const T* qr = q + static_cast<size_t>(row) * G * HD;
   extern __shared__ __align__(16) unsigned char dsmem[];
-  if constexpr (MMA)
+  if constexpr (!IS_INT8<E>)
+    walk_bf16_mma<HD, G>(qr, k + row0 * HD, v + row0 * HD, KV, begin, end,
+                         dsmem);
+  else if constexpr (MMA)
     walk_int8_mma<HD, G>(qr, k + row0 * HD, v + row0 * HD, k_scale + row0,
                          v_scale + row0, KV, kvg, begin, end, dsmem);
   else
@@ -1195,15 +1504,20 @@ __device__ __forceinline__ void int8_rows(
                         v_scale + row0, KV, kvg, begin, end, dsmem);
   const float* wacc = reinterpret_cast<const float*>(dsmem);
   __syncthreads();
-  merge<G, HD, W>(wacc, out, part_acc, part_ml, group, kvg, split, nsplit,
-                  nact);
+  if constexpr (IS_INT8<E>)
+    merge<G, HD, W>(wacc, out, part_acc, part_ml, group, kvg, split, nsplit,
+                    nact);
+  else  // one row a block; walk_bf16_mma's padded rows
+    merge<G, HD, W, 1,
+          Bf16MmaPlan<HD, DECODE_ATTN_BF16_NSTAGE, W>::RS>(
+        wacc, out, part_acc, part_ml, group, kvg, split, nsplit, nact);
 }
 
 // One block per (split, b * KV + kv), grid (nsplit, B*KV): the bf16 or
-// fp32 cache, E = T; or, E = int8_t, int8_rows (kvg rows a block). The
-// bf16 and fp32 body shares no code with the int8 one: built from shared
-// walk and merge functions it ran 3-18% slower on the H100 (PERF.md, PR
-// 25).
+// fp32 cache, E = T; or, E = int8_t or BF16_MMA_BODY, ring_rows (kvg rows
+// a block). The CUDA-core bf16 and fp32 body shares no code with the
+// others: built from shared walk and merge functions it ran 3-18% slower
+// on the H100 (PERF.md, PR 25).
 // part_acc (B*KV, nsplit, G, HD) and part_ml (B*KV, nsplit, G, 2) hold the
 // splits' unnormalised accumulators and (max, denominator), in log2
 // units; out (B*KV, G, HD). k_scale and v_scale (B, S, KV) are the int8
@@ -1219,9 +1533,9 @@ decode_attn_kernel(const T* __restrict__ q, const E* __restrict__ k,
                    int KV, int kvg, int split_len, float* __restrict__ out,
                    float* __restrict__ part_acc,
                    float* __restrict__ part_ml) {
-  if constexpr (IS_INT8<E>) {
-    int8_rows<T, HD, G>(q, k, v, k_scale, v_scale, pos_dev, pos_host, S, KV,
-                        kvg, split_len, out, part_acc, part_ml);
+  if constexpr (IS_INT8<E> || BF16_MMA_BODY<T, E, HD, G>) {
+    ring_rows<T, E, HD, G>(q, k, v, k_scale, v_scale, pos_dev, pos_host, S,
+                           KV, kvg, split_len, out, part_acc, part_ml);
     return;
   } else {
     using P = Plan<T, HD, G>;
@@ -1480,12 +1794,12 @@ struct Args {
 template <typename T, typename E, int HD, int G>
 int launch(const Args& a) {
   const auto kernel = decode_attn_kernel<T, E, HD, G>;
-  int smem = 0;
-  if constexpr (IS_INT8<E>) {
+  constexpr int smem = ring_smem<T, E, HD, G>();
+  constexpr bool RING = smem > 0;  // ring_rows: grid (groups, nsplit)
+  if constexpr (RING) {
     // the ring is dynamic shared memory, past 48 KB at hd 80: the limit is
     // raised on the launch's device, with the largest carveout, so that
     // min_blocks rings fit an SM
-    smem = q8_smem<T, HD, G>();
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess)
@@ -1497,8 +1811,10 @@ int launch(const Args& a) {
   if (a.blocks_per_sm)
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         a.blocks_per_sm, kernel, block_threads<T, E, HD, G>(), smem));
-  const dim3 grid = IS_INT8<E> ? dim3(a.groups, a.nsplit)
-                                : dim3(a.nsplit, a.groups);
+  if (RING && a.nsplit > 65535)  // grid.y
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = RING ? dim3(a.groups, a.nsplit)
+                         : dim3(a.nsplit, a.groups);
   kernel<<<grid, block_threads<T, E, HD, G>(), smem, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const E*>(a.k),
           static_cast<const E*>(a.v), a.k_scale, a.v_scale, a.pos_dev, a.pos,
@@ -1546,8 +1862,9 @@ int by_cache(bool is_int8, int HD, int G, const Args& a) {
 // aligned); positions 0..pos attend, pos being *pos_dev
 // (an int32 in device memory) when pos_dev is not null, else pos. Splits of
 // split_len positions cover 0..S-1: nsplit = ceil(S / split_len)
-// (walk_int8_mma's instantiations split 0..pos into nsplit equal parts,
-// of at most split_len, instead). A block takes kvg consecutive KV heads:
+// (the tensor-core bodies, walk_int8_mma and walk_bf16_mma, split 0..pos
+// into nsplit equal parts, of at most split_len, instead); at most 65535
+// for the int8 cache and walk_bf16_mma. A block takes kvg consecutive KV heads:
 // 1, or for the int8 cache 2 or 4 where they divide KV. Scratch part_acc
 // (B*KV*nsplit*G*HD) and part_ml (B*KV*nsplit*G*2) fp32; out (B, KV, G,
 // HD) fp32, NaN throughout if a device pos lies outside 0..S-1. One launch
@@ -1565,8 +1882,7 @@ extern "C" int decode_attn(const void* q, const void* k, const void* v,
       static_cast<long long>(nsplit) * split_len < S ||
       (pos_dev == nullptr && (pos < 0 || pos >= S)) ||
       (is_int8 && (k_scale == nullptr || v_scale == nullptr)) ||
-      !(kvg == 1 || (is_int8 && (kvg == 2 || kvg == 4) && KV % kvg == 0)) ||
-      (is_int8 && nsplit > 65535))
+      !(kvg == 1 || (is_int8 && (kvg == 2 || kvg == 4) && KV % kvg == 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, k_scale, v_scale, pos_dev, pos, S, KV, kvg,
                static_cast<int>(rows / kvg), split_len, nsplit, out,
@@ -1578,9 +1894,9 @@ extern "C" int decode_attn(const void* q, const void* k, const void* v,
 
 // The blocks of decode_attn_kernel<T, E, HD, G> that one SM of the current
 // device holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
-// with the int8 body's shared memory set as a launch sets it) into
-// *blocks; the wrapper sizes walk_int8_mma's one wave from it. Returns
-// the CUDA error, or 0.
+// with a ring's dynamic shared memory set as a launch sets it) into
+// *blocks; the wrapper sizes the tensor-core bodies' one wave from it.
+// Returns the CUDA error, or 0.
 extern "C" int decode_attn_blocks_per_sm(int is_bf16, int is_int8, int HD,
                                          int G, int* blocks) {
   if (G < 1 || G > MAX_GROUP || blocks == nullptr)

@@ -5,7 +5,9 @@ splits of the cache, the last block of each (b, kv) merging its splits
 (it replaces ``repro/kernels/decode_attn/kernel.py::decode_attn_pallas``);
 on an int8 cache a block takes :func:`heads_per_block` KV heads at once,
 and with a bf16 q at head dim 64 or 128 (:func:`mma_body`) its products
-run on the tensor cores, over one wave of splits (:func:`mma_split_plan`).
+run on the tensor cores, over one wave of splits (:func:`mma_split_plan`);
+so do a bf16 cache's at those head dims and 5 to 8 query heads a KV head
+(:func:`bf16_mma_body`), one KV head a block.
 It takes CUDA tensors, q, k and v all bf16 or all fp32, or k and v in the
 int8 form ``{"q": int8, "s": fp32 (..., 1)}`` beside a bf16 or fp32 q
 (read as ``cache_read(c, q.dtype)``, without a dequantized copy). It
@@ -54,6 +56,10 @@ INT8_BLOCKS_PER_SM = 8
 # whose merge cost more than it spread (tools/decode_attn_splits.py)
 MMA_HEAD_DIMS, MMA_WIDE_GROUP = (64, 128), 4
 MMA_BLOCKS_PER_SM = 2
+# the bf16 cache's body on the tensor cores (walk_bf16_mma): a bf16 q on a
+# bf16 cache at MMA_HEAD_DIMS, past MMA_WIDE_GROUP query heads a KV head
+# (jamba-1.5-large-398b's G 8 at hd 128; the kernel's BF16_MMA_BODY); one
+# KV head a block, its splits from mma_split_plan as the int8 body's
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -83,6 +89,15 @@ def mma_body(q_dtype, int8: bool, hd: int, G: int) -> bool:
             and 1 <= G <= MAX_GROUP)
 
 
+def bf16_mma_body(q_dtype, int8: bool, hd: int, G: int) -> bool:
+    """Whether ``decode_attn_kernel`` takes its tensor-core bf16 body
+    (``walk_bf16_mma``): a bf16 q on a bf16 cache at head dim 64 or 128,
+    5 to 8 query heads per KV head. Every other bf16 and fp32 shape keeps
+    the CUDA-core body; the int8 cache is :func:`mma_body`'s."""
+    return (not int8 and q_dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS
+            and MMA_WIDE_GROUP < G <= MAX_GROUP)
+
+
 @functools.lru_cache()
 def blocks_per_sm(device: torch.device, q_dtype, int8: bool, hd: int,
                   G: int) -> int:
@@ -101,7 +116,7 @@ def blocks_per_sm(device: torch.device, q_dtype, int8: bool, hd: int,
 
 
 def mma_split_plan(rows: int, S: int, slots: int):
-    """(split_len, nsplit) of the tensor-core int8 body for ``rows`` blocks
+    """(split_len, nsplit) of the tensor-core bodies for ``rows`` blocks
     of query groups over a cache of ``S`` positions, ``slots`` blocks to
     run at once (SMs x :data:`MMA_BLOCKS_PER_SM`, or the fewer that fit):
     as many splits as one wave holds (``slots // rows``, at least 1, at
@@ -145,15 +160,16 @@ def launch_plan(device, q_dtype, int8: bool, B: int, KV: int, G: int,
                 hd: int, S: int):
     """(KV heads a block, split_len, nsplit) of one call on ``device``:
     :func:`mma_split_plan` over the SMs' :data:`MMA_BLOCKS_PER_SM` blocks
-    (or the fewer :func:`blocks_per_sm` that fit) for the tensor-core int8
-    body, one KV head a block past :data:`MMA_WIDE_GROUP`; else
+    (or the fewer :func:`blocks_per_sm` that fit) for the tensor-core
+    bodies, one KV head a block past :data:`MMA_WIDE_GROUP`; else
     :func:`split_plan`."""
-    mma = mma_body(q_dtype, int8, hd, G)
+    mma = mma_body(q_dtype, int8, hd, G) or bf16_mma_body(q_dtype, int8,
+                                                          hd, G)
     kvg = 1 if mma and G > MMA_WIDE_GROUP else heads_per_block(KV, int8)
     rows, sms = B * KV // kvg, _sm_count(device)
     if mma:
         slots = sms * min(MMA_BLOCKS_PER_SM,
-                          blocks_per_sm(device, q_dtype, True, hd, G))
+                          blocks_per_sm(device, q_dtype, int8, hd, G))
         return (kvg, *mma_split_plan(rows, S, slots))
     return (kvg, *split_plan(rows, S, sms, int8=int8))
 

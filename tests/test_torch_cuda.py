@@ -517,15 +517,21 @@ def test_decode_attn_matches_plain_version(cuda, dims, dtype):
 
 
 @pytest.mark.parametrize("G", range(1, 9))
-@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attn_takes_every_group_size(cuda, G, hd, dtype):
-    """Each (G, hd) instantiation, at a pos inside a tile and a split."""
+    """Each (G, hd) instantiation, at a pos inside a tile and a split (bf16
+    at hd 64 and 128, G 5..8: the tensor-core bf16 body), one launch."""
+    from repro_torch.kernels.decode_attn import kernel as dk
     from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
     from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 
+    assert dk.bf16_mma_body(dtype, False, hd, G) is (
+        dtype == torch.bfloat16 and hd in (64, 128) and G >= 5)
     q, k, v = _attn_inputs(cuda, 3, 1500, 2, G, hd, dtype, seed=10 * G + hd)
+    before = dk.LAUNCHES["decode_attn"]
     got = decode_attn_cuda(q, k, v, 1234)
+    assert dk.LAUNCHES["decode_attn"] == before + 1
     want = decode_attn_ref(q, k, v, 1234)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=1e-5, rtol=1e-4)
@@ -990,6 +996,92 @@ def test_decode_attn_tensor_core_int8_body(cuda, hd, G):
         c["q"][:, 701:] = 127
         c["s"][:, 701:] = float("nan")
     assert torch.equal(dk.decode_attn_cuda(q, k, v, 700), clean)
+
+
+# the bf16 cache's body on the tensor cores (walk_bf16_mma; bf16 q and
+# cache at hd 64 and 128, G 5..8): jamba-1.5-large-398b's hd 128, G 8, and
+# the other instantiations, over many splits of one row
+@pytest.mark.parametrize("hd,G", [(128, 8), (128, 5), (128, 6), (128, 7),
+                                  (64, 8), (64, 5)])
+def test_decode_attn_tensor_core_bf16_body(cuda, hd, G):
+    """One KV head of one b (one row: a split for each slot of the wave,
+    ~130 or more splits of 4500 positions merged in order) against the
+    plain version at positions on and off the splits' and tiles' edges,
+    one launch a call, bit for bit a second call; what lies past pos (inf
+    and NaN) changes nothing."""
+    from repro_torch.kernels.decode_attn import kernel as dk
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    bf16 = torch.bfloat16
+    assert dk.bf16_mma_body(bf16, False, hd, G)
+    q, k, v = _attn_inputs(cuda, 1, 4500, 1, G, hd, bf16, seed=400 + hd + G)
+    kvg, split_len, nsplit = dk.launch_plan(cuda, bf16, False, 1, 1, G, hd,
+                                            4500)
+    assert kvg == 1 and nsplit > 100
+    for p in (0, 15, 16, 127, 1087, 2222, 4499):
+        before = dk.LAUNCHES["decode_attn"]
+        got = dk.decode_attn_cuda(q, k, v, p)
+        assert dk.LAUNCHES["decode_attn"] == before + 1
+        np.testing.assert_allclose(
+            got.cpu().numpy(), decode_attn_ref(q, k, v, p).cpu().numpy(),
+            atol=1e-5, rtol=1e-4)
+        assert torch.equal(dk.decode_attn_cuda(q, k, v, p), got)
+    clean = dk.decode_attn_cuda(q, k, v, 700)
+    k[:, 701:], v[:, 701:] = float("inf"), float("nan")
+    assert torch.equal(dk.decode_attn_cuda(q, k, v, 700), clean)
+
+
+def test_decode_attn_bf16_at_jamba_decode_shape(cuda):
+    """jamba-1.5-large-398b's attention layer (B 16, S 2048, KV 8, G 8, hd
+    128, bf16 cache) takes the tensor-core bf16 body in one wave of blocks
+    of one KV head: within the bound of the plain version at pos 1087, one
+    launch a call, bitwise repeatable; one captured call replayed at device
+    positions equals eager calls bit for bit and the plain version; what
+    lies past pos is never read; a device pos outside the cache gives NaN
+    throughout, and the next replay is right."""
+    from repro_torch.kernels.decode_attn import kernel as dk
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    bf16 = torch.bfloat16
+    assert dk.bf16_mma_body(bf16, False, 128, 8)
+    kvg, split_len, nsplit = dk.launch_plan(cuda, bf16, False, 16, 8, 8,
+                                            128, 2048)
+    slots = dk._sm_count(cuda) * min(dk.MMA_BLOCKS_PER_SM, dk.blocks_per_sm(
+        cuda, bf16, False, 128, 8))
+    assert kvg == 1 and 16 * 8 * nsplit <= slots < 16 * 8 * (nsplit + 1)
+    assert (nsplit - 1) * split_len < 2048 <= nsplit * split_len
+    q, k, v = _attn_inputs(cuda, 16, 2048, 8, 8, 128, bf16, seed=2048)
+    before = dk.LAUNCHES["decode_attn"]
+    got = dk.decode_attn_cuda(q, k, v, 1087)
+    assert dk.LAUNCHES["decode_attn"] == before + 1
+    assert got.shape == (16, 8, 8, 128) and got.dtype == torch.float32
+    np.testing.assert_allclose(
+        got.cpu().numpy(), decode_attn_ref(q, k, v, 1087).cpu().numpy(),
+        atol=1e-5, rtol=1e-4)
+    for _ in range(3):
+        assert torch.equal(dk.decode_attn_cuda(q, k, v, 1087), got)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda)
+    dk.decode_attn_cuda(q, k, v, pos)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dk.decode_attn_cuda(q, k, v, pos)
+    for p in (1087, 0, 255, 256, 1088, 2047):
+        pos.fill_(p)
+        graph.replay()
+        assert torch.equal(out, dk.decode_attn_cuda(q, k, v, p))
+        np.testing.assert_allclose(
+            out.cpu().numpy(), decode_attn_ref(q, k, v, p).cpu().numpy(),
+            atol=1e-5, rtol=1e-4)
+    for bad in (2048, -1):
+        pos.fill_(bad)
+        graph.replay()
+        assert bool(out.isnan().all())
+    pos.fill_(1087)
+    graph.replay()
+    assert torch.equal(out, got)
+    k[:, 1088:], v[:, 1088:] = float("inf"), float("nan")
+    assert torch.equal(dk.decode_attn_cuda(q, k, v, 1087), got)
 
 
 @pytest.mark.parametrize("S,pos", [(2048, 1087), (6404, 6403)])

@@ -25,6 +25,7 @@ from repro.models.rwkv6 import wkv_chunked as ref_wkv_chunked
 from repro_torch.kernels.decode_attn import kernel as dk
 from repro_torch.kernels.decode_attn.kernel import (INT8_TILE, MAX_SPLIT,
                                                     MIN_SPLIT, SPLIT_ALIGN,
+                                                    bf16_mma_body,
                                                     heads_per_block,
                                                     mma_body,
                                                     mma_split_plan,
@@ -183,6 +184,70 @@ def test_decode_attn_launch_plan_at_llama_vision_shapes(monkeypatch, S):
     monkeypatch.setattr(dk, "blocks_per_sm", lambda *args: 3)
     assert dk.launch_plan(torch.device("cuda"), torch.bfloat16, True, 16, 8,
                           4, 128, S)[::2] == (4, 8)
+
+
+@pytest.mark.parametrize("dtype,int8,hd,G,want", [
+    *(pytest.param(torch.bfloat16, False, hd, G, True, id=f"bf16-{hd}-{G}")
+      for hd in (64, 128) for G in range(5, 9)),  # jamba's: 128, 8
+    *(pytest.param(torch.bfloat16, False, hd, G, False,
+                   id=f"bf16-{hd}-{G}-cuda-core")
+      for hd in (64, 128) for G in range(1, 5)),  # smollm's, olmoe's, ..
+    pytest.param(torch.bfloat16, False, 32, 8, False, id="bf16-32-8"),
+    pytest.param(torch.bfloat16, False, 80, 8, False, id="bf16-80-8"),
+    pytest.param(torch.bfloat16, False, 80, 5, False, id="bf16-80-5"),
+    pytest.param(torch.float32, False, 128, 8, False, id="fp32-128-8"),
+    pytest.param(torch.float32, False, 64, 5, False, id="fp32-64-5"),
+    pytest.param(torch.bfloat16, True, 128, 8, False, id="int8-128-8"),
+    pytest.param(torch.bfloat16, True, 64, 5, False, id="int8-64-5")])
+def test_decode_attn_bf16_mma_body_takes_bf16_cache_at_g_5_to_8(dtype, int8,
+                                                               hd, G, want):
+    """The tensor-core bf16 body (walk_bf16_mma) takes a bf16 q on a bf16
+    cache at hd 64 and 128 with 5 to 8 query heads a KV head; G 1..4, hd 32
+    and 80 and fp32 keep the CUDA-core body, and the int8 cache stays
+    ``mma_body``'s: the two predicates never both hold."""
+    assert bf16_mma_body(dtype, int8, hd, G) is want
+    assert not (want and mma_body(dtype, int8, hd, G))
+    if int8:
+        assert mma_body(dtype, int8, hd, G)
+
+
+@pytest.mark.parametrize("bps,nsplit", [(1, 1), (2, 2), (3, 2)])
+def test_decode_attn_launch_plan_at_jamba_shape(monkeypatch, bps, nsplit):
+    """jamba-1.5-large-398b's attention layer (B 16, KV 8, G 8, hd 128, S
+    2048, a bf16 cache) on an H100's 132 SMs: one KV head a block, as many
+    splits a row as one wave of min(bps, MMA_BLOCKS_PER_SM) resident
+    blocks an SM holds (one split at one block an SM, two at two), so the
+    128 rows' blocks fill one wave and no more; the splits cover 0..S-1."""
+    monkeypatch.setattr(dk, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(dk, "blocks_per_sm", lambda *args: bps)
+    kvg, split_len, nsplit_got = dk.launch_plan(torch.device("cuda"),
+                                                torch.bfloat16, False, 16, 8,
+                                                8, 128, 2048)
+    slots = 132 * min(bps, dk.MMA_BLOCKS_PER_SM)
+    assert (kvg, nsplit_got) == (1, nsplit)
+    assert 16 * 8 * nsplit <= slots < 16 * 8 * (nsplit + 1)
+    assert (nsplit - 1) * split_len < 2048 <= nsplit * split_len
+    assert split_len == -(-2048 // nsplit)
+
+
+@pytest.mark.parametrize("KV,G,hd,S", [(16, 1, 64, 2048),   # seamless self
+                                       (16, 1, 64, 1024),   # its cross
+                                       (16, 1, 128, 2048),  # olmoe
+                                       (5, 3, 64, 2048),    # smollm
+                                       (8, 4, 128, 2048)])  # G 4: CUDA-core
+def test_decode_attn_launch_plan_keeps_split_plan_for_cuda_core_bf16(
+        monkeypatch, KV, G, hd, S):
+    """seamless-m4t-large-v2's, olmoe-1b-7b's and smollm's bf16 shapes (and
+    G 4 at hd 128) keep the CUDA-core body's grid: split_plan's over the
+    B*KV rows, one KV head a block, without asking for the occupancy."""
+    def no_query(*args):
+        raise AssertionError("the CUDA-core body's plan asks no occupancy")
+
+    monkeypatch.setattr(dk, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(dk, "blocks_per_sm", no_query)
+    assert not bf16_mma_body(torch.bfloat16, False, hd, G)
+    assert dk.launch_plan(torch.device("cuda"), torch.bfloat16, False, 16,
+                          KV, G, hd, S) == (1, *split_plan(16 * KV, S, 132))
 
 
 @pytest.mark.parametrize("KV,int8,kvg", [(32, True, 4), (5, True, 1),

@@ -37,10 +37,12 @@ ROWS = (("path,bf16", 16, 2048, 5, 3, 64, 1087, "bf16", False),
         ("smollm,int8", 16, 2048, 5, 3, 64, 1087, "bf16", True),
         ("olmoe,bf16", 16, 2048, 16, 1, 128, 1087, "bf16", False),
         ("moonshot,int8", 16, 2048, 16, 1, 128, 1087, "bf16", True),
-        ("qwen,bf16", 16, 2048, 8, 8, 128, 1087, "bf16", False),
+        ("jamba,bf16", 16, 2048, 8, 8, 128, 1087, "bf16", False),
         ("llama-vision,int8", 16, 2048, 8, 8, 128, 1087, "bf16", True),
         ("llama-vision-xattn,int8", 16, 6404, 8, 8, 128, 6403, "bf16",
-         True))
+         True),
+        ("seamless,bf16", 16, 2048, 16, 1, 64, 1087, "bf16", False),
+        ("seamless-xattn,bf16", 16, 1024, 16, 1, 64, 1023, "bf16", False))
 L2_FLUSH_BYTES = 128 << 20
 TOL = (1e-5, 1e-4)
 

@@ -1,8 +1,10 @@
-"""What bounds ``decode_attn``'s int8 rows in one checkout of this
-repository: each int8 instantiation's resources and SASS, and the rows
-timed at several split counts.
+"""What bounds ``decode_attn``'s int8 rows and its tensor-core bf16 row in
+one checkout of this repository: each int8 instantiation's resources and
+SASS, and the rows timed at several split counts.
 
-    python3 tools/decode_attn_splits.py [CHECKOUT]   # on a CUDA host
+    python3 tools/decode_attn_splits.py [CHECKOUT] [--bf16]   # on a CUDA host
+
+With ``--bf16`` only the bf16 sweep at the end runs (~3 min).
 
 CHECKOUT defaults to this one. It builds that checkout's library (as
 ``tools/decode_attn_ab.py`` does), then logs, for the bf16-q int8
@@ -35,7 +37,22 @@ positions of each G-8 row, and what a call costs beside its reads:
 one elementwise kernel timed the same way, each variant and the own
 plan at pos 0 (the plan twice in a row too), the bf16 cache's body and
 SDPA over one position, and the kernel alone under ``torch.profiler``
-(L2 hot) at pos 0 and at the row's pos. Prints one JSON line last.
+(L2 hot) at pos 0 and at the row's pos.
+
+Last, jamba-1.5-large-398b's attention layer on its bf16 cache (B 16, S
+2048, KV 8, G 8, hd 128, pos 1087), the tensor-core bf16 body's row, is
+swept the same way over library variants with its warps a block and ring
+depth set by ``-DDECODE_ATTN_BF16_WARPS`` (4, 8) and
+``-DDECODE_ATTN_BF16_NSTAGE`` (2, 3; 6 at 4 warps), each at 1 to 4
+splits a row (one KV head a block); each variant's registers and spills
+of the bf16 instantiations at hd 64 and 128, G 5..8, from ptxas, and its
+blocks an SM from the occupancy calculator, are logged; the 1- and
+2-split runs are timed in more rounds, in turns (the CUDA-core body the
+row took before is ``tools/decode_attn_ab.py``'s, against a parent
+checkout). Then the own plan at several positions, the same bytes laid
+out as 128 rows of one KV head (B 128, KV 1: a block's rows contiguous
+in the cache, not 256 of each 2,048 bytes), and the same probes of what
+a call costs beside its reads. Prints one JSON line last.
 """
 from __future__ import annotations
 
@@ -69,10 +86,25 @@ WIDE_VARIANTS = ((4, 2), (4, 3), (4, 4), (8, 2), (8, 3), (8, 4))
 WIDE_ROUNDS = 2  # more rounds of the one-head rows, in turns
 WIDE_POSITIONS = {"llama-vision,int8": (0, 255, 511, 1087, 2047),
                   "llama-vision-xattn,int8": (0, 1600, 3200, 6403)}
+# jamba-1.5-large-398b's attention layer on its bf16 cache, (row, B, S,
+# KV, G, hd, pos), swept over the tensor-core bf16 body's library variants
+# (warps a block, ring tiles) and the splits a row
+BF16_ROWS = (("jamba,bf16", 16, 2048, 8, 8, 128, 1087),)
+BF16_VARIANTS = ((4, 2), (4, 3), (4, 6), (8, 2), (8, 3))
+BF16_SPLITS = (1, 2, 3, 4)
+BF16_ROUNDS = 2  # more rounds of the 1- and 2-split runs, in turns
+BF16_POSITIONS = (0, 255, 511, 1087, 2047)
 
 
 def _label(fn):
     m = re.search(r"decode_attn_kernelI13__nv_bfloat16aLi(\d+)ELi(\d+)E", fn)
+    return (int(m.group(1)), int(m.group(2))) if m else None
+
+
+def _bf16_label(fn):
+    """(hd, G) of a ``decode_attn_kernel<bf16, bf16, hd, G>``, else None."""
+    m = re.search(r"decode_attn_kernelI13__nv_bfloat16S\d*_Li(\d+)ELi(\d+)E",
+                  fn)
     return (int(m.group(1)), int(m.group(2))) if m else None
 
 
@@ -117,20 +149,20 @@ def resources(lib_path):
     return out
 
 
-def build_variants(build, lib_argtypes):
-    """{(warps, ring tiles): (library, {(hd, G): ptxas line})} of
-    WIDE_VARIANTS, one nvcc each, run together; the lines of the bf16-q
-    int8 instantiations at hd 64 and 128, G 5..8."""
+def build_variants(build, lib_argtypes, flags, label):
+    """{key: (library, {(hd, G): ptxas line})} of the library variants
+    ``flags`` ({key: (file tag, nvcc -D flags)}), one nvcc each, run
+    together; the lines of the instantiations that ``label`` names (hd,
+    G) at hd 64 and 128, G 5..8."""
     out_dir = build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     src = build.KERNELS_DIR / build.SOURCES["decode_attn"]
     procs = {}
-    for warps, ns in WIDE_VARIANTS:
-        lib = out_dir / f"libdecode_attn-w{warps}r{ns}.so"
-        cmd = [build._nvcc(), *build.NVCC_FLAGS,
-               f"-DDECODE_ATTN_WIDE_WARPS={warps}",
-               f"-DDECODE_ATTN_WIDE_NSTAGE={ns}", "-o", str(lib), str(src)]
-        procs[(warps, ns)] = (lib, subprocess.Popen(
+    for key, (tag, defines) in flags.items():
+        lib = out_dir / f"libdecode_attn-{tag}.so"
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, *defines, "-o", str(lib),
+               str(src)]
+        procs[key] = (lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     variants = {}
     for key, (lib, proc) in procs.items():
@@ -142,7 +174,7 @@ def build_variants(build, lib_argtypes):
         for text in report.splitlines():
             m = re.search(r"entry function '(\w+)'", text)
             if m:
-                fn = _label(m.group(1))
+                fn = label(m.group(1))
             elif (fn and fn[0] in (64, 128) and fn[1] > 4
                   and ("registers" in text or "spill" in text)):
                 lines[fn].append(text.strip())
@@ -159,7 +191,9 @@ def main(argv):
 
     if not torch.cuda.is_available():
         sys.exit("decode_attn_splits: torch.cuda.is_available() is false")
-    checkout = Path(argv[1]).resolve() if len(argv) > 1 else \
+    only_bf16 = "--bf16" in argv[1:]
+    paths = [a for a in argv[1:] if a != "--bf16"]
+    checkout = Path(paths[0]).resolve() if paths else \
         Path(__file__).resolve().parents[1]
     sys.path.insert(0, str(checkout / "src"))
     from repro_torch.kernels import build
@@ -174,16 +208,27 @@ def main(argv):
     build.build(["decode_attn"])
 
     def argtypes(handle):
-        handle.decode_attn.argtypes = dk._lib().decode_attn.argtypes
-        handle.decode_attn.restype = dk._lib().decode_attn.restype
+        for fn in ("decode_attn", "decode_attn_blocks_per_sm"):
+            getattr(handle, fn).argtypes = getattr(dk._lib(), fn).argtypes
+            getattr(handle, fn).restype = getattr(dk._lib(), fn).restype
 
-    variants = build_variants(build, argtypes)
+    variants = {} if only_bf16 else build_variants(
+        build, argtypes,
+        {(w, ns): (f"w{w}r{ns}", [f"-DDECODE_ATTN_WIDE_WARPS={w}",
+                                  f"-DDECODE_ATTN_WIDE_NSTAGE={ns}"])
+         for w, ns in WIDE_VARIANTS}, _label)
+    bf16_variants = build_variants(
+        build, argtypes,
+        {(w, ns): (f"bf16-w{w}r{ns}", [f"-DDECODE_ATTN_BF16_WARPS={w}",
+                                       f"-DDECODE_ATTN_BF16_NSTAGE={ns}"])
+         for w, ns in BF16_VARIANTS}, _bf16_label)
     report = {"card": card, "checkout": str(checkout), "resources": {},
               "ms": {}, "variants": {}}
-    for (hd, G), r in sorted(resources(
-            build.library_path("decode_attn")).items()):
-        print(f"<bf16, int8_t, {hd}, {G}>: {r}", flush=True)
-        report["resources"][f"{hd},{G}"] = r
+    if not only_bf16:
+        for (hd, G), r in sorted(resources(
+                build.library_path("decode_attn")).items()):
+            print(f"<bf16, int8_t, {hd}, {G}>: {r}", flush=True)
+            report["resources"][f"{hd},{G}"] = r
     lib = dk._lib()
     scratch = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
 
@@ -232,9 +277,12 @@ def main(argv):
         return sum(times) / 1e3 / calls
 
     def call(q, k, v, pos, split_len, kvg=None, handle=lib):
+        """One launch through ``handle``'s C entry: the int8 form, or a
+        bf16 cache (k and v tensors)."""
         B, KV, G, hd = q.shape
-        S = k["q"].shape[1]
-        kvg = kvg or dk.heads_per_block(KV, True)
+        int8 = isinstance(k, dict)
+        S = (k["q"] if int8 else k).shape[1]
+        kvg = kvg or dk.heads_per_block(KV, int8)
         nsplit = -(-S // split_len)
         out = torch.empty((B, KV, G, hd), dtype=torch.float32,
                           device="cuda")
@@ -242,11 +290,14 @@ def main(argv):
                          device="cuda")
         pm = torch.empty((B * KV * nsplit * G * 2,), dtype=torch.float32,
                          device="cuda")
+        kq, vq = (k["q"], v["q"]) if int8 else (k, v)
+        ks, vs = ((k["s"].data_ptr(), v["s"].data_ptr()) if int8
+                  else (None, None))
         err = handle.decode_attn(
-            q.data_ptr(), k["q"].data_ptr(), v["q"].data_ptr(),
-            k["s"].data_ptr(), v["s"].data_ptr(), None, out.data_ptr(),
-            pa.data_ptr(), pm.data_ptr(), B, S, KV, G, hd, pos, split_len,
-            nsplit, kvg, 1, 1, torch.cuda.current_stream().cuda_stream)
+            q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks, vs, None,
+            out.data_ptr(), pa.data_ptr(), pm.data_ptr(), B, S, KV, G, hd,
+            pos, split_len, nsplit, kvg, 1, int(int8),
+            torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"decode_attn failed with cudaError_t {err}")
         return out
@@ -256,8 +307,30 @@ def main(argv):
             name = f"{warps} warps, ring {ns}: <bf16, int8_t, {hd}, {G}>"
             print(f"variant {name}: {line}", flush=True)
             report["variants"][name] = line
+    for (warps, ns), (handle, lines) in bf16_variants.items():
+        for (hd, G), line in lines.items():
+            blocks = ctypes.c_int(0)
+            err = handle.decode_attn_blocks_per_sm(1, 0, hd, G,
+                                                   ctypes.addressof(blocks))
+            name = f"{warps} warps, ring {ns}: <bf16, bf16, {hd}, {G}>"
+            line = f"{line}; {blocks.value} blocks an SM (error {err})"
+            print(f"variant {name}: {line}", flush=True)
+            report["variants"][name] = line
 
-    for tag, B, S, KV, G, hd, pos in ROWS + WIDE_ROWS:
+    def timed(tag, name, fn, want=None):
+        """fn's time (cold_ms), logged; first held to ``want``, the plain
+        version, where given."""
+        if want is not None:
+            got = fn()
+            excess = float(((got - want).abs() - TOL[1] * want.abs()).max())
+            if not bool(torch.isfinite(got).all()) or excess > TOL[0]:
+                raise AssertionError(f"decode_attn[{tag}] {name} disagrees "
+                                     f"with its plain version")
+        ms = cold_ms(fn)
+        print(f"decode_attn[{tag}] {name}: {ms:.5f} ms", flush=True)
+        report["ms"][f"{tag} {name}"] = ms
+
+    for tag, B, S, KV, G, hd, pos in () if only_bf16 else ROWS + WIDE_ROWS:
         gen = torch.Generator(device="cuda").manual_seed(S + pos + hd)
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                    for shape in ((B, KV, G, hd), (B, S, KV, hd),
@@ -290,15 +363,7 @@ def main(argv):
         for name, fn, at in runs:
             if at not in wants:
                 wants[at] = decode_attn_ref(q, k, v, at)
-            want = wants[at]
-            got = fn()
-            excess = float(((got - want).abs() - TOL[1] * want.abs()).max())
-            if not bool(torch.isfinite(got).all()) or excess > TOL[0]:
-                raise AssertionError(f"decode_attn[{tag}] {name} disagrees "
-                                     f"with its plain version")
-            ms = cold_ms(fn)
-            print(f"decode_attn[{tag}] {name}: {ms:.5f} ms", flush=True)
-            report["ms"][f"{tag} {name}"] = ms
+            timed(tag, name, fn, wants[at])
         if G > 4:  # what a call costs beside its reads, timed the same way
             small = torch.zeros(q.shape, device="cuda")
             kb, vb = (cache_read(c, torch.bfloat16) for c in (k, v))
@@ -319,9 +384,7 @@ def main(argv):
                             qh, kh[:, :, :1], vh[:, :, :1],
                             enable_gqa=True))]
             for name, fn in probes:
-                ms = cold_ms(fn)
-                print(f"decode_attn[{tag}] {name}: {ms:.5f} ms", flush=True)
-                report["ms"][f"{tag} {name}"] = ms
+                timed(tag, name, fn)
             # the kernel's own time, without launches
             for name, p, c in (("own plan", 0, (k, v)),
                                ("own plan", pos, (k, v)),
@@ -333,6 +396,67 @@ def main(argv):
                 report["ms"][f"{tag} {name} at pos {p}, profiler"] = ms
             del small, kb, vb, qh, kh, vh
         del q, k, v, want, wants
+        torch.cuda.empty_cache()
+
+    for tag, B, S, KV, G, hd, pos in BF16_ROWS:
+        gen = torch.Generator(device="cuda").manual_seed(S + pos + hd)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda"
+                               ).to(torch.bfloat16)
+                   for shape in ((B, KV, G, hd), (B, S, KV, hd),
+                                 (B, S, KV, hd)))
+        want = decode_attn_ref(q, k, v, pos)
+        tc = {key: h for key, (h, _) in bf16_variants.items()}
+        runs = [("own plan", lambda: dk.decode_attn_cuda(q, k, v, pos))]
+        runs += [(f"{w} warps, ring {ns}, {n} splits",
+                  lambda n=n, h=h: call(q, k, v, pos, -(-S // n), 1, h))
+                 for (w, ns), h in tc.items() for n in BF16_SPLITS]
+        runs += [(f"{w} warps, ring {ns}, {n} splits (round {r + 2})",
+                  lambda n=n, h=h: call(q, k, v, pos, -(-S // n), 1, h))
+                 for r in range(BF16_ROUNDS) for (w, ns), h in tc.items()
+                 for n in (1, 2)]
+        for name, fn in runs:
+            timed(tag, name, fn, want)
+        for p in BF16_POSITIONS:
+            timed(tag, f"own plan at pos {p}",
+                  lambda p=p: dk.decode_attn_cuda(q, k, v, p),
+                  decode_attn_ref(q, k, v, p))
+        # the same bytes and blocks, each block's rows contiguous
+        q1, k1, v1 = (t.reshape(shape).contiguous() for t, shape in (
+            (q, (B * KV, 1, G, hd)), (k, (B * KV, S, 1, hd)),
+            (v, (B * KV, S, 1, hd))))
+        timed(tag, f"own plan, as B {B * KV}, KV 1 (rows contiguous)",
+              lambda: dk.decode_attn_cuda(q1, k1, v1, pos),
+              decode_attn_ref(q1, k1, v1, pos))
+        del q1, k1, v1
+        # what a call costs beside its reads, timed the same way
+        small = torch.zeros(q.shape, device="cuda")
+        qh = q.reshape(B, KV * G, 1, hd)
+        kh, vh = (t.transpose(1, 2) for t in (k, v))
+        kv_valid = [t[:, :, :pos + 1] for t in (kh, vh)]
+        probes = [("floor: one elementwise kernel on a tensor of the "
+                   "output's size", lambda: small.add_(1.0)),
+                  ("own plan at pos 0", lambda: dk.decode_attn_cuda(q, k, v,
+                                                                    0)),
+                  ("own plan at pos 0, two calls",
+                   lambda: (dk.decode_attn_cuda(q, k, v, 0),
+                            dk.decode_attn_cuda(q, k, v, 0))),
+                  ("SDPA over one position", lambda: (
+                      F.scaled_dot_product_attention(
+                          qh, kh[:, :, :1], vh[:, :, :1], enable_gqa=True))),
+                  ("SDPA over the valid positions (the library call)",
+                   lambda: F.scaled_dot_product_attention(
+                       qh, *kv_valid, enable_gqa=True))]
+        probes += [(f"{w} warps, ring {ns}, 1 splits at pos 0",
+                    lambda h=h: call(q, k, v, 0, S, 1, h))
+                   for (w, ns), h in tc.items()]
+        for name, fn in probes:
+            timed(tag, name, fn)
+        for p in (0, pos):  # the kernel's own time, without launches
+            ms = kernel_ms(lambda p=p: dk.decode_attn_cuda(q, k, v, p))
+            print(f"decode_attn[{tag}] own plan at pos {p}: the kernel alone "
+                  f"under torch.profiler, L2 hot: {ms:.5f} ms", flush=True)
+            report["ms"][f"{tag} own plan at pos {p}, profiler"] = ms
+        del q, k, v, want, small, qh, kh, vh, kv_valid
         torch.cuda.empty_cache()
     print(json.dumps(report))
 
