@@ -161,18 +161,20 @@ check it end to end.
    bf16 and fp32 caches (no library call reads the int8 one), and the
    graph check repeated on the int8 cache; and on an int8 cache at the
    smollm path's shape (hd 64, G 3; off the path). At hd 128: olmoe-1b-7b's
-   decode shape (B=16, S=2048, KV=16, G=1, pos=1087) on a bf16 cache, with
-   the graph check, moonshot-v1-16b-a3b's (the same on an int8 cache,
-   the tensor-core int8 body; with the graph check), llama-3.2-vision-
+   decode shape (B=16, S=2048, KV=16, G=1, pos=1087) on a bf16 cache (the
+   tensor-core bf16 body at G 1), with the graph check, moonshot-v1-16b-
+   a3b's (the same on an int8 cache, the tensor-core int8 body; with the
+   graph check), llama-3.2-vision-
    90b's self layers' (KV=8, G=8, pos=1087, the int8 cache: the tensor-
    core body with p.v as O += P V; with the graph check) and its cross
    layers' (B=16, the whole int8 cache of S=6404 image tokens,
    pos=6403), and jamba-1.5-large-398b's (the same KV=8, G=8 on a bf16
    cache, qwen1.5-110b's shape too: the tensor-core bf16 body; with the
    graph check); each row logs its body, blocks an SM and splits; at hd 64 and
-   G 1, seamless-m4t-large-v2's self layers' (KV=16, pos=1087, bf16; with
-   the graph check) and its cross layers' (the whole bf16 cache of 1,024
-   encoder positions, pos=1023); SDPA timed on each bf16 cache and,
+   G 1, seamless-m4t-large-v2's self layers' (KV=16, pos=1087, bf16) and
+   its cross layers' (the whole bf16 cache of 1,024 encoder positions,
+   pos=1023), both on the tensor-core bf16 body at G 1 and with the graph
+   check; SDPA timed on each bf16 cache and,
    unmasked, on a bf16 copy of llama-vision's cross cache.
    ``wkv6`` at the rwkv6
    path's prefill (B=16, S=1024, H=32) and decode (S=1) shapes, r, k and v in
@@ -1967,7 +1969,7 @@ def decode_attn_kernel_phase():
     ``scaled_dot_product_attention`` on the same
     inputs timed as the library call (no library call reads the int8
     cache: the cross row's SDPA reads a bf16 copy of it, unmasked); each
-    row logs the body it takes (tensor-core or CUDA-core), the blocks an
+    row logs the body it takes (:func:`_decode_attn_body`), the blocks an
     SM of its instantiation holds and its splits."""
     import torch.nn.functional as F
 
@@ -2062,14 +2064,11 @@ def decode_attn_kernel_phase():
                                reps=1 if big else 10, moved=moved)
         kvg, split_len, nsplit = dk.launch_plan(q.device, dtype, int8, B,
                                                 cfg_kv, cfg_g, hd, S)
-        body = ("tensor-core" if dk.mma_body(dtype, int8, hd, cfg_g)
-                or dk.bf16_mma_body(dtype, int8, hd, cfg_g) else "CUDA-core")
+        body = _decode_attn_body(dtype, int8, hd, cfg_g)
         resident = dk.blocks_per_sm(q.device, dtype, int8, hd, cfg_g)
-        log(f"  {name}: {body} "
-            + ("int8" if int8 else str(dtype).split(".")[-1])
-            + f" body, {resident} blocks an SM resident (occupancy "
-            f"calculator), {B * cfg_kv // kvg} groups of {kvg} heads, "
-            f"{nsplit} splits of at most {split_len} positions")
+        log(f"  {name}: {body} body, {resident} blocks an SM resident "
+            f"(occupancy calculator), {B * cfg_kv // kvg} groups of {kvg} "
+            f"heads, {nsplit} splits of at most {split_len} positions")
         bf16_twin = {"stablelm,int8": "stablelm,bf16",
                      "moonshot,int8": "olmoe,bf16",
                      "llama-vision,int8": "jamba,bf16"}.get(tag)
@@ -2080,28 +2079,50 @@ def decode_attn_kernel_phase():
                 f"on the bf16 cache, L2 flushed ({CARD})")
         if tag in ("path,bf16", "stablelm,int8", "olmoe,bf16",
                    "moonshot,int8", "llama-vision,int8", "jamba,bf16",
-                   "seamless,bf16"):
+                   "seamless,bf16", "seamless-xattn,bf16"):
             _decode_attn_graph_check(q, k, v)
         del q, k, v, qh, kh, vh, want
         torch.cuda.empty_cache()
     return rows
 
 
+def _decode_attn_body(dtype, int8, hd, G):
+    """The body of ``decode_attn_kernel`` that q's ``dtype`` on the cache
+    (``int8`` or q's type) takes at (hd, G): the tensor-core int8 body
+    ``walk_int8_mma``, the tensor-core bf16 body ``walk_bf16_mma`` (G
+    5..8, or G 1 with two blocks an SM), the CUDA-core int8 body
+    ``walk_int8``, or the CUDA-core bf16/fp32 body."""
+    from repro_torch.kernels.decode_attn import kernel as dk
+
+    if dk.mma_body(dtype, int8, hd, G):
+        return "tensor-core int8 (walk_int8_mma)"
+    if dk.bf16_mma_body(dtype, int8, hd, G):
+        return "tensor-core bf16 (walk_bf16_mma)"
+    if dk.bf16_g1_body(dtype, int8, hd, G):
+        return "tensor-core bf16 at G 1 (walk_bf16_mma, 96 KB ring)"
+    if int8:
+        return "CUDA-core int8 (walk_int8)"
+    return "CUDA-core " + str(dtype).split(".")[-1]
+
+
 def _decode_attn_graph_check(q, k, v):
     """One call captured in a CUDA graph with pos in a device tensor,
-    replayed at several positions: each output within ``ATTN_TOL`` of the
-    plain version at that pos and bit for bit an eager call with the int
-    (k and v tensors, or the int8 form)."""
+    replayed at several positions (``GRAPH_POSITIONS`` inside the cache,
+    and its last): each output within ``ATTN_TOL`` of the plain version at
+    that pos and bit for bit an eager call with the int (k and v tensors,
+    or the int8 form)."""
     from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
     from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 
+    S = (k["q"] if isinstance(k, dict) else k).shape[1]
+    positions = sorted({p for p in GRAPH_POSITIONS if p < S} | {S - 1})
     pos = torch.zeros(1, dtype=torch.int32, device="cuda")
     decode_attn_cuda(q, k, v, pos)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = decode_attn_cuda(q, k, v, pos)
-    for p in GRAPH_POSITIONS:
+    for p in positions:
         pos.fill_(p)
         graph.replay()
         _check_close(f"decode_attn[graph replay, pos={p}]", out,
@@ -2110,8 +2131,7 @@ def _decode_attn_graph_check(q, k, v):
             raise AssertionError(f"decode_attn: the graph's replay at pos "
                                  f"{p} differs from an eager call")
     log(f"  decode_attn: one captured graph, replayed at pos "
-        f"{', '.join(map(str, GRAPH_POSITIONS))}, equals eager calls bit "
-        f"for bit")
+        f"{', '.join(map(str, positions))}, equals eager calls bit for bit")
 
 
 def _wkv_inputs(B, S, H, hd, seed, ld_low=None):
@@ -2317,8 +2337,10 @@ def decode_attn_sass_report():
     paths and smollm's int8 shape: stablelm-3b's ``decode_attn_kernel<bf16,
     int8_t, 80, 1>`` and the tensor-core body's ``<bf16, int8_t, 128, 1>``
     (moonshot-v1-16b-a3b), ``<bf16, int8_t, 128, 8>`` (llama-3.2-vision-
-    90b) and ``<bf16, int8_t, 64, 3>``, and the tensor-core bf16 body's
-    ``<bf16, bf16, 128, 8>`` (jamba-1.5-large-398b): instruction count,
+    90b) and ``<bf16, int8_t, 64, 3>``, the tensor-core bf16 body's
+    ``<bf16, bf16, 128, 8>`` (jamba-1.5-large-398b), and the G-1 one's
+    ``<bf16, bf16, 64, 1>`` (seamless-m4t-large-v2) and ``<bf16, bf16, 128,
+    1>`` (olmoe-1b-7b): instruction count,
     conversions (I2F, F2F, F2FP: none a value but F2FP, one for two),
     shared-memory loads by width (LDSM: ldmatrix), tensor-core products
     (HMMA) and top opcodes. Checks nothing."""
@@ -2334,7 +2356,9 @@ def decode_attn_sass_report():
                          "decode_attn_kernel<bf16, int8_t, 128, 1>",
                          "decode_attn_kernel<bf16, int8_t, 128, 8>",
                          "decode_attn_kernel<bf16, int8_t, 64, 3>",
-                         "decode_attn_kernel<bf16, bf16, 128, 8>"):
+                         "decode_attn_kernel<bf16, bf16, 128, 8>",
+                         "decode_attn_kernel<bf16, bf16, 64, 1>",
+                         "decode_attn_kernel<bf16, bf16, 128, 1>"):
             continue
         ops = collections.Counter(re.findall(
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"

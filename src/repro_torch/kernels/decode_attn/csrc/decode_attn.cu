@@ -21,7 +21,9 @@
 // a row with its scale: 93.6 MB, 27.9 us (a dequantize adds 2 operations
 // a value, still far below the bytes). On olmoe-1b-7b's (B=16, KV=16, G=1,
 // hd=128, pos=1087) bf16 cache: 142.6 MB, 42.6 us; on moonshot-v1-16b-a3b's
-// int8 one (the same shape): 73.5 MB, 21.9 us. On jamba-1.5-large-398b's
+// int8 one (the same shape): 73.5 MB, 21.9 us; on seamless-m4t-large-v2's
+// (hd=64, the same B, KV, G and pos): 71.3 MB, 21.3 us, and over its cross
+// caches (S=1024, pos=1023): 67.1 MB, 20.0 us. On jamba-1.5-large-398b's
 // (B=16, KV=8, G=8, hd=128, pos=1087) bf16 cache: 71.3 MB, 21.3 us; its
 // 16 operations a cache value are still far below the tensor cores' ~295
 // a byte. What bounds the int8 body
@@ -54,8 +56,8 @@
 //    its own positions of every tile and keeps its own online softmax (m,
 //    l, accumulator) for all G query rows. The warps merge once, after the
 //    split, with the same log-sum-exp weights as the merge across splits.
-// 4. A bf16 or fp32 cache (but 6b's instantiations): a ring of NSTAGE
-//    tiles of about 4 KB of K in static shared memory. The lanes of a
+// 4. A bf16 or fp32 cache (but 6b's and 6c's instantiations): a ring of
+//    NSTAGE tiles of about 4 KB of K in static shared memory. The lanes of a
 //    warp split each position's channels and q (pre-scaled) lives in
 //    registers; bf16 is widened to fp32 in registers where it is used.
 //    At hd 32, 64 and 128 a lane reads 16 (or 8) bytes of a row, so the
@@ -129,6 +131,15 @@
 //    a row at jamba's shape (tools/decode_attn_splits.py: 4 or 8 warps,
 //    rings of 2, 3 or 6 tiles and 1 to 4 splits a row; one split of one
 //    block an SM was fastest, 4 warps and 6 tiles by 1-2%).
+// 6c. The bf16 cache with a bf16 q at hd 64 and 128 and G 1 (BF16_MMA_BODY
+//    too: seamless-m4t-large-v2's self and cross layers at hd 64,
+//    olmoe-1b-7b's at hd 128): walk_bf16_mma at G 1, q in row 0 of Q's
+//    fragment, so no score moves between lanes (the CUDA-core body took 3
+//    or 4 shuffle rounds a score). Its ring is 96 KB (6 tiles at hd 64, 3
+//    at hd 128) so that two blocks share an SM, one block's ramp and
+//    epilogue beside the other's loads; its splits spread 0..pos as
+//    walk_int8_mma's, one a row at those models' B*KV = 256 rows on 264
+//    slots, so each block writes its row with no merge across blocks.
 // 7. The grid and the scratch depend on (B*KV, S) and the cache's type
 //    only, never on pos: the wrapper's split plan is a function of them. A
 //    block whose split starts after pos leaves at once, and the merge
@@ -287,11 +298,17 @@ constexpr int MMA_STAGES = G > 4 ? DECODE_ATTN_WIDE_NSTAGE : 4;
 template <int G>
 constexpr int MMA_WARPS = G > 4 ? DECODE_ATTN_WIDE_WARPS : NW;
 
-// walk_bf16_mma: the tiles of its ring and the warps of a block (macros
-// only so that tools/decode_attn_splits.py can build the variants it
-// sweeps)
+// walk_bf16_mma: the tiles of its ring past G 4, and at G 1 at hd 64 and
+// 128, and the warps of a block (macros only so that
+// tools/decode_attn_splits.py can build the variants it sweeps)
 #ifndef DECODE_ATTN_BF16_NSTAGE
 #define DECODE_ATTN_BF16_NSTAGE 6
+#endif
+#ifndef DECODE_ATTN_BF16_G1_NSTAGE_64
+#define DECODE_ATTN_BF16_G1_NSTAGE_64 6
+#endif
+#ifndef DECODE_ATTN_BF16_G1_NSTAGE_128
+#define DECODE_ATTN_BF16_G1_NSTAGE_128 3
 #endif
 #ifndef DECODE_ATTN_BF16_WARPS
 #define DECODE_ATTN_BF16_WARPS 4
@@ -321,13 +338,25 @@ struct Bf16MmaPlan {
                 "merge area fits the ring");
 };
 
+// walk_bf16_mma's plan at HD and G: at G 1 a ring of 96 KB, two blocks an
+// SM; past G 4 DECODE_ATTN_BF16_NSTAGE tiles (192 KB at hd 128, one)
+template <int HD, int G>
+using Bf16Plan = Bf16MmaPlan<
+    HD,
+    (G == 1 ? (HD == 64 ? DECODE_ATTN_BF16_G1_NSTAGE_64
+                        : DECODE_ATTN_BF16_G1_NSTAGE_128)
+            : DECODE_ATTN_BF16_NSTAGE),
+    DECODE_ATTN_BF16_WARPS>;
+
 // The bf16 cache's body on the tensor cores (walk_bf16_mma): q and cache
-// bf16 at hd 64 and 128, G 5..8 (jamba-1.5-large-398b's hd 128, G 8).
-// Every other bf16 and fp32 instantiation keeps the CUDA-core body.
+// bf16 at hd 64 and 128, G 1 (seamless-m4t-large-v2's self and cross
+// layers at hd 64, olmoe-1b-7b's at hd 128) and G 5..8
+// (jamba-1.5-large-398b's hd 128, G 8). Every other bf16 and fp32
+// instantiation keeps the CUDA-core body.
 template <typename T, typename E, int HD, int G>
 constexpr bool BF16_MMA_BODY = std::is_same<T, __nv_bfloat16>::value &&
                                std::is_same<E, T>::value &&
-                               (HD == 64 || HD == 128) && G > 4;
+                               (HD == 64 || HD == 128) && (G == 1 || G > 4);
 
 // threads of a block of decode_attn_kernel<T, E, HD, G>
 template <typename T, typename E, int HD, int G>
@@ -353,8 +382,7 @@ constexpr int q8_smem() {
 template <typename T, typename E, int HD, int G>
 constexpr int ring_smem() {
   if constexpr (BF16_MMA_BODY<T, E, HD, G>)
-    return Bf16MmaPlan<HD, DECODE_ATTN_BF16_NSTAGE,
-                       DECODE_ATTN_BF16_WARPS>::SMEM;
+    return Bf16Plan<HD, G>::SMEM;
   else if constexpr (IS_INT8<E>)
     return q8_smem<T, HD, G>();
   else
@@ -370,7 +398,7 @@ constexpr int ring_smem() {
 // warps); and never more blocks than the ring and q (q8_smem) let an SM
 // hold: 3 at hd 128, G <= 2 (70 KB a block; 67.6 KB for walk_int8_mma).
 // walk_bf16_mma: 8 / W, and no more than its ring lets an SM hold (1 at
-// hd 128 with 6 tiles of 32 KB)
+// hd 128 with 6 tiles of 32 KB past G 4, 2 with G 1's 96 KB)
 constexpr int SM_SMEM = 228 * 1024;      // an SM's, at the largest carveout
 constexpr int BLOCK_SMEM_RESERVED = 1024;  // the system's, per block
 template <typename T, typename E, int HD, int G>
@@ -1176,7 +1204,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
 }
 
 // The bf16 cache's body on the tensor cores (BF16_MMA_BODY: bf16 q and
-// cache, hd 64 or 128, G 5..8): one KV head of one b, positions
+// cache, hd 64 or 128, G 1 or 5..8): one KV head of one b, positions
 // begin..end-1; q its G rows; kb, vb the cache at position 0 of the head.
 // Bf16MmaPlan's tiles, warp w taking positions 16 w .. + 15 of each, in a
 // ring filled by 16-byte cp.async copies as walk_int8_mma's. q.k: S (G x
@@ -1203,7 +1231,7 @@ __device__ __forceinline__ void walk_bf16_mma(
     const __nv_bfloat16* __restrict__ vb, int KV, int begin, int end,
     unsigned char* smem) {
   constexpr int W = DECODE_ATTN_BF16_WARPS;
-  using M = Bf16MmaPlan<HD, DECODE_ATTN_BF16_NSTAGE, W>;
+  using M = Bf16Plan<HD, G>;
   constexpr int CPR = M::CPR, TP = M::TP, WP = M::WP, NSTAGE = M::NSTAGE;
   constexpr int KS = HD / 16;  // q.k k-steps
   constexpr int NO = HD / 8;   // p.v n-tiles of 8 channels
@@ -1509,7 +1537,7 @@ __device__ __forceinline__ void ring_rows(
                     nact);
   else  // one row a block; walk_bf16_mma's padded rows
     merge<G, HD, W, 1,
-          Bf16MmaPlan<HD, DECODE_ATTN_BF16_NSTAGE, W>::RS>(
+          Bf16Plan<HD, G>::RS>(
         wacc, out, part_acc, part_ml, group, kvg, split, nsplit, nact);
 }
 

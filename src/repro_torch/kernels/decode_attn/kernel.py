@@ -7,7 +7,8 @@ on an int8 cache a block takes :func:`heads_per_block` KV heads at once,
 and with a bf16 q at head dim 64 or 128 (:func:`mma_body`) its products
 run on the tensor cores, over one wave of splits (:func:`mma_split_plan`);
 so do a bf16 cache's at those head dims and 5 to 8 query heads a KV head
-(:func:`bf16_mma_body`), one KV head a block.
+(:func:`bf16_mma_body`), or one (:func:`bf16_g1_body`), one KV head a
+block.
 It takes CUDA tensors, q, k and v all bf16 or all fp32, or k and v in the
 int8 form ``{"q": int8, "s": fp32 (..., 1)}`` beside a bf16 or fp32 q
 (read as ``cache_read(c, q.dtype)``, without a dequantized copy). It
@@ -59,7 +60,10 @@ MMA_BLOCKS_PER_SM = 2
 # the bf16 cache's body on the tensor cores (walk_bf16_mma): a bf16 q on a
 # bf16 cache at MMA_HEAD_DIMS, past MMA_WIDE_GROUP query heads a KV head
 # (jamba-1.5-large-398b's G 8 at hd 128; the kernel's BF16_MMA_BODY); one
-# KV head a block, its splits from mma_split_plan as the int8 body's
+# KV head a block, its splits from mma_split_plan as the int8 body's. It
+# takes one query head a KV head too (seamless-m4t-large-v2's hd 64,
+# olmoe-1b-7b's hd 128; bf16_g1_body), with a ring of 96 KB: at their
+# B*KV = 256 rows two blocks an SM give one split a row, no merge
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -92,10 +96,21 @@ def mma_body(q_dtype, int8: bool, hd: int, G: int) -> bool:
 def bf16_mma_body(q_dtype, int8: bool, hd: int, G: int) -> bool:
     """Whether ``decode_attn_kernel`` takes its tensor-core bf16 body
     (``walk_bf16_mma``): a bf16 q on a bf16 cache at head dim 64 or 128,
-    5 to 8 query heads per KV head. Every other bf16 and fp32 shape keeps
-    the CUDA-core body; the int8 cache is :func:`mma_body`'s."""
+    5 to 8 query heads per KV head (one is :func:`bf16_g1_body`). Every
+    other bf16 and fp32 shape keeps the CUDA-core body; the int8 cache is
+    :func:`mma_body`'s."""
     return (not int8 and q_dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS
             and MMA_WIDE_GROUP < G <= MAX_GROUP)
+
+
+def bf16_g1_body(q_dtype, int8: bool, hd: int, G: int) -> bool:
+    """Whether ``decode_attn_kernel`` takes its tensor-core bf16 body
+    (``walk_bf16_mma``) at one query head a KV head, with a ring that
+    lets two blocks share an SM: a bf16 q on a bf16 cache at head dim 64
+    or 128, G 1. Never together with :func:`mma_body` or
+    :func:`bf16_mma_body`."""
+    return (not int8 and q_dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS
+            and G == 1)
 
 
 @functools.lru_cache()
@@ -161,10 +176,11 @@ def launch_plan(device, q_dtype, int8: bool, B: int, KV: int, G: int,
     """(KV heads a block, split_len, nsplit) of one call on ``device``:
     :func:`mma_split_plan` over the SMs' :data:`MMA_BLOCKS_PER_SM` blocks
     (or the fewer :func:`blocks_per_sm` that fit) for the tensor-core
-    bodies, one KV head a block past :data:`MMA_WIDE_GROUP`; else
-    :func:`split_plan`."""
-    mma = mma_body(q_dtype, int8, hd, G) or bf16_mma_body(q_dtype, int8,
-                                                          hd, G)
+    bodies, one KV head a block past :data:`MMA_WIDE_GROUP` (and on any
+    bf16 cache); else :func:`split_plan`."""
+    mma = (mma_body(q_dtype, int8, hd, G)
+           or bf16_mma_body(q_dtype, int8, hd, G)
+           or bf16_g1_body(q_dtype, int8, hd, G))
     kvg = 1 if mma and G > MMA_WIDE_GROUP else heads_per_block(KV, int8)
     rows, sms = B * KV // kvg, _sm_count(device)
     if mma:

@@ -520,14 +520,17 @@ def test_decode_attn_matches_plain_version(cuda, dims, dtype):
 @pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attn_takes_every_group_size(cuda, G, hd, dtype):
-    """Each (G, hd) instantiation, at a pos inside a tile and a split (bf16
-    at hd 64 and 128, G 5..8: the tensor-core bf16 body), one launch."""
+    """Each (G, hd) instantiation, at a pos inside a tile and a split, one
+    launch. Its body: bf16 at hd 64 and 128, G 1 (``bf16_g1_body``) and G
+    5..8 (``bf16_mma_body``), walk_bf16_mma; every other (G 2..4, hd 32,
+    fp32) the CUDA-core body."""
     from repro_torch.kernels.decode_attn import kernel as dk
     from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
     from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 
-    assert dk.bf16_mma_body(dtype, False, hd, G) is (
-        dtype == torch.bfloat16 and hd in (64, 128) and G >= 5)
+    tensor_cores = dtype == torch.bfloat16 and hd in (64, 128)
+    assert dk.bf16_mma_body(dtype, False, hd, G) is (tensor_cores and G >= 5)
+    assert dk.bf16_g1_body(dtype, False, hd, G) is (tensor_cores and G == 1)
     q, k, v = _attn_inputs(cuda, 3, 1500, 2, G, hd, dtype, seed=10 * G + hd)
     before = dk.LAUNCHES["decode_attn"]
     got = decode_attn_cuda(q, k, v, 1234)
@@ -1082,6 +1085,110 @@ def test_decode_attn_bf16_at_jamba_decode_shape(cuda):
     assert torch.equal(out, got)
     k[:, 1088:], v[:, 1088:] = float("inf"), float("nan")
     assert torch.equal(dk.decode_attn_cuda(q, k, v, 1087), got)
+
+
+# the bf16 cache's body at G 1 on the tensor cores (walk_bf16_mma with a
+# 96 KB ring; bf16 q and cache at hd 64 and 128): seamless-m4t-large-v2's
+# hd 64, olmoe-1b-7b's hd 128, over many splits of one row
+@pytest.mark.parametrize("hd", [64, 128])
+def test_decode_attn_tensor_core_bf16_g1_body(cuda, hd):
+    """One KV head of one b (one row: a split for each slot of the wave,
+    ~260 splits of 4500 positions merged in order) against the plain
+    version at positions on and off the splits' and tiles' edges, one
+    launch a call, bit for bit a second call; what lies past pos (inf and
+    NaN) changes nothing; one captured call replayed at device positions
+    equals eager calls bit for bit, and a device pos outside the cache
+    gives NaN throughout."""
+    from repro_torch.kernels.decode_attn import kernel as dk
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    bf16 = torch.bfloat16
+    assert dk.bf16_g1_body(bf16, False, hd, 1)
+    q, k, v = _attn_inputs(cuda, 1, 4500, 1, 1, hd, bf16, seed=500 + hd)
+    kvg, split_len, nsplit = dk.launch_plan(cuda, bf16, False, 1, 1, 1, hd,
+                                            4500)
+    assert kvg == 1 and nsplit > 100
+    for p in (0, 15, 16, 63, 64, 127, 1087, 2222, 4499):
+        before = dk.LAUNCHES["decode_attn"]
+        got = dk.decode_attn_cuda(q, k, v, p)
+        assert dk.LAUNCHES["decode_attn"] == before + 1
+        np.testing.assert_allclose(
+            got.cpu().numpy(), decode_attn_ref(q, k, v, p).cpu().numpy(),
+            atol=1e-5, rtol=1e-4)
+        assert torch.equal(dk.decode_attn_cuda(q, k, v, p), got)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda)
+    dk.decode_attn_cuda(q, k, v, pos)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dk.decode_attn_cuda(q, k, v, pos)
+    for p in (4499, 0, 63, 64, 1087):
+        pos.fill_(p)
+        graph.replay()
+        assert torch.equal(out, dk.decode_attn_cuda(q, k, v, p))
+    for bad in (4500, -1):
+        pos.fill_(bad)
+        graph.replay()
+        assert bool(out.isnan().all())
+    clean = dk.decode_attn_cuda(q, k, v, 700)
+    k[:, 701:], v[:, 701:] = float("inf"), float("nan")
+    assert torch.equal(dk.decode_attn_cuda(q, k, v, 700), clean)
+
+
+@pytest.mark.parametrize("S,hd,pos", [(2048, 64, 1087),    # seamless self
+                                      (1024, 64, 1023),    # seamless cross
+                                      (2048, 128, 1087)])  # olmoe-1b-7b
+def test_decode_attn_bf16_g1_at_decode_shapes(cuda, S, hd, pos):
+    """seamless-m4t-large-v2's two decode shapes (B 16, KV 16, G 1, hd 64:
+    its self layers at pos 1087, its cross layers over the 1,024 encoder
+    positions) and olmoe-1b-7b's (hd 128) take walk_bf16_mma with one split
+    a row in one wave of two blocks an SM: within the bound of the plain
+    version, one launch a call, bitwise repeatable; one captured call
+    replayed at device positions equals eager calls bit for bit; what lies
+    past pos is never read; a device pos outside the cache gives NaN
+    throughout, and the next replay is right."""
+    from repro_torch.kernels.decode_attn import kernel as dk
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    bf16 = torch.bfloat16
+    assert dk.bf16_g1_body(bf16, False, hd, 1)
+    assert dk.blocks_per_sm(cuda, bf16, False, hd, 1) >= 2
+    kvg, split_len, nsplit = dk.launch_plan(cuda, bf16, False, 16, 16, 1, hd,
+                                            S)
+    assert (kvg, split_len, nsplit) == (1, S, 1)
+    q, k, v = _attn_inputs(cuda, 16, S, 16, 1, hd, bf16, seed=S + hd)
+    before = dk.LAUNCHES["decode_attn"]
+    got = dk.decode_attn_cuda(q, k, v, pos)
+    assert dk.LAUNCHES["decode_attn"] == before + 1
+    assert got.shape == (16, 16, 1, hd) and got.dtype == torch.float32
+    np.testing.assert_allclose(
+        got.cpu().numpy(), decode_attn_ref(q, k, v, pos).cpu().numpy(),
+        atol=1e-5, rtol=1e-4)
+    for _ in range(3):
+        assert torch.equal(dk.decode_attn_cuda(q, k, v, pos), got)
+    dev = torch.zeros(1, dtype=torch.int32, device=cuda)
+    dk.decode_attn_cuda(q, k, v, dev)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dk.decode_attn_cuda(q, k, v, dev)
+    for p in (pos, 0, 255, 256, S - 1):
+        dev.fill_(p)
+        graph.replay()
+        assert torch.equal(out, dk.decode_attn_cuda(q, k, v, p))
+        np.testing.assert_allclose(
+            out.cpu().numpy(), decode_attn_ref(q, k, v, p).cpu().numpy(),
+            atol=1e-5, rtol=1e-4)
+    for bad in (S, -1):
+        dev.fill_(bad)
+        graph.replay()
+        assert bool(out.isnan().all())
+    dev.fill_(pos)
+    graph.replay()
+    assert torch.equal(out, got)
+    if pos + 1 < S:
+        k[:, pos + 1:], v[:, pos + 1:] = float("inf"), float("nan")
+        assert torch.equal(dk.decode_attn_cuda(q, k, v, pos), got)
 
 
 @pytest.mark.parametrize("S,pos", [(2048, 1087), (6404, 6403)])

@@ -25,6 +25,7 @@ from repro.models.rwkv6 import wkv_chunked as ref_wkv_chunked
 from repro_torch.kernels.decode_attn import kernel as dk
 from repro_torch.kernels.decode_attn.kernel import (INT8_TILE, MAX_SPLIT,
                                                     MIN_SPLIT, SPLIT_ALIGN,
+                                                    bf16_g1_body,
                                                     bf16_mma_body,
                                                     heads_per_block,
                                                     mma_body,
@@ -203,8 +204,10 @@ def test_decode_attn_bf16_mma_body_takes_bf16_cache_at_g_5_to_8(dtype, int8,
                                                                hd, G, want):
     """The tensor-core bf16 body (walk_bf16_mma) takes a bf16 q on a bf16
     cache at hd 64 and 128 with 5 to 8 query heads a KV head; G 1..4, hd 32
-    and 80 and fp32 keep the CUDA-core body, and the int8 cache stays
-    ``mma_body``'s: the two predicates never both hold."""
+    and 80 and fp32 do not (G 1 at hd 64 and 128 is ``bf16_g1_body``'s,
+    the same body with a smaller ring; the rest the CUDA-core body's), and
+    the int8 cache stays ``mma_body``'s: the two predicates never both
+    hold."""
     assert bf16_mma_body(dtype, int8, hd, G) is want
     assert not (want and mma_body(dtype, int8, hd, G))
     if int8:
@@ -230,24 +233,83 @@ def test_decode_attn_launch_plan_at_jamba_shape(monkeypatch, bps, nsplit):
     assert split_len == -(-2048 // nsplit)
 
 
-@pytest.mark.parametrize("KV,G,hd,S", [(16, 1, 64, 2048),   # seamless self
-                                       (16, 1, 64, 1024),   # its cross
-                                       (16, 1, 128, 2048),  # olmoe
-                                       (5, 3, 64, 2048),    # smollm
-                                       (8, 4, 128, 2048)])  # G 4: CUDA-core
+@pytest.mark.parametrize("KV,G,hd,S", [(5, 3, 64, 2048),    # smollm
+                                       (8, 4, 128, 2048),   # G 4: CUDA-core
+                                       (32, 1, 80, 2048),   # stablelm's hd
+                                       (16, 2, 64, 2048),   # G 2 at hd 64
+                                       (8, 3, 128, 1024)])  # G 3 at hd 128
 def test_decode_attn_launch_plan_keeps_split_plan_for_cuda_core_bf16(
         monkeypatch, KV, G, hd, S):
-    """seamless-m4t-large-v2's, olmoe-1b-7b's and smollm's bf16 shapes (and
-    G 4 at hd 128) keep the CUDA-core body's grid: split_plan's over the
-    B*KV rows, one KV head a block, without asking for the occupancy."""
+    """smollm's bf16 shape, G 2 to 4 at hd 64 and 128 and G 1 at hd 80
+    keep the CUDA-core body's grid: split_plan's over the B*KV rows, one KV
+    head a block, without asking for the occupancy."""
     def no_query(*args):
         raise AssertionError("the CUDA-core body's plan asks no occupancy")
 
     monkeypatch.setattr(dk, "_sm_count", lambda device: 132)
     monkeypatch.setattr(dk, "blocks_per_sm", no_query)
     assert not bf16_mma_body(torch.bfloat16, False, hd, G)
+    assert not bf16_g1_body(torch.bfloat16, False, hd, G)
     assert dk.launch_plan(torch.device("cuda"), torch.bfloat16, False, 16,
                           KV, G, hd, S) == (1, *split_plan(16 * KV, S, 132))
+
+
+@pytest.mark.parametrize("dtype,int8,hd,G,want", [
+    pytest.param(torch.bfloat16, False, 64, 1, True, id="bf16-64-1"),
+    pytest.param(torch.bfloat16, False, 128, 1, True, id="bf16-128-1"),
+    *(pytest.param(torch.bfloat16, False, hd, G, False, id=f"bf16-{hd}-{G}")
+      for hd in (64, 128) for G in range(2, 9)),
+    pytest.param(torch.bfloat16, False, 32, 1, False, id="bf16-32-1"),
+    pytest.param(torch.bfloat16, False, 80, 1, False, id="bf16-80-1"),
+    pytest.param(torch.float32, False, 64, 1, False, id="fp32-64-1"),
+    pytest.param(torch.float32, False, 128, 1, False, id="fp32-128-1"),
+    pytest.param(torch.bfloat16, True, 64, 1, False, id="int8-64-1"),
+    pytest.param(torch.bfloat16, True, 128, 1, False, id="int8-128-1"),
+    pytest.param(torch.float32, True, 128, 1, False, id="int8-fp32-128-1")])
+def test_decode_attn_bf16_g1_body_takes_bf16_cache_at_g_1(dtype, int8, hd, G,
+                                                        want):
+    """The tensor-core bf16 body at one query head a KV head
+    (walk_bf16_mma) takes a bf16 q on a bf16 cache at hd 64 and 128, G 1
+    (seamless-m4t-large-v2's and olmoe-1b-7b's); G 2..8, hd 32 and 80, fp32
+    and the int8 cache do not, and it never holds together with
+    ``mma_body`` or ``bf16_mma_body``."""
+    assert bf16_g1_body(dtype, int8, hd, G) is want
+    if want:
+        assert not mma_body(dtype, int8, hd, G)
+        assert not bf16_mma_body(dtype, int8, hd, G)
+
+
+@pytest.mark.parametrize("bps", [1, 2, 3, 4])
+@pytest.mark.parametrize("hd,S", [(64, 2048),    # seamless's self layers
+                                  (64, 1024),    # its cross layers
+                                  (128, 2048)])  # olmoe-1b-7b
+def test_decode_attn_launch_plan_at_g1_shapes(monkeypatch, hd, S, bps):
+    """seamless-m4t-large-v2's self (S 2048) and cross (S 1,024) shapes and
+    olmoe-1b-7b's (hd 128), B 16, KV 16, G 1 on a bf16 cache, on an H100's
+    132 SMs: walk_bf16_mma's plan asks the occupancy of its own
+    instantiation and takes one KV head a block and one split a row (256
+    rows against 132 x min(bps, MMA_BLOCKS_PER_SM) slots), so at two or
+    more resident blocks an SM the 256 blocks fill one wave, each writing
+    its row with no merge; the split covers 0..S-1."""
+    asked = []
+
+    def blocks(device, q_dtype, int8, hd_, G):
+        asked.append((q_dtype, int8, hd_, G))
+        return bps
+
+    monkeypatch.setattr(dk, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(dk, "blocks_per_sm", blocks)
+    assert bf16_g1_body(torch.bfloat16, False, hd, 1)
+    kvg, split_len, nsplit = dk.launch_plan(torch.device("cuda"),
+                                            torch.bfloat16, False, 16, 16, 1,
+                                            hd, S)
+    assert asked == [(torch.bfloat16, False, hd, 1)]
+    slots = 132 * min(bps, dk.MMA_BLOCKS_PER_SM)
+    assert (kvg, split_len, nsplit) == (1, S, 1)
+    assert (kvg, split_len, nsplit) == (1, *mma_split_plan(256, S, slots))
+    assert (nsplit - 1) * split_len < S <= nsplit * split_len
+    if bps >= 2:
+        assert 16 * 16 * nsplit <= slots
 
 
 @pytest.mark.parametrize("KV,int8,kvg", [(32, True, 4), (5, True, 1),

@@ -1,20 +1,23 @@
 """Time ``decode_attn`` of two checkouts of this repository on one card,
-in turns (A, B, B, A), at the shapes ``chip_smoke.py`` times it.
+in turns (A, B, B, A), at the shapes ``chip_smoke.py`` times it. On a
+CUDA host:
 
-    python3 tools/decode_attn_ab.py OTHER_CHECKOUT   # on a CUDA host
+    python3 tools/decode_attn_ab.py OTHER_CHECKOUT [--row TAG].. [--rounds N]
 
 A is OTHER_CHECKOUT (for instance the parent commit, unpacked with ``git
 archive`` into a directory that ``.gitignore`` lists), B this checkout.
-Each turn is a process of its own that imports the port from its
-checkout's ``src/`` and builds its library there first; every row is
-checked against that checkout's plain version (atol 1e-5, rtol 1e-4) and
-timed as ``chip_smoke.py`` times it: the device time of a CUDA graph of
-10 calls with a 128 MB read before each, less that read alone, median of
-20. Then it compares the SASS (``cuobjdump -sass``) of each
+``--row`` times only the rows named (default: every row of ``ROWS``),
+``--rounds`` runs the four turns N times over (default 1). Each turn is a
+process of its own that imports the port from its checkout's ``src/``
+and builds its library there first; every row is checked against that
+checkout's plain version (atol 1e-5, rtol 1e-4) and timed as
+``chip_smoke.py`` times it: the device time of a CUDA graph of 10 calls
+with a 128 MB read before each, less that read alone, median of 20. Then
+it compares the SASS (``cuobjdump -sass``) of each
 ``decode_attn_kernel`` instantiation in the two libraries and names those
 that differ. Prints one line per turn and row, then a JSON object with
-the medians of both sides, the instantiations whose SASS differs and the
-card's name and power limit.
+the medians and all times of both sides, the instantiations whose SASS
+differs and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -47,9 +50,9 @@ L2_FLUSH_BYTES = 128 << 20
 TOL = (1e-5, 1e-4)
 
 
-def _turn(checkout: Path) -> dict:
-    """This process's rows, timed with ``checkout``'s port, and the path of
-    its library."""
+def _turn(checkout: Path, tags) -> dict:
+    """This process's rows (those of ``tags``), timed with ``checkout``'s
+    port, and the path of its library."""
     import torch
 
     sys.path.insert(0, str(checkout / "src"))
@@ -92,6 +95,8 @@ def _turn(checkout: Path) -> dict:
 
     out = {}
     for tag, B, S, KV, G, hd, pos, qtype, int8 in ROWS:
+        if tag not in tags:
+            continue
         dtype = torch.bfloat16 if qtype == "bf16" else torch.float32
         gen = torch.Generator(device="cuda").manual_seed(S + pos + hd)
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
@@ -151,11 +156,23 @@ def _label(fn):
 
 
 def main(argv):
-    if len(argv) == 3 and argv[1] == "--turn":
-        print(json.dumps(_turn(Path(argv[2]))))
+    if len(argv) == 4 and argv[1] == "--turn":
+        print(json.dumps(_turn(Path(argv[2]), json.loads(argv[3]))))
         return
-    if len(argv) != 2:
+    args, tags, rounds = [], [], "1"
+    rest = iter(argv[1:])
+    for a in rest:
+        if a == "--row":
+            tags.append(next(rest, ""))
+        elif a == "--rounds":
+            rounds = next(rest, "")
+        else:
+            args.append(a)
+    tags = tags or [r[0] for r in ROWS]
+    if (len(args) != 1 or not rounds.isdigit() or int(rounds) < 1
+            or not set(tags) <= {r[0] for r in ROWS}):
         sys.exit(__doc__)
+    rounds = int(rounds)
     import torch
 
     if not torch.cuda.is_available():
@@ -164,13 +181,13 @@ def main(argv):
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
     print(card, flush=True)
-    sides = {"A": Path(argv[1]).resolve(),
+    sides = {"A": Path(args[0]).resolve(),
              "B": Path(__file__).resolve().parents[1]}
     times, libraries = {"A": {}, "B": {}}, {}
-    for side in ("A", "B", "B", "A"):
+    for side in ("A", "B", "B", "A") * rounds:
         run = subprocess.run([sys.executable, __file__, "--turn",
-                              str(sides[side])], capture_output=True,
-                             text=True, timeout=1200)
+                              str(sides[side]), json.dumps(tags)],
+                             capture_output=True, text=True, timeout=1200)
         if run.returncode:
             sys.exit(f"turn {side} failed:\n{run.stderr[-4000:]}")
         turn = json.loads(run.stdout.splitlines()[-1])
@@ -196,7 +213,7 @@ def main(argv):
                       "median_ms": {side: {tag: statistics.median(v)
                                            for tag, v in rows.items()}
                                     for side, rows in times.items()},
-                      "sass_differs": differ}))
+                      "ms": times, "sass_differs": differ}))
 
 
 if __name__ == "__main__":

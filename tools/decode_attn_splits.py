@@ -1,10 +1,12 @@
-"""What bounds ``decode_attn``'s int8 rows and its tensor-core bf16 row in
-one checkout of this repository: each int8 instantiation's resources and
-SASS, and the rows timed at several split counts.
+"""What bounds ``decode_attn``'s int8 rows and its tensor-core bf16 rows
+(G 5..8 and G 1) in one checkout of this repository: each int8
+instantiation's resources and SASS, and the rows timed at several split
+counts. On a CUDA host:
 
-    python3 tools/decode_attn_splits.py [CHECKOUT] [--bf16]   # on a CUDA host
+    python3 tools/decode_attn_splits.py [CHECKOUT] [--bf16 | --g1]
 
-With ``--bf16`` only the bf16 sweep at the end runs (~3 min).
+With ``--bf16`` only the bf16 sweep at G 5..8 runs (~3 min), with
+``--g1`` only the bf16 sweep at G 1 (last below).
 
 CHECKOUT defaults to this one. It builds that checkout's library (as
 ``tools/decode_attn_ab.py`` does), then logs, for the bf16-q int8
@@ -39,7 +41,7 @@ plan at pos 0 (the plan twice in a row too), the bf16 cache's body and
 SDPA over one position, and the kernel alone under ``torch.profiler``
 (L2 hot) at pos 0 and at the row's pos.
 
-Last, jamba-1.5-large-398b's attention layer on its bf16 cache (B 16, S
+Then jamba-1.5-large-398b's attention layer on its bf16 cache (B 16, S
 2048, KV 8, G 8, hd 128, pos 1087), the tensor-core bf16 body's row, is
 swept the same way over library variants with its warps a block and ring
 depth set by ``-DDECODE_ATTN_BF16_WARPS`` (4, 8) and
@@ -52,7 +54,24 @@ row took before is ``tools/decode_attn_ab.py``'s, against a parent
 checkout). Then the own plan at several positions, the same bytes laid
 out as 128 rows of one KV head (B 128, KV 1: a block's rows contiguous
 in the cache, not 256 of each 2,048 bytes), and the same probes of what
-a call costs beside its reads. Prints one JSON line last.
+a call costs beside its reads.
+
+Last, seamless-m4t-large-v2's self (B 16, S 2048, KV 16, G 1, hd 64, pos
+1087) and cross (S 1024, pos 1023) layers and olmoe-1b-7b's attention
+(hd 128, S 2048, pos 1087) on their bf16 caches, the rows of the
+tensor-core bf16 body at G 1 (``walk_bf16_mma``), swept over its library
+variants: warps a block (``-DDECODE_ATTN_BF16_WARPS``, with
+``-DDECODE_ATTN_BF16_NSTAGE=3`` at 8 so that G 5..8 still fit) and ring
+tiles at G 1 at hd 64 and 128 (``-DDECODE_ATTN_BF16_G1_NSTAGE_64`` /
+``_128``), each at 1 to 4 splits a row (one KV head a block); each
+variant's registers and spills of the G-1 instantiations from ptxas, and
+its blocks an SM, are logged; the 1- and 2-split runs are timed in more
+rounds, in turns. Then the own plan at
+several positions beside SDPA over as many (each one's loop rate and
+fixed cost), the same bytes laid out as 256 rows of one KV head (B 256,
+KV 1: a block's rows contiguous in the cache), one elementwise kernel,
+each variant's one call and two calls in a row at pos 0, and the kernel
+alone under ``torch.profiler``. Prints one JSON line last.
 """
 from __future__ import annotations
 
@@ -94,6 +113,21 @@ BF16_VARIANTS = ((4, 2), (4, 3), (4, 6), (8, 2), (8, 3))
 BF16_SPLITS = (1, 2, 3, 4)
 BF16_ROUNDS = 2  # more rounds of the 1- and 2-split runs, in turns
 BF16_POSITIONS = (0, 255, 511, 1087, 2047)
+# seamless-m4t-large-v2's self and cross layers (hd 64) and olmoe-1b-7b's
+# attention (hd 128) on their bf16 caches at G 1, (row, B, S, KV, G, hd,
+# pos), swept over walk_bf16_mma's library variants and the splits a row;
+# then the own plan at these positions of each
+G1_ROWS = (("seamless,bf16", 16, 2048, 16, 1, 64, 1087),
+           ("seamless-xattn,bf16", 16, 1024, 16, 1, 64, 1023),
+           ("olmoe,bf16", 16, 2048, 16, 1, 128, 1087))
+# (warps, ring tiles at hd 64, at hd 128): the first is the source's
+# defaults
+G1_VARIANTS = ((4, 6, 3), (4, 3, 2), (4, 4, 2), (8, 3, 2))
+G1_SPLITS = (1, 2, 3, 4)
+G1_ROUNDS = 2  # more rounds of the 1- and 2-split runs, in turns
+G1_POSITIONS = {"seamless,bf16": (0, 255, 511, 1087, 2047),
+                "seamless-xattn,bf16": (0, 255, 511, 1023),
+                "olmoe,bf16": (0, 255, 511, 1087, 2047)}
 
 
 def _label(fn):
@@ -149,11 +183,13 @@ def resources(lib_path):
     return out
 
 
-def build_variants(build, lib_argtypes, flags, label):
+def build_variants(build, lib_argtypes, flags, label,
+                   keep=lambda hd, G: hd in (64, 128) and G > 4):
     """{key: (library, {(hd, G): ptxas line})} of the library variants
     ``flags`` ({key: (file tag, nvcc -D flags)}), one nvcc each, run
     together; the lines of the instantiations that ``label`` names (hd,
-    G) at hd 64 and 128, G 5..8."""
+    G) where ``keep(hd, G)`` (default: hd 64 and 128, G 5..8). Raises with
+    nvcc's stderr if a variant fails to build."""
     out_dir = build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     src = build.KERNELS_DIR / build.SOURCES["decode_attn"]
@@ -175,7 +211,7 @@ def build_variants(build, lib_argtypes, flags, label):
             m = re.search(r"entry function '(\w+)'", text)
             if m:
                 fn = label(m.group(1))
-            elif (fn and fn[0] in (64, 128) and fn[1] > 4
+            elif (fn and keep(*fn)
                   and ("registers" in text or "spill" in text)):
                 lines[fn].append(text.strip())
         handle = ctypes.CDLL(str(lib))
@@ -191,8 +227,11 @@ def main(argv):
 
     if not torch.cuda.is_available():
         sys.exit("decode_attn_splits: torch.cuda.is_available() is false")
-    only_bf16 = "--bf16" in argv[1:]
-    paths = [a for a in argv[1:] if a != "--bf16"]
+    only_bf16, only_g1 = "--bf16" in argv[1:], "--g1" in argv[1:]
+    if only_bf16 and only_g1:
+        sys.exit("decode_attn_splits: --bf16 or --g1, not both")
+    int8_sweeps = not (only_bf16 or only_g1)
+    paths = [a for a in argv[1:] if a not in ("--bf16", "--g1")]
     checkout = Path(paths[0]).resolve() if paths else \
         Path(__file__).resolve().parents[1]
     sys.path.insert(0, str(checkout / "src"))
@@ -212,19 +251,28 @@ def main(argv):
             getattr(handle, fn).argtypes = getattr(dk._lib(), fn).argtypes
             getattr(handle, fn).restype = getattr(dk._lib(), fn).restype
 
-    variants = {} if only_bf16 else build_variants(
+    variants = {} if not int8_sweeps else build_variants(
         build, argtypes,
         {(w, ns): (f"w{w}r{ns}", [f"-DDECODE_ATTN_WIDE_WARPS={w}",
                                   f"-DDECODE_ATTN_WIDE_NSTAGE={ns}"])
          for w, ns in WIDE_VARIANTS}, _label)
-    bf16_variants = build_variants(
+    bf16_variants = {} if only_g1 else build_variants(
         build, argtypes,
         {(w, ns): (f"bf16-w{w}r{ns}", [f"-DDECODE_ATTN_BF16_WARPS={w}",
                                        f"-DDECODE_ATTN_BF16_NSTAGE={ns}"])
          for w, ns in BF16_VARIANTS}, _bf16_label)
+    g1_variants = {} if only_bf16 else build_variants(
+        build, argtypes,
+        {key: (_g1_tag(key),
+               [f"-DDECODE_ATTN_BF16_WARPS={key[0]}",
+                f"-DDECODE_ATTN_BF16_G1_NSTAGE_64={key[1]}",
+                f"-DDECODE_ATTN_BF16_G1_NSTAGE_128={key[2]}"]
+               + (["-DDECODE_ATTN_BF16_NSTAGE=3"] if key[0] == 8 else []))
+         for key in G1_VARIANTS}, _bf16_label,
+        keep=lambda hd, G: hd in (64, 128) and G == 1)
     report = {"card": card, "checkout": str(checkout), "resources": {},
               "ms": {}, "variants": {}}
-    if not only_bf16:
+    if int8_sweeps:
         for (hd, G), r in sorted(resources(
                 build.library_path("decode_attn")).items()):
             print(f"<bf16, int8_t, {hd}, {G}>: {r}", flush=True)
@@ -307,12 +355,15 @@ def main(argv):
             name = f"{warps} warps, ring {ns}: <bf16, int8_t, {hd}, {G}>"
             print(f"variant {name}: {line}", flush=True)
             report["variants"][name] = line
-    for (warps, ns), (handle, lines) in bf16_variants.items():
+    named = [(f"{w} warps, ring {ns}", v)
+             for (w, ns), v in bf16_variants.items()]
+    named += [(_g1_name(key), v) for key, v in g1_variants.items()]
+    for vname, (handle, lines) in named:
         for (hd, G), line in lines.items():
             blocks = ctypes.c_int(0)
             err = handle.decode_attn_blocks_per_sm(1, 0, hd, G,
                                                    ctypes.addressof(blocks))
-            name = f"{warps} warps, ring {ns}: <bf16, bf16, {hd}, {G}>"
+            name = f"{vname}: <bf16, bf16, {hd}, {G}>"
             line = f"{line}; {blocks.value} blocks an SM (error {err})"
             print(f"variant {name}: {line}", flush=True)
             report["variants"][name] = line
@@ -330,7 +381,7 @@ def main(argv):
         print(f"decode_attn[{tag}] {name}: {ms:.5f} ms", flush=True)
         report["ms"][f"{tag} {name}"] = ms
 
-    for tag, B, S, KV, G, hd, pos in () if only_bf16 else ROWS + WIDE_ROWS:
+    for tag, B, S, KV, G, hd, pos in ROWS + WIDE_ROWS if int8_sweeps else ():
         gen = torch.Generator(device="cuda").manual_seed(S + pos + hd)
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                    for shape in ((B, KV, G, hd), (B, S, KV, hd),
@@ -398,7 +449,7 @@ def main(argv):
         del q, k, v, want, wants
         torch.cuda.empty_cache()
 
-    for tag, B, S, KV, G, hd, pos in BF16_ROWS:
+    for tag, B, S, KV, G, hd, pos in () if only_g1 else BF16_ROWS:
         gen = torch.Generator(device="cuda").manual_seed(S + pos + hd)
         q, k, v = (torch.randn(shape, generator=gen, device="cuda"
                                ).to(torch.bfloat16)
@@ -458,7 +509,75 @@ def main(argv):
             report["ms"][f"{tag} own plan at pos {p}, profiler"] = ms
         del q, k, v, want, small, qh, kh, vh, kv_valid
         torch.cuda.empty_cache()
+
+    for tag, B, S, KV, G, hd, pos in () if only_bf16 else G1_ROWS:
+        gen = torch.Generator(device="cuda").manual_seed(S + pos + hd)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda"
+                               ).to(torch.bfloat16)
+                   for shape in ((B, KV, G, hd), (B, S, KV, hd),
+                                 (B, S, KV, hd)))
+        want = decode_attn_ref(q, k, v, pos)
+        tc = {_g1_name(key): h for key, (h, _) in g1_variants.items()}
+        runs = [("own plan", lambda: dk.decode_attn_cuda(q, k, v, pos))]
+        runs += [(f"{vn}, {n} splits",
+                  lambda n=n, h=h: call(q, k, v, pos, -(-S // n), 1, h))
+                 for vn, h in tc.items() for n in G1_SPLITS]
+        runs += [(f"{vn}, {n} splits (round {r + 2})",
+                  lambda n=n, h=h: call(q, k, v, pos, -(-S // n), 1, h))
+                 for r in range(G1_ROUNDS) for vn, h in tc.items()
+                 for n in (1, 2)]
+        for name, fn in runs:
+            timed(tag, name, fn, want)
+        qh = q.reshape(B, KV * G, 1, hd)
+        kh, vh = (t.transpose(1, 2) for t in (k, v))
+        for p in G1_POSITIONS[tag]:  # the loops' rates and fixed costs
+            timed(tag, f"own plan at pos {p}",
+                  lambda p=p: dk.decode_attn_cuda(q, k, v, p),
+                  decode_attn_ref(q, k, v, p))
+            timed(tag, f"SDPA over positions 0..{p}",
+                  lambda p=p: F.scaled_dot_product_attention(
+                      qh, kh[:, :, :p + 1], vh[:, :, :p + 1],
+                      enable_gqa=True))
+        # the same bytes and blocks, each block's rows contiguous
+        q1, k1, v1 = (t.reshape(shape).contiguous() for t, shape in (
+            (q, (B * KV, 1, G, hd)), (k, (B * KV, S, 1, hd)),
+            (v, (B * KV, S, 1, hd))))
+        timed(tag, f"own plan, as B {B * KV}, KV 1 (rows contiguous)",
+              lambda: dk.decode_attn_cuda(q1, k1, v1, pos),
+              decode_attn_ref(q1, k1, v1, pos))
+        del q1, k1, v1
+        # what a call costs beside its reads, timed the same way
+        small = torch.zeros(q.shape, device="cuda")
+        probes = [("floor: one elementwise kernel on a tensor of the "
+                   "output's size", lambda: small.add_(1.0))]
+        probes += [(f"{vn}, 1 splits at pos 0",
+                    lambda h=h: call(q, k, v, 0, S, 1, h))
+                   for vn, h in tc.items()]
+        probes += [(f"{vn}, 1 splits at pos 0, two calls",
+                    lambda h=h: (call(q, k, v, 0, S, 1, h),
+                                 call(q, k, v, 0, S, 1, h)))
+                   for vn, h in tc.items()]
+        for name, fn in probes:
+            timed(tag, name, fn)
+        for p in (0, pos):  # the kernel's own time, without launches
+            ms = kernel_ms(lambda p=p: dk.decode_attn_cuda(q, k, v, p))
+            print(f"decode_attn[{tag}] own plan at pos {p}: the kernel alone "
+                  f"under torch.profiler, L2 hot: {ms:.5f} ms", flush=True)
+            report["ms"][f"{tag} own plan at pos {p}, profiler"] = ms
+        del q, k, v, want, small, qh, kh, vh
+        torch.cuda.empty_cache()
     print(json.dumps(report))
+
+
+def _g1_tag(key):
+    """The file tag of walk_bf16_mma's G-1 library variant ``key`` (warps,
+    tiles at hd 64, at hd 128)."""
+    return "g1-w{}r{}-{}".format(*key)
+
+
+def _g1_name(key):
+    """The log name of walk_bf16_mma's G-1 library variant ``key``."""
+    return "{} warps, ring {}/{}".format(*key)
 
 
 if __name__ == "__main__":
