@@ -239,7 +239,36 @@ check it end to end.
    GB: a Mamba state handed from the prefill to decode, the MoE and the
    attention layer), seamless whole (~6.5 GB, 1,024 frames), the cuts
    logged on their lines.
-12. Prints one JSON line of the rows at shapes or types the paths do not
+12. LM training (``lm_training_phase``). ``wkv6`` at the training shape
+   (rwkv6's micro-batch: B=2, S=1024, H=32, hd=64, bf16 r, k, v) against
+   the chunked form, timed. smollm-360m (362 M parameters) and rwkv6-1.6b
+   (1.6 B) train at full width and depth through ``train.steps.
+   make_train_step``: bf16 compute on fp32 parameters and AdamW moments,
+   each config's remat ("full") and grad_accum (2 and 4), weights drawn on
+   the card from a seeded generator, a global batch of 8 x 1024 tokens a
+   step from ``data.tokens.batch_at`` (seed 0); 2 warm-up steps under the
+   device audit, then 8 timed steps (the same code outside the audit's
+   hook), each ending in a synchronize. Every step: a finite loss, a
+   finite grad norm above 0, ``skipped`` 0, parameters moved, exactly its
+   kernel launches (none for smollm; 192 ``wkv6`` for rwkv6: 24 layers x
+   4 micro-batches x 2, the forward and remat's recompute, the Function's
+   backward launching none), 96 passes of that backward (the chunked
+   WKV's gradients, captured once as a CUDA graph and replayed) and no
+   chunked WKV outside it. It logs step seconds, tokens/s, peak memory and
+   the model-FLOP share 6 N T / (step s x 989 TFLOP/s), and
+   ``torch.profiler`` windows of one smollm step and of one ``wkv6``
+   forward and backward at the training shape. Then one fp32
+   step of smollm- and rwkv6-reduced on the card and on the CPU from the
+   same weights and batch: loss within 1e-5 relative, every gradient
+   within 1e-4 of its leaf's largest, updated parameters within 1e-6
+   where |g| is at least 1e-3 of its leaf's largest and 2 lr anywhere
+   (AdamW's first step is about lr x sign(g)); the ``wkv6`` Function alone
+   (B=2, S=256, H=4, bf16) against autograd of the fp32 chunked form at
+   log-decays in [-1, -0.1] (``WKV_GRAD_TOL``) and finite at -3; and
+   ``launch.train.main`` on smollm-reduced for 30 steps (a checkpoint
+   every 10, into ``build/train_driver``), then again with ``--steps 40``,
+   which must resume at step 30 and end at 40.
+13. Prints one JSON line of the rows at shapes or types the paths do not
    run (launches 0), then the ``{"kernels": [...]}`` line: one row for
    each kernel at each shape and type its path runs, with its launches
    there, error and times; then the line ``kernels: ...``, and last
@@ -254,6 +283,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -330,6 +360,27 @@ ATTN_TOL = (1e-5, 1e-4)  # atol, rtol: the reference's kernel bounds
 # the path's last decode step and the cache's last position
 GRAPH_POSITIONS = (0, 255, 256, LM_PROMPT + 63, LM_MAX_SEQ - 1)
 WKV_TOL = (2e-4, 1e-3)
+# LM training (phase 12): smollm-360m and rwkv6-1.6b at full width and
+# depth, a global batch of 8 x 1024 tokens (data.tokens.batch_at, seed 0),
+# 2 audited warm-up steps and 8 timed ones, on the training driver's
+# default schedule (warmup_cosine(3e-4, 20, 100))
+TRAIN_ARCHS = ("smollm-360m", "rwkv6-1.6b")
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_TIMED = 8, 1024, 2, 8
+TRAIN_LR, TRAIN_LR_WARMUP, TRAIN_LR_TOTAL = 3e-4, 20, 100
+H100_BF16_FLOP_PER_S = 989e12  # dense bf16 tensor cores, same sheet
+# card against CPU: one fp32 step of each reduced config on a batch of
+# 4 x 64 tokens; loss and gradients at the CPU parity tests' bounds
+# (tests/test_torch_lm_train.py)
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 4, 64
+TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-5, 1e-4
+# the wkv6 Function alone (B, S, H, hd), bf16 r, k, v. Its gradients
+# against autograd of the fp32 chunked form on the same widened values:
+# r's, k's and v's are that form's own, rounded once to bf16 (within 2^-8
+# of each value); log-decay's, u's and s0's are its fp32 values. atol is
+# relative to each gradient's largest |g|
+WKV_GRAD_SHAPE = (2, 256, 4, 64)
+WKV_GRAD_TOL = ((1e-6, 2.0 ** -8),) * 3 + ((1e-6, 1e-6),) * 3
+TRAIN_DRIVER_DIR = ROOT / "build" / "train_driver"
 CARD = ""  # nvidia-smi's name and power limit, set once by main()
 BACKENDS = ("exact", "pallas", "fused", "fused_exact")
 FLEET_SEEDS = range(300, 308)  # as benchmarks/multistream.py
@@ -688,7 +739,10 @@ def scores_kernel_phase(fleet_chunk):
 
 class DeviceAudit(TorchDispatchMode):
     """Records every op, other than a transfer between host and card, that
-    touches an array (a tensor of one or more dimensions) off the card."""
+    touches an array (a tensor of one or more dimensions holding at least
+    one element) off the card. A tensor with no elements carries no data:
+    ``torch.utils.checkpoint`` makes one on the host, ``torch.empty((0,))``,
+    as a placeholder for each checkpointed call."""
 
     def __init__(self):
         super().__init__()
@@ -697,9 +751,12 @@ class DeviceAudit(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         tensors = [t for t in torch.utils._pytree.tree_leaves(
-            (args, kwargs, out)) if isinstance(t, torch.Tensor) and t.dim()]
-        if str(func) not in TRANSFER_OPS and any(
-                t.device.type != "cuda" for t in tensors):
+            (args, kwargs, out)) if isinstance(t, torch.Tensor) and t.dim()
+            and t.numel()]
+        # the op's name only for an op off the card: formatting it for
+        # each of a training step's ~300,000 ops would cost seconds
+        if any(t.device.type != "cuda" for t in tensors) and \
+                str(func) not in TRANSFER_OPS:
             self.off_card.add(str(func))
         return out
 
@@ -3041,6 +3098,421 @@ def lm_serving_phase(rows):
             f"serving runs and checks")
 
 
+def _train_batches(cfg, n, batch, seq):
+    """``n`` batches of ``data.tokens.batch_at`` (seed 0), as numpy."""
+    from repro_torch.data.tokens import DataConfig, batch_at
+
+    dcfg = DataConfig(cfg.vocab_size, seq, batch, seed=0)
+    return [batch_at(dcfg, i) for i in range(n)]
+
+
+def _fingerprint(params):
+    """One fp32 sum a parameter tensor: a step that moves a tensor moves
+    its sum (outside the timed region)."""
+    return torch.stack([p.detach().float().sum() for p in params.values()])
+
+
+def _wkv_train_counts():
+    """The counters of the rwkv6 training run: the kernel's launches, the
+    Function's backward passes, the chunked form's calls inside that
+    backward and outside it, and the backward's CUDA graphs captured."""
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.kernels.wkv6 import ops as wo
+
+    return (wk.LAUNCHES["wkv6"], wo.BACKWARDS["wkv6"],
+            _CHUNKED_CALLS["inside"], _CHUNKED_CALLS["outside"],
+            wo.BACKWARDS["captured"])
+
+
+_CHUNKED_CALLS = collections.Counter()
+
+
+@contextlib.contextmanager
+def _counted_chunked_form():
+    """Count every call of the chunked WKV that ``kernels.wkv6.ops``
+    makes, inside the ``WKV6Function``'s backward (its recompute, eager
+    or while its CUDA graph is captured) or outside it (on the card none
+    should be: the forward is the kernel's)."""
+    from repro_torch.kernels.wkv6 import ops as wo
+
+    plain, backward = wo.wkv_chunked, wo.WKV6Function.backward
+    depth = []
+
+    def counted(*xs, **kw):
+        _CHUNKED_CALLS["inside" if depth else "outside"] += 1
+        return plain(*xs, **kw)
+
+    def marked(ctx, *grads):
+        depth.append(1)
+        try:
+            return backward(ctx, *grads)
+        finally:
+            depth.pop()
+
+    wo.wkv_chunked = counted
+    wo.WKV6Function.backward = staticmethod(marked)
+    try:
+        yield
+    finally:
+        wo.wkv_chunked = plain
+        wo.WKV6Function.backward = staticmethod(backward)
+
+
+def _train_full_width(arch, rows):
+    """Phase 12, part 1 for ``arch``: see :func:`lm_training_phase`."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import kernel as dk
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.models import DecoderLM
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.train import steps
+
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    model = DecoderLM(cfg, torch.bfloat16, torch.float32, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    opt = AdamW(schedule=warmup_cosine(TRAIN_LR, TRAIN_LR_WARMUP,
+                                       TRAIN_LR_TOTAL),
+                moment_dtype=getattr(torch, cfg.opt_moment_dtype))
+    state = steps.init_train_state(model, opt)
+    step = steps.make_train_step(model, cfg, opt, grad_accum=cfg.grad_accum)
+    n_params = sum(p.numel() for p in state["params"].values())
+    state_gb = 4 * 4 * n_params / 1e9  # fp32 parameters, gradients, m, v
+    batches = _train_batches(cfg, TRAIN_WARMUP + TRAIN_TIMED, TRAIN_BATCH,
+                             TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rwkv = cfg.attn_free
+    # wkv6 a step: each of the n_layers RWKV layers runs its forward once a
+    # micro-batch, and remat "full" runs each block's forward again in the
+    # backward (the Function's backward launches nothing): n_layers x
+    # grad_accum x 2; the Function's backward once a layer and
+    # micro-batch, and the chunked form nowhere else
+    per_step = {"wkv6": cfg.n_layers * cfg.grad_accum
+                * (2 if cfg.remat in ("full", "dots") else 1)} if rwkv else {}
+    per_backward = cfg.n_layers * cfg.grad_accum if rwkv else 0
+    log(f"LM training {arch}: {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {n_params / 1e6:.1f} M parameters (fp32 "
+        f"parameters, gradients and two moments {state_gb:.1f} GB), bf16 "
+        f"compute, remat {cfg.remat}, grad_accum {cfg.grad_accum} "
+        f"(micro-batch {TRAIN_BATCH // cfg.grad_accum}), global batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens from data.tokens.batch_at "
+        f"(seed 0); {TRAIN_WARMUP} audited warm-up steps, {TRAIN_TIMED} "
+        f"timed" + (f"; expect {per_step['wkv6']} wkv6 launches and "
+                    f"{per_backward} passes of the wkv6 Function's backward "
+                    f"a step" if rwkv else ""))
+
+    def check(i, metrics, before, moved, wkv):
+        m = {k: float(v) for k, v in metrics.items()}
+        changed = int((_fingerprint(state["params"]) != before).sum())
+        backwards, inside, outside, captured = wkv
+        log(f"  step {i}: loss {m['loss']:.4f}, nll {m['nll']:.4f}, grad "
+            f"norm {m['grad_norm']:.4f}, lr {m['lr']:.3e}, skipped "
+            f"{m['skipped']:.0f}, launches {moved}, {changed} of "
+            f"{len(state['params'])} parameter tensors changed"
+            + (f", Function backwards {backwards}, chunked form run "
+               f"{inside} times inside them ({captured} CUDA graphs "
+               f"captured) and {outside} outside" if rwkv else ""))
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+                and m["grad_norm"] > 0 and m["skipped"] == 0):
+            raise AssertionError(f"{arch} step {i}: {m}")
+        if changed == 0:
+            raise AssertionError(f"{arch} step {i}: no parameter moved")
+        if moved != per_step:
+            raise AssertionError(f"{arch} step {i}: launches {moved}, "
+                                 f"expected {per_step}")
+        if backwards != per_backward or outside:
+            raise AssertionError(
+                f"{arch} step {i}: the Function's backward ran {backwards} "
+                f"times (expected {per_backward}), the chunked WKV "
+                f"{outside} times outside it (expected none)")
+
+    dk.LAUNCHES.clear()  # every count to 0 just before the path
+    wk.LAUNCHES.clear()
+    total = collections.Counter()
+    seconds = []
+    with _counted_chunked_form():
+        for i, batch in enumerate(batches):
+            before = _fingerprint(state["params"])
+            counts0 = _wkv_train_counts()
+            launches0 = launch_counts()
+            if i < TRAIN_WARMUP:
+                (state, metrics), _, off = audited(
+                    lambda: step(state, batch))
+                if off:
+                    raise AssertionError(f"{arch} step {i}: ops off the "
+                                         f"card: {sorted(off)}")
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+            moved = {k: v - launches0.get(k, 0)
+                     for k, v in launch_counts().items()
+                     if v != launches0.get(k, 0)}
+            total.update(moved)
+            counts1 = _wkv_train_counts()
+            check(i, metrics, before, moved,
+                  [b - a for a, b in zip(counts0[1:], counts1[1:])])
+    log(f"  every op of the {TRAIN_WARMUP} warm-up steps ran on cuda "
+        f"(transfers aside); launches over the {len(batches)} steps "
+        f"{dict(total)}")
+    if rwkv:
+        rows["wkv6[train,bf16]"]["launches"] = total["wkv6"]
+    step_s = statistics.median(seconds)
+    if not rwkv:  # a whole step's ~25,000 ops under the profiler
+        _profiled(f"{arch} train step", lambda: step(state, batches[-1]),
+                  ("step", 1))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    share = 6 * n_params * tokens / (step_s * H100_BF16_FLOP_PER_S)
+    log(f"  {arch} training ({CARD}): step {step_s:.4f} s (median of "
+        f"{TRAIN_TIMED}; min {min(seconds):.4f}, max {max(seconds):.4f}), "
+        f"{tokens / step_s:.1f} tokens/s, peak device memory {peak:.2f} GB, "
+        f"model-FLOP share 6 N T / (step s x 989 TFLOP/s) = {share:.4f} "
+        f"(N {n_params}, T {tokens})")
+    del model, state, step, opt
+    torch.cuda.empty_cache()
+
+
+def _grads_within(name, got, want, rel):
+    """Every gradient leaf within ``rel`` of its largest |g|."""
+    worst, leaf = 0.0, None
+    for n, w in want.items():
+        scale = max(float(w.abs().max()), 1e-30)
+        err = float((got[n].cpu() - w).abs().max()) / scale
+        if err >= worst:
+            worst, leaf = err, n
+    log(f"  {name}: gradients, worst leaf error {worst:.3e} of its largest "
+        f"|g| ({leaf}; bound {rel})")
+    if worst > rel:
+        raise AssertionError(f"{name}: gradients off by {worst:.3e}")
+
+
+def _card_against_cpu(arch):
+    """Phase 12, part 2 for ``arch``: see :func:`lm_training_phase`."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels.wkv6 import ops as wo
+    from repro_torch.models import DecoderLM
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.train import steps
+
+    cfg = get_reduced_config(arch)
+    cpu = DecoderLM(cfg, torch.float32, torch.float32, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+    card = DecoderLM(cfg, torch.float32, torch.float32, device="cuda",
+                     init=False)
+    card.load_state_dict(cpu.state_dict())
+    batch = _train_batches(cfg, 1, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ)[0]
+    out = {}
+    backwards0 = wo.BACKWARDS["wkv6"]
+    for where, model in (("cpu", cpu), ("cuda", card)):
+        opt = AdamW(schedule=warmup_cosine(TRAIN_LR, 0, TRAIN_LR_TOTAL))
+        state = steps.init_train_state(model, opt, where)
+        loss, _, grads = steps.make_grad_fn(model, cfg)(
+            state["params"], {k: torch.from_numpy(v).to(where)
+                              for k, v in batch.items()})
+        state, metrics = steps.make_train_step(model, cfg, opt)(state, batch)
+        out[where] = (float(loss), {n: g.cpu() for n, g in grads.items()},
+                      {n: p.detach().cpu() for n, p in
+                       state["params"].items()}, float(metrics["lr"]))
+    (l_cpu, g_cpu, p_cpu, lr), (l_card, g_card, p_card, _) = (out["cpu"],
+                                                              out["cuda"])
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    name = f"{arch} (reduced, fp32, batch {TRAIN_CHECK_BATCH} x " \
+        f"{TRAIN_CHECK_SEQ}) card against CPU"
+    log(f"  {name}: loss {l_card:.6f} against {l_cpu:.6f}, rel {rel:.3e} "
+        f"(bound {TRAIN_LOSS_REL})"
+        + (f"; the wkv6 Function's backward ran "
+           f"{wo.BACKWARDS['wkv6'] - backwards0} times" if cfg.attn_free
+           else ""))
+    if rel > TRAIN_LOSS_REL:
+        raise AssertionError(f"{name}: loss off by {rel:.3e}")
+    if cfg.attn_free and wo.BACKWARDS["wkv6"] == backwards0:
+        raise AssertionError(f"{name}: the wkv6 Function never ran")
+    _grads_within(name, g_card, g_cpu, TRAIN_GRAD_REL)
+    # AdamW's first step moves each element by about lr * sign(g) (plus
+    # the decay): where |g| is at least 1e-3 of its leaf's largest the
+    # sign is firm and the two agree within 1e-6; elsewhere a sign may
+    # flip between the two sums' orders, which moves the element by at
+    # most 2 lr
+    firm_err = loose_err = 0.0
+    for n, g in g_cpu.items():
+        err = (p_card[n] - p_cpu[n]).abs()
+        firm = g.abs() >= 1e-3 * g.abs().max()
+        if firm.any():
+            firm_err = max(firm_err, float(err[firm].max()))
+        loose_err = max(loose_err, float(err.max()))
+    log(f"  {name}: updated parameters, max abs error {firm_err:.3e} where "
+        f"|g| >= 1e-3 of its leaf's largest (bound 1e-6), {loose_err:.3e} "
+        f"anywhere (bound 2 lr = {2 * lr:.1e})")
+    if firm_err > 1e-6 or loose_err > 2 * lr + 1e-6:
+        raise AssertionError(f"{name}: updated parameters disagree")
+
+
+def _wkv6_function_check():
+    """Phase 12, part 3: see :func:`lm_training_phase`."""
+    from repro_torch.kernels.wkv6 import ops as wo
+    from repro_torch.kernels.wkv6.ref import wkv_chunked
+
+    B, S, H, hd = WKV_GRAD_SHAPE
+    captured = wo.BACKWARDS["captured"]
+    # the first call captures the backward's graph, the next two replay it
+    for seed, ld_range in ((11, (-1.0, -0.1)), (12, (-1.0, -0.1)),
+                           (13, (-3.0, -3.0))):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        r, k, v = (0.5 * torch.randn((B, S, H, hd), generator=gen,
+                                     device="cuda") for _ in range(3))
+        lo, hi = ld_range
+        ld = lo + (hi - lo) * torch.rand((B, S, H, hd), generator=gen,
+                                         device="cuda")
+        u = 0.3 * torch.randn((H, hd), generator=gen, device="cuda")
+        s0 = 0.2 * torch.randn((B, H, hd, hd), generator=gen, device="cuda")
+        cot = (torch.randn((B, S, H, hd), generator=gen, device="cuda"),
+               torch.randn((B, H, hd, hd), generator=gen, device="cuda"))
+        xs = [r.bfloat16(), k.bfloat16(), v.bfloat16(), ld, u, s0]
+        ins = [x.clone().requires_grad_() for x in xs]
+        backwards0 = wo.BACKWARDS["wkv6"]
+        outs = wo.wkv6(*ins)
+        got = torch.autograd.grad(outs, ins, cot)
+        if wo.BACKWARDS["wkv6"] != backwards0 + 1:
+            raise AssertionError("wkv6 did not go through its Function")
+        tag = (f"wkv6 Function, log-decay in [{lo}, {hi}], seed {seed} "
+               f"({wo.BACKWARDS['captured'] - captured} graphs captured so "
+               f"far)")
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            raise AssertionError(f"{tag}: non-finite gradients")
+        if lo == hi:
+            log(f"  {tag}: every gradient finite")
+            continue
+        ref_ins = [x.float().clone().requires_grad_() for x in xs]
+        want_out = wkv_chunked(*ref_ins)
+        want = torch.autograd.grad(want_out, ref_ins, cot)
+        _check_close(f"{tag}: o", outs[0].detach(), want_out[0].detach(),
+                     WKV_TOL)
+        for name, g, w, tol in zip(("r", "k", "v", "log_decay", "u", "s0"),
+                                   got, want, WKV_GRAD_TOL):
+            _check_close(f"{tag}: d{name} ({g.dtype})", g,
+                         w, (tol[0] * float(w.abs().max()), tol[1]))
+
+
+def _driver_check():
+    """Phase 12, part 4: see :func:`lm_training_phase`."""
+    from repro_torch.launch import train as train_launch
+
+    shutil.rmtree(TRAIN_DRIVER_DIR, ignore_errors=True)
+    args = ["--arch", "smollm_360m", "--reduced", "--ckpt-every", "10",
+            "--ckpt-dir", str(TRAIN_DRIVER_DIR), "--device", "cuda"]
+    said = []
+    for steps_to in (30, 40):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train_launch.main(args + ["--steps", str(steps_to)])
+        said.append(buf.getvalue())
+        for line in said[-1].splitlines():
+            log(f"    {line}")
+        if rc != 0:
+            raise AssertionError(f"launch.train exited {rc}")
+    if "[resume]" in said[0] or "[done] step 30 " not in said[0]:
+        raise AssertionError("the first driver run did not end at step 30")
+    if "[resume] restored step 30 " not in said[1] or \
+            "[done] step 40 " not in said[1]:
+        raise AssertionError("the second driver run did not resume at step "
+                             "30 and end at step 40")
+    log(f"  launch.train: 30 steps with checkpoints every 10, then "
+        f"--steps 40 resumed at step 30 and ended at step 40 "
+        f"({TRAIN_DRIVER_DIR})")
+
+
+def lm_training_phase(rows):
+    """LM training on the card (phase 12).
+
+    1. smollm-360m and rwkv6-1.6b at full width and depth: bf16 compute,
+       fp32 parameters and moments, each config's remat and grad_accum,
+       weights drawn on the card from a seeded generator, batches of
+       ``data.tokens.batch_at`` (seed 0, 8 x 1024 tokens). Every step
+       must give a finite loss and grad norm above 0, ``skipped`` 0 and
+       moved parameters; rwkv6's steps exactly their wkv6 launches (see
+       ``_train_full_width``) and the chunked WKV only in the Function's
+       backward. The 2 warm-up steps run under the device audit; the 8
+       timed ones (each ending in a synchronize) run the same code
+       outside it, whose hook on every op would dominate the host clock.
+    2. One fp32 step of each reduced config on the card and on the CPU
+       from the same weights and batch: loss, gradients and updated
+       parameters (rwkv6's through the wkv6 Function on the card).
+    3. The wkv6 Function alone at WKV_GRAD_SHAPE (bf16 r, k, v): its
+       gradients against autograd of the fp32 chunked form, and finite
+       at log-decay -3.
+    4. ``launch.train.main`` on smollm-reduced: 30 steps, then a resume to
+       40.
+    The training row of wkv6 (micro-batch 2 x 1024 tokens, 32 heads) is
+    timed against its plain version first, and the Function's forward and
+    backward at that shape on the host clock and under the profiler."""
+    from repro_torch.kernels.wkv6 import ops as wo
+    from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+    from repro_torch.kernels.wkv6.ref import wkv_chunked
+
+    B, S, H, hd = 2, TRAIN_SEQ, 32, 64  # rwkv6's micro-batch of 2 rows
+    r, k, v, *rest = _wkv_inputs(B, S, H, hd, seed=S + 1)
+    xs = (r.bfloat16(), k.bfloat16(), v.bfloat16(), *rest)
+    name = "wkv6[train,bf16]"
+    log(f"wkv6 kernel at the training shape: B={B}, S={S}, H={H}, hd={hd}, "
+        f"r, k, v bf16, the rest fp32")
+    max_err = max(_check_close(f"{name} {part}", g, w, WKV_TOL)
+                  for part, g, w in zip(("o", "state"), wkv6_cuda(*xs),
+                                        wkv_chunked(*xs)))
+    moved = (B * S * H * hd * (3 * 2 + 8)
+             + 4 * (H * hd + 2 * B * H * hd * hd))
+    flop = B * S * H * (5 * hd * hd + 6 * hd)
+    rows[name] = timed_row(name, lambda: wkv6_cuda(*xs),
+                           lambda: wkv_chunked(*xs), max_err,
+                           roofline_ms(moved, flop, H100_TF32X3_FLOP_PER_S),
+                           WKV6_SOURCE)
+    # the training step's WKV, as a layer of rwkv6 calls it (s0 zeros and
+    # frozen, the final state unused): the kernel's forward and the
+    # Function's backward, whose first call captures its CUDA graph; and
+    # the eager gradients of the chunked form that the graph replays
+    need = (True,) * 5 + (False,)
+    ins = [x.clone().requires_grad_(n) for x, n in zip(xs, need)]
+    cot = torch.ones_like(wkv6_cuda(*xs)[0])
+
+    def fwd_bwd():
+        torch.autograd.grad(wo.wkv6(*ins)[0], ins[:5], cot)
+
+    def eager_grads():
+        wo._chunked_grads(xs, [cot, None], need)
+
+    fwd_bwd()
+    host_ms = {}
+    for label, run in (("Function forward + backward (graph replay)",
+                        fwd_bwd), ("chunked form's gradients, eager",
+                                   eager_grads)):
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        host_ms[label] = (time.perf_counter() - t0) / 3 * 1e3
+    log(f"  wkv6 at the training shape, ms a call on the host clock "
+        f"({CARD}): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                  host_ms.items()))
+    _profiled("wkv6 Function forward + backward (graph replay)", fwd_bwd,
+              ("call", 1))
+    _profiled("the chunked form's gradients, eager", eager_grads,
+              ("call", 1))
+    del r, k, v, rest, xs, ins, cot
+    for arch in TRAIN_ARCHS:
+        t0 = time.perf_counter()
+        _train_full_width(arch, rows)
+        log(f"  {arch} training: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    for arch in TRAIN_ARCHS:
+        _card_against_cpu(arch)
+    _wkv6_function_check()
+    _driver_check()
+    log(f"  training checks: {time.perf_counter() - t0:.2f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -3127,6 +3599,9 @@ def main():
     t0 = time.perf_counter()
     lm_serving_phase(rows)
     log(f"LM serving path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    lm_training_phase(rows)
+    log(f"LM training path: {time.perf_counter() - t0:.2f} s")
     # rows at shapes or types the path does not run (fp32, decode_32k,
     # the ragged fast-decay slice): checked and timed as the others, and
     # printed on a line of their own with no launches on the path

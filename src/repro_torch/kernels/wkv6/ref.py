@@ -56,8 +56,12 @@ def _chunk_len(S: int, chunk: int) -> int:
 
 
 def wkv_chunked(r, k, v, log_decay, u, s0, chunk: int = WKV_CHUNK):
-    """Chunked-parallel WKV6; the pairwise decays inside a chunk are
-    masked to s < t after the exponential, as in the reference."""
+    """Chunked-parallel WKV6 in the reference's float order. The pairwise
+    decays inside a chunk are exp(Lx[t] - L[s]), kept for s < t: the
+    exponent is masked to 0 at s >= t before the exponential, where the
+    reference takes it for every pair and masks after. The kept entries
+    are the same bits; the masked ones, which grow without bound for fast
+    decays, no longer overflow, so the gradients stay finite."""
     B, S, H, hd = r.shape
     c = _chunk_len(S, chunk)
     n = S // c
@@ -75,7 +79,9 @@ def wkv_chunked(r, k, v, log_decay, u, s0, chunk: int = WKV_CHUNK):
     for rb, kb, vb, lb in zip(rc, kc, vc, ldc):  # (B, c, H, hd)
         L = torch.cumsum(lb, dim=1)  # inclusive
         Lx = L - lb  # exclusive
-        decay = torch.exp(Lx[:, :, None] - L[:, None, :])  # (B, t, s, H, hd)
+        expo = torch.where(tri[None, :, :, None, None],
+                           Lx[:, :, None] - L[:, None, :], 0.0)
+        decay = torch.exp(expo)  # (B, t, s, H, hd)
         A = torch.einsum("bthd,btshd->bhts", rb, kb[:, None] * decay)
         A = torch.where(tri[None, None], A, torch.zeros_like(A))
         o = torch.einsum("bhts,bshd->bthd", A, vb)

@@ -69,7 +69,6 @@ class EncDecLM(nn.Module):
         return x + L.sinusoidal_positions(positions, self.cfg.d_model,
                                           x.dtype)[None]
 
-    @torch.no_grad()
     def encode(self, frames):
         """frames (B, enc_len, d), the frontend stub's embeddings -> (the
         normed encoder output (B, enc_len, d), the encoder's MoE loss)."""
@@ -78,7 +77,6 @@ class EncDecLM(nn.Module):
         x, aux, _ = self.encoder(x)
         return self.enc_norm(x), aux
 
-    @torch.no_grad()
     def hidden(self, tokens, extras=None, collect_kv: bool = False):
         """tokens (B, S) int, ``extras["frames"]`` (B, enc_len, d) ->
         (h (B, S, d), the summed MoE loss, the decoder's kvs)."""
@@ -93,7 +91,10 @@ class EncDecLM(nn.Module):
                                      collect_kv=collect_kv)
         return self.final_norm(x), aux_e + aux_d, kvs
 
-    @torch.no_grad()
+    def unembed_weight(self):
+        """The (d, V_padded) unembedding, the LM head's weight."""
+        return self.lm_head.w
+
     def logits(self, h):
         return self.lm_head(h)
 

@@ -21,10 +21,33 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import _param, draw_normal
 
 SSM_CHUNK = 32
+
+
+def _scan_chunk(x_b, d_b, b_b, c_b, A, h, in_place: bool):
+    """One chunk, (cs, B, ...) slices, from the state ``h`` -> (y (B, cs,
+    d_inner), the state after it). ``in_place`` steps the states inside
+    one buffer (serving); otherwise each is a tensor of its own, as
+    autograd needs, and the same bits: one ``addcmul`` a position
+    either way."""
+    cs = x_b.shape[0]
+    a = torch.exp(d_b[..., None] * A)                    # (cs, B, din, N)
+    hs = (d_b * x_b)[..., None] * b_b[:, :, None, :]     # then the states
+    if in_place:
+        hs[0].addcmul_(a[0], h)
+        for t in range(1, cs):
+            hs[t].addcmul_(a[t], hs[t - 1])
+        h = hs[-1].clone()
+    else:
+        states = [torch.addcmul(hs[0], a[0], h)]
+        for t in range(1, cs):
+            states.append(torch.addcmul(hs[t], a[t], states[-1]))
+        hs, h = torch.stack(states), states[-1]
+    return torch.einsum("tbdn,tbn->btd", hs, c_b), h
 
 
 def selective_scan_chunked(x, delta, A, b, c, h0, chunk: int = SSM_CHUNK):
@@ -36,25 +59,27 @@ def selective_scan_chunked(x, delta, A, b, c, h0, chunk: int = SSM_CHUNK):
     A chunk that does not divide S shrinks until it does, as the
     reference's. Inside a chunk each position's state is one ``addcmul``
     of the one before: no cumulative product is divided out (exp(delta A)
-    underflows over a chunk)."""
+    underflows over a chunk). Where autograd records the call, each chunk
+    runs under ``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint`` of its chunk body: the backward recomputes one
+    chunk's (cs, B, d_inner, N) states at a time."""
     B, S, din = x.shape
     cs = min(chunk, S)
     while S % cs:
         cs -= 1
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, delta, A, b, c, h0))
     ys, h = [], h0
     for s0 in range(0, S, cs):
         # (cs, B, ...) so that one position's slice is contiguous
-        d_b = delta[:, s0:s0 + cs].transpose(0, 1)
-        x_b = x[:, s0:s0 + cs].transpose(0, 1)
-        b_b = b[:, s0:s0 + cs].transpose(0, 1)
-        c_b = c[:, s0:s0 + cs].transpose(0, 1)
-        a = torch.exp(d_b[..., None] * A)                    # (cs, B, din, N)
-        hs = (d_b * x_b)[..., None] * b_b[:, :, None, :]     # then the states
-        hs[0].addcmul_(a[0], h)
-        for t in range(1, cs):
-            hs[t].addcmul_(a[t], hs[t - 1])
-        h = hs[-1].clone()
-        ys.append(torch.einsum("tbdn,tbn->btd", hs, c_b))
+        x_b, d_b, b_b, c_b = (t[:, s0:s0 + cs].transpose(0, 1)
+                              for t in (x, delta, b, c))
+        if grad:
+            y, h = checkpoint(_scan_chunk, x_b, d_b, b_b, c_b, A, h, False,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            y, h = _scan_chunk(x_b, d_b, b_b, c_b, A, h, True)
+        ys.append(y)
     return torch.cat(ys, dim=1), h
 
 

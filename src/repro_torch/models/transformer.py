@@ -12,9 +12,15 @@ over the encoder's output.
 
 API, as the reference's with the parameters held by the module:
     hidden(tokens, extras) -> (h, aux, kvs)     logits(h) -> (B, S, V)
+    unembed_weight() -> (d, V)
     prefill(tokens, extras, max_seq) -> (cache, last_logits)
     decode(cache, token, pos) -> (cache, logits)
     init_cache(batch, seq)              pad_cache(kvs, prefill_len, max_seq)
+
+``hidden`` and ``logits`` are differentiable (``repro_torch.train``
+trains through them, each block checkpointed as ``cfg.remat`` says);
+the serving calls run under ``torch.no_grad``. Parameters are created
+frozen; ``train.steps.init_train_state`` turns them trainable.
 
 A cache is a list with one entry per block, ``{"sub0": {"mixer": {"k",
 "v"}, {"conv", "ssm"} or {"shift", "wkv"}, "cross": {"k", "v"}, "ffn":
@@ -31,9 +37,13 @@ graph).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import (ATTN, MAMBA, MLP, MOE, NOFF, RWKV,
@@ -84,6 +94,30 @@ def _ffn_module(cfg: ArchConfig, mixer_kind: str, kind: str, dtype, device):
         return MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k,
                    cfg.capacity_factor, dtype=dtype, device=device)
     raise _unported(f"the {kind!r} FFN")
+
+
+# the matrix products without batch dimensions (``x @ w`` reaches the
+# dispatcher as ``mm`` on the flattened rows), the saves of the reference's
+# ``checkpoint_dots_with_no_batch_dims``
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_kwargs(remat: str) -> dict:
+    """``torch.utils.checkpoint`` arguments for a block under the config's
+    ``remat``: "full" saves only the block's inputs and recomputes the rest
+    in the backward, "dots" also saves its matrix products. No layer draws
+    random numbers, so the checkpoints keep no generator state."""
+    if remat == "full":
+        return {}
+    if remat == "dots":
+        return {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)}
+    raise ValueError(f"remat {remat!r} is not one of none, full, dots")
 
 
 def _pad_seq(t, pad: int):
@@ -216,20 +250,45 @@ class Stack(nn.Module):
             for sub in block.values():
                 sub.reset(generator)
 
+    @staticmethod
+    def _block(block, x, total, context, collect_kv: bool):
+        kv = {}
+        for name, sub in block.items():
+            x, aux, kv[name] = sub(x, collect_kv, context)
+            if aux is not None:
+                total = total + aux
+        return x, total, kv
+
     def forward(self, x, extras=None, collect_kv: bool = False):
         """x (B, S, d), ``extras["context"]`` (B, Sk, d) for the XATTN
         sublayers or the cross-attentions -> (x, the MoE sublayers'
         load-balancing losses summed in block order (fp32, 0 without
-        MoE), per-block caches or None)."""
+        MoE), per-block caches or None).
+
+        Where autograd records this call (grad mode on and the stack's
+        parameters requiring gradients), each block runs under
+        ``torch.utils.checkpoint`` as the config's ``remat`` says (the
+        reference's ``jax.checkpoint`` of its scanned block): "full"
+        recomputes the block in the backward, "dots" keeps its matrix
+        products, "none" keeps everything."""
         context = (extras or {}).get("context")
+        remat = self.cfg.remat
+        trained = torch.is_grad_enabled() and any(
+            p.requires_grad for p in self.parameters())
+        if not trained or collect_kv:
+            remat = "none"
+        kw = {} if remat == "none" else _remat_kwargs(remat)
         kvs = []
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.blocks:
-            kv = {}
-            for name, sub in block.items():
-                x, aux, kv[name] = sub(x, collect_kv, context)
-                if aux is not None:
-                    total = total + aux
+            if remat == "none":
+                x, total, kv = self._block(block, x, total, context,
+                                           collect_kv)
+            else:
+                x, total, kv = checkpoint(self._block, block, x, total,
+                                          context, False,
+                                          use_reentrant=False,
+                                          preserve_rng_state=False, **kw)
             kvs.append(kv)
         return x, total, kvs if collect_kv else None
 
@@ -360,19 +419,26 @@ class DecoderLM(nn.Module):
                              f"(frontend stub)")
         return extras
 
-    @torch.no_grad()
     def hidden(self, tokens, extras=None, collect_kv: bool = False):
         """tokens (B, S) int; ``extras["context"]`` (B, n_frontend_tokens,
         d), the image tokens a VLM's XATTN layers attend (required there)
         -> (h (B, S, d), the MoE sublayers' summed load-balancing loss (0
-        without MoE), kvs)."""
+        without MoE), kvs). Differentiable: autograd records it where the
+        parameters require gradients (``train.steps.init_train_state``
+        turns them on) and grad mode is on."""
         extras = self._extras(extras)
         x = self.embed(tokens, self.compute_dtype)
         x, aux, kvs = self.stack(x, extras, collect_kv=collect_kv)
         x = self.final_norm(x)
         return x, aux, kvs
 
-    @torch.no_grad()
+    def unembed_weight(self):
+        """The (d, V_padded) unembedding: the tied embedding's transpose,
+        or the LM head's weight."""
+        if self.lm_head is None:
+            return self.embed.emb.T
+        return self.lm_head.w
+
     def logits(self, h):
         """The tied embedding's ``attend``, or the LM head."""
         if self.lm_head is None:

@@ -19,12 +19,15 @@ from repro_torch.control import (ControlKnobs, ControlledAccMPEGPolicy,
 from repro_torch.core.accmodel import AccModel
 from repro_torch.core.training import accmodel_init
 from repro_torch.engine import EngineConfig, StreamingEngine
+from repro_torch.launch import train as train_launch
 from repro_torch.models import DecoderLM, EncDecLM, Stack
 from repro_torch.models import layers as L
 from repro_torch.models.mamba import Mamba
 from repro_torch.models.moe import MoE
 from repro_torch.models.rwkv6 import RWKV6ChannelMix, RWKV6TimeMix
+from repro_torch.optim.adamw import AdamW, warmup_cosine
 from repro_torch.serve.tenants import TenantSpec
+from repro_torch.train import steps as train_steps
 from repro_torch.vision.dnn import FinalDNN, render_detection_targets
 from repro_torch.vision.train import train_final_dnn
 
@@ -78,7 +81,8 @@ def test_port_files_exist():
                    "configs/llama3_2_vision_90b.py",
                    "configs/jamba1_5_large_398b.py",
                    "configs/seamless_m4t_large_v2.py", "models/mamba.py",
-                   "models/encdec.py"):
+                   "models/encdec.py", "data/tokens.py", "optim/adamw.py",
+                   "train/loss.py", "train/steps.py", "launch/train.py"):
         assert f"src/repro_torch/{module}" in names
     assert "chip_smoke.py" in names
     for source in ("mbcodec/csrc/mbcodec.cu",
@@ -153,6 +157,38 @@ def test_lm_defaults_to_cuda_and_refuses_without_it():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DecoderLM(cfg, device="cuda")
     assert DecoderLM(cfg, device="cpu").device.type == "cpu"
+
+
+def test_training_entry_points_default_to_cuda_and_refuse_without_it():
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_launch.main(["--arch", "smollm_360m", "--reduced",
+                           "--steps", "1"])
+    opt = AdamW(schedule=warmup_cosine(1e-3, 1, 2))
+    model = DecoderLM(get_reduced_config("smollm-360m"), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_steps.init_train_state(model, opt)
+    state = train_steps.init_train_state(model, opt, "cpu")
+    assert state["step"].device.type == "cpu"
+    assert all(p.requires_grad for p in state["params"].values())
+
+
+def test_training_refuses_the_multi_gpu_options():
+    """The multi-pod mesh, compressed gradients and the sharding specs
+    wait for the multi-GPU slice (module 8)."""
+    for extra in (["--mesh", "multi"], ["--compression", "int8"]):
+        with pytest.raises(NotImplementedError, match="module 8"):
+            train_launch.main(["--arch", "smollm_360m", "--reduced",
+                               "--device", "cpu"] + extra)
+    cfg = get_reduced_config("smollm-360m")
+    model = DecoderLM(cfg, device="cpu")
+    opt = AdamW(schedule=warmup_cosine(1e-3, 1, 2))
+    for call in (lambda: train_steps.train_state_specs(model, opt),
+                 lambda: train_steps.batch_specs(cfg, None, 8, 128),
+                 lambda: train_steps.make_train_step(model, cfg, opt,
+                                                     compression="int8")):
+        with pytest.raises(NotImplementedError, match="module 8"):
+            call()
 
 
 _LM_MODULES = {
