@@ -169,13 +169,16 @@ check it end to end.
    core body with p.v as O += P V; with the graph check) and its cross
    layers' (B=16, the whole int8 cache of S=6404 image tokens,
    pos=6403), and jamba-1.5-large-398b's (the same KV=8, G=8 on a bf16
-   cache, qwen1.5-110b's shape too: the tensor-core bf16 body; with the
-   graph check); each row logs its body, blocks an SM and splits; at hd 64 and
-   G 1, seamless-m4t-large-v2's self layers' (KV=16, pos=1087, bf16) and
-   its cross layers' (the whole bf16 cache of 1,024 encoder positions,
+   cache: the tensor-core bf16 body; with the graph check); each row logs
+   its body, blocks an SM and splits; at hd 64 and G 1,
+   seamless-m4t-large-v2's self layers' (KV=16, pos=1087, bf16) and its
+   cross layers' (the whole bf16 cache of 1,024 encoder positions,
    pos=1023), both on the tensor-core bf16 body at G 1 and with the graph
-   check; SDPA timed on each bf16 cache and,
-   unmasked, on a bf16 copy of llama-vision's cross cache.
+   check; yi-34b's (KV=8, G=7, pos=1087 on its int8 cache: the
+   tensor-core body with P V; with the graph check; qwen1.5-110b's shape
+   is llama-vision's self layers'); SDPA timed on each bf16 cache and on
+   a bf16 copy of yi's int8 cache and, unmasked, of llama-vision's cross
+   cache.
    ``wkv6`` at the rwkv6
    path's prefill (B=16, S=1024, H=32) and decode (S=1) shapes, r, k and v in
    bf16 (as the path passes them) and in fp32, against the reference
@@ -188,8 +191,9 @@ check it end to end.
 11. LM serving at full width and depth, random bf16 weights from a seeded
    generator: smollm-360m, rwkv6-1.6b, stablelm-3b (its int8 K/V cache),
    olmoe-1b-7b (64 experts, top-8, the MoE layer's dense path; hd 128),
-   moonshot-v1-16b-a3b (48 layers, 64 experts of d_ff 1408, top-6, vocab
-   163,840, ~56 GB of weights; its int8 cache at hd 128) and
+   moonshot-v1-16b-a3b (64 experts of d_ff 1408, top-6, vocab 163,840,
+   its int8 cache at hd 128; 16 of its 48 layers, ~20 GB of weights, to
+   keep the script's time: all 48, ~56 GB, fit) and
    llama-3.2-vision-90b (d 8192, 64 heads over 8, d_ff 28,672, vocab
    128,256, the int8 cache; depth cut to 30 of its 100 layers, ~55.5 GB
    of weights: 24 self layers and 6 cross layers over a context of 6,404
@@ -197,22 +201,32 @@ check it end to end.
    jamba-1.5-large-398b (d 8192, 64 heads over 8 with no rotary, the bf16
    cache, Mamba d_inner 16,384 and N 16, 16 experts of d_ff 24,576, top-2;
    its first 5 sublayers, ~48.2 GB: 4 Mamba, 1 attention, 3 MLP, 2 MoE,
-   where one whole 8-sublayer block holds ~90 GB) and
+   where one whole 8-sublayer block holds ~90 GB),
    seamless-m4t-large-v2 (24 encoder and 24 decoder layers, d 1024, hd 64,
    vocab 256,206; 1,024 audio frames, (16, 1024, 1024) bf16 drawn on the
-   card) each prefill 16 prompts of 1024 tokens (``make_prefill_step``
-   with room for 2048; the VLM's context or the frames with them) and
+   card), yi-34b (d 7168, 56 heads over 8 at hd 128, d_ff 20,480, vocab
+   64,000, the int8 cache; 54 of its 60 layers, ~62.1 GB) and
+   qwen1.5-110b (d 8192, 64 heads over 8 at hd 128 with qkv biases, d_ff
+   49,152, vocab 152,064, the int8 cache; 21 of its 80 layers, ~62.1 GB;
+   yi's and qwen's depths are the deepest whose serving peak stays within
+   moonshot's 73.87 GB at full depth) each prefill 16 prompts of 1024
+   tokens (``make_prefill_step`` with room for 2048; the VLM's context or
+   the frames with them) and
    take 64 greedy ``make_decode_step`` steps. The audited run must make
    exactly 32 x 64 ``decode_attn`` launches in the decode steps (smollm,
-   stablelm; 16 x 64 for olmoe, 48 x 64 for moonshot, 30 x 64 for
+   stablelm; 16 x 64 for olmoe and moonshot, 30 x 64 for
    llama-vision: 24 x 64 over the self caches, 6 x 64 over the cross
    caches; 1 x 64 for jamba; 48 x 64 for seamless: 24 x 64 over the self
-   caches, 24 x 64 over the cross caches) and none in the prefill, and 24
+   caches, 24 x 64 over the cross caches; 54 x 64 for yi, 21 x 64 for
+   qwen) and none in the prefill, and 24
    ``wkv6`` launches in the prefill and 24 x 64 in the decode steps, with
    every op on the card and finite logits; the MoE drop fractions of a
    prefill and a decode step are logged, jamba's prefill's Mamba and
    selective-scan device ms (CUDA events around each call), and each
-   model's peak device memory and seconds.
+   model's peak device memory and seconds. For yi and qwen one prefill is
+   first counted by ``launch.analysis`` on meta tensors: its predicted
+   peak of live bytes is logged beside ``torch.cuda.max_memory_allocated``
+   over one prefill on the card, its counted FLOPs beside 2 N T.
    Then the serving launcher's loop (``repro_torch.launch.serve.
    serve_tokens``) serves the same prompts with the decode step captured
    once as a CUDA graph and replayed at every position, audited over its
@@ -226,7 +240,8 @@ check it end to end.
    between CUDA events). Then, in fp32, the decode logits after a
    256-token prefill must match the full forward pass for 16 steps within
    2e-3 of its largest logit (the reference's property), or 5e-2 with
-   stablelm's, moonshot's and llama-vision's int8 caches, which are
+   stablelm's, moonshot's, llama-vision's, yi's and qwen's int8 caches,
+   which are
    checked with an fp32 cache too; the MoE models at the dropless
    capacity factor 8.0, as the reference's test, and on the int8 cache
    with each token's experts
@@ -237,8 +252,9 @@ check it end to end.
    cross; ~42.6 GB, batch 4, a context of 6,404 tokens), jamba on its
    sublayers 0, 1 and 4 ((MAMBA, MLP), (MAMBA, MOE), (ATTN, MLP); ~52
    GB: a Mamba state handed from the prefill to decode, the MoE and the
-   attention layer), seamless whole (~6.5 GB, 1,024 frames), the cuts
-   logged on their lines.
+   attention layer), seamless whole (~6.5 GB, 1,024 frames), yi at 16
+   layers (~39.4 GB), qwen at 6 (~42.6 GB), the cuts logged on their
+   lines.
 12. LM training (``lm_training_phase``). ``wkv6`` at the training shape
    (rwkv6's micro-batch: B=2, S=1024, H=32, hd=64, bf16 r, k, v) against
    the chunked form, timed. smollm-360m (362 M parameters) and rwkv6-1.6b
@@ -268,7 +284,17 @@ check it end to end.
    ``launch.train.main`` on smollm-reduced for 30 steps (a checkpoint
    every 10, into ``build/train_driver``), then again with ``--steps 40``,
    which must resume at step 30 and end at 40.
-13. Prints one JSON line of the rows at shapes or types the paths do not
+13. The dry-run (``dryrun_phase``, checked before phase 2):
+   ``python -m repro_torch.launch.dryrun --in-process --device cuda``
+   runs beside the build of phase 1 and nothing else, in three processes
+   (one CPU thread each; every cell on meta tensors, nothing allocated
+   on the card; the script waits for it before the first phase on the
+   card, so that no timed phase shares the host with it) and writes a
+   record of each of the 40 (arch x workload shape) cells into
+   ``build/dryrun_torch/``; each must be ``ok`` (a positive step bound,
+   FLOPs and peak) or ``skipped`` with its reason. Its lines are
+   logged.
+14. Prints one JSON line of the rows at shapes or types the paths do not
    run (launches 0), then the ``{"kernels": [...]}`` line: one row for
    each kernel at each shape and type its path runs, with its launches
    there, error and times; then the line ``kernels: ...``, and last
@@ -327,7 +353,8 @@ WKV6_SOURCE = "src/repro_torch/kernels/wkv6/csrc/wkv6.cu"
 # greedy steps; decode against forward in fp32 after a 256-token prefill
 LM_ARCHS = ("smollm-360m", "rwkv6-1.6b", "stablelm-3b", "olmoe-1b-7b",
             "moonshot-v1-16b-a3b", "llama-3.2-vision-90b",
-            "jamba-1.5-large-398b", "seamless-m4t-large-v2")
+            "jamba-1.5-large-398b", "seamless-m4t-large-v2", "yi-34b",
+            "qwen1.5-110b")
 LM_BATCH, LM_PROMPT, LM_MAX_SEQ, LM_STEPS = 16, 1024, 2048, 64
 LM_CHECK_BATCH, LM_CHECK_PREFILL, LM_CHECK_STEPS = 4, 256, 16
 LM_DECODE_REL = 2e-3  # tests/test_models.py's bound
@@ -336,14 +363,28 @@ LM_INT8_REL = 5e-2  # its bound with the int8 cache (test_int8_kv_cache_decode)
 # so that dispatch does not depend on the batch (tests/test_models.py)
 LM_MOE_DROPLESS_CF = 8.0
 # the fp32 check's depth where the whole model does not fit the card:
-# moonshot's 48 layers hold ~112 GB of fp32 weights, 16 hold ~39 GB (its
-# serving runs at full depth, in bf16); llama-3.2-vision-90b's 10 (two
-# super-blocks: 8 self and 2 cross layers) hold ~42.6 GB
-LM_CHECK_LAYERS = {"moonshot-v1-16b-a3b": 16, "llama-3.2-vision-90b": 10}
+# moonshot's 48 layers hold ~112 GB of fp32 weights, 16 hold ~39 GB;
+# llama-3.2-vision-90b's 10 (two super-blocks: 8 self and 2 cross layers)
+# hold ~42.6 GB; yi-34b's 16 ~39.4 GB, qwen1.5-110b's 6 ~42.6 GB
+LM_CHECK_LAYERS = {"moonshot-v1-16b-a3b": 16, "llama-3.2-vision-90b": 10,
+                   "yi-34b": 16, "qwen1.5-110b": 6}
 # the serving depth where the published one does not fit the card in
 # bf16: llama-3.2-vision-90b's 100 layers hold ~171 GB, 30 (six
-# super-blocks: 24 self and 6 cross layers) ~55.5 GB; width is not cut
-LM_SERVE_LAYERS = {"llama-3.2-vision-90b": 30}
+# super-blocks: 24 self and 6 cross layers) ~55.5 GB; yi-34b's and
+# qwen1.5-110b's are the deepest prefixes whose serving peak stays within
+# moonshot-v1-16b-a3b's measured 73.87 GB at full depth. That peak is the
+# prefill's (launch.analysis predicts it: PREDICTED_PEAK_ARCHS) plus the
+# ~0.9 GB the card holds from earlier phases and one more int8 cache (the
+# graph run's, alive while the profiled prefill runs): 76.44 GB for yi's
+# 57 layers, 74.52 GB for qwen's 22 (each layer 1.25 and 2.86 GB with
+# its two caches), so 54 (~62.1 GB of weights) and 21 (~62.1 GB).
+# moonshot's 48 fit, but serve 16 of them to keep the script's time:
+# width is not cut
+LM_SERVE_LAYERS = {"moonshot-v1-16b-a3b": 16, "llama-3.2-vision-90b": 30,
+                   "yi-34b": 54, "qwen1.5-110b": 21}
+# the archs whose serving prefill launch.analysis predicts on meta
+# tensors (peak live bytes, FLOPs) beside the card's measurement
+PREDICTED_PEAK_ARCHS = ("yi-34b", "qwen1.5-110b")
 # the sublayers of the block pattern kept where one block does not fit the
 # card: jamba-1.5-large-398b's block of 8 holds ~90 GB of bf16 weights. It
 # serves the first 5 (4 Mamba, 1 attention, 3 MLP and 2 MoE sublayers,
@@ -381,6 +422,16 @@ TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-5, 1e-4
 WKV_GRAD_SHAPE = (2, 256, 4, 64)
 WKV_GRAD_TOL = ((1e-6, 2.0 ** -8),) * 3 + ((1e-6, 1e-6),) * 3
 TRAIN_DRIVER_DIR = ROOT / "build" / "train_driver"
+# the dry-run sweep's records (launch.dryrun --out), and its time limit
+DRYRUN_OUT = ROOT / "build" / "dryrun_torch"
+DRYRUN_TIMEOUT_S = 600
+# the sweep's processes, each a group of archs whose cells count in about
+# 70, 57 and 43 s of one thread of an Intel Xeon host (launch.dryrun's
+# count_s), so that the sweep ends about when the build does
+DRYRUN_GROUPS = (("jamba1_5_large_398b",),
+                 ("llama3_2_vision_90b", "rwkv6_1b6", "olmoe_1b_7b"),
+                 ("moonshot_v1_16b_a3b", "qwen1_5_110b", "stablelm_3b",
+                  "seamless_m4t_large_v2", "yi_34b", "smollm_360m"))
 CARD = ""  # nvidia-smi's name and power limit, set once by main()
 BACKENDS = ("exact", "pallas", "fused", "fused_exact")
 FLEET_SEEDS = range(300, 308)  # as benchmarks/multistream.py
@@ -2022,10 +2073,11 @@ def decode_attn_kernel_phase():
     whole int8 cache of 6,404 image tokens) and jamba-1.5-large-398b's
     (the same G 8 on a bf16 cache) shapes, and at hd 64 and G 1 at
     seamless-m4t-large-v2's (its self layers, and its cross layers over
-    the whole bf16 cache of 1,024 encoder positions), with
-    ``scaled_dot_product_attention`` on the same
-    inputs timed as the library call (no library call reads the int8
-    cache: the cross row's SDPA reads a bf16 copy of it, unmasked); each
+    the whole bf16 cache of 1,024 encoder positions), and yi-34b's (KV 8,
+    G 7 on its int8 cache), with ``scaled_dot_product_attention`` on the
+    same inputs timed as the library call (no library call reads the int8
+    cache: the cross row's SDPA reads a bf16 copy of it, unmasked, and
+    yi's a bf16 copy of its cache); each
     row logs the body it takes (:func:`_decode_attn_body`), the blocks an
     SM of its instantiation holds and its splits."""
     import torch.nn.functional as F
@@ -2043,9 +2095,11 @@ def decode_attn_kernel_phase():
     # olmoe-1b-7b's 16 over 16 (bf16), moonshot's 16 over 16 on its int8
     # cache, llama-3.2-vision-90b's 64 over 8 (G 8): its self layers'
     # int8 cache and its cross layers' (the whole cache: pos S - 1), and
-    # jamba-1.5-large-398b's 64 over 8 on a bf16 cache (qwen1.5-110b's
-    # shape too); seamless-m4t-large-v2's 16 over 16 at hd 64, its self
-    # layers' and its cross layers' (the encoder's LM_FRAMES positions)
+    # jamba-1.5-large-398b's 64 over 8 on a bf16 cache; seamless-m4t-
+    # large-v2's 16 over 16 at hd 64, its self layers' and its cross
+    # layers' (the encoder's LM_FRAMES positions); yi-34b's 56 over 8 (G
+    # 7) on its int8 cache. qwen1.5-110b's 64 over 8 on the int8 cache is
+    # llama-vision's self layers' row
     cases = (("path,bf16", *path, 5, 3, 64, last, bf16, False),
              ("path,fp32", *path, 5, 3, 64, last, fp32, False),
              ("decode_32k,bf16", *DECODE_32K, 5, 3, 64, DECODE_32K[1] - 1,
@@ -2062,7 +2116,8 @@ def decode_attn_kernel_phase():
               bf16, True),
              ("seamless,bf16", *path, 16, 1, 64, last, bf16, False),
              ("seamless-xattn,bf16", LM_BATCH, LM_FRAMES, 16, 1, 64,
-              LM_FRAMES - 1, bf16, False))
+              LM_FRAMES - 1, bf16, False),
+             ("yi,int8", *path, 8, 7, 128, last, bf16, True))
     rows = {}
     for tag, B, S, cfg_kv, cfg_g, hd, pos, dtype, int8 in cases:
         gen = torch.Generator(device="cuda").manual_seed(S + pos + hd)
@@ -2090,9 +2145,10 @@ def decode_attn_kernel_phase():
         def library():  # GQA over the valid positions, never on the path
             return F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True)
 
-        # SDPA reads no int8 cache; the cross row's library time is SDPA
-        # on a bf16 copy of it (every position: no mask)
-        lib_on_copy = tag == "llama-vision-xattn,int8"
+        # SDPA reads no int8 cache; the cross row's and yi's library time
+        # is SDPA on a bf16 copy of it (the cross row's every position:
+        # no mask)
+        lib_on_copy = tag in ("llama-vision-xattn,int8", "yi,int8")
 
         want = plain()
         max_err = _check_close(name, kern(), want, ATTN_TOL)
@@ -2136,7 +2192,7 @@ def decode_attn_kernel_phase():
                 f"on the bf16 cache, L2 flushed ({CARD})")
         if tag in ("path,bf16", "stablelm,int8", "olmoe,bf16",
                    "moonshot,int8", "llama-vision,int8", "jamba,bf16",
-                   "seamless,bf16", "seamless-xattn,bf16"):
+                   "seamless,bf16", "seamless-xattn,bf16", "yi,int8"):
             _decode_attn_graph_check(q, k, v)
         del q, k, v, qh, kh, vh, want
         torch.cuda.empty_cache()
@@ -2889,6 +2945,56 @@ def _scan_share(model, prompt):
         f"{ms['mixer'] / total:.3f}, scan {ms['scan'] / total:.3f}")
 
 
+def _predicted_prefill(arch, cfg, model, prompt):
+    """The serving prefill of ``cfg`` (``prompt``'s shape, room for
+    LM_MAX_SEQ) counted by ``launch.analysis`` on meta tensors, against
+    one prefill of ``model`` on the card: the predicted peak of live bytes
+    beside ``torch.cuda.max_memory_allocated`` (the card also holds what
+    earlier phases left, logged), and the counted FLOPs beside the model
+    FLOPs 2 N T (logged)."""
+    from repro_torch.launch import analysis
+    from repro_torch.models import DecoderLM
+    from repro_torch.serve.steps import make_prefill_step
+
+    meta = DecoderLM(cfg, torch.bfloat16, torch.bfloat16, device="meta",
+                     init=False)
+    step = make_prefill_step(meta, cfg, max_seq=LM_MAX_SEQ)
+    batch = {"tokens": torch.empty(prompt.shape, dtype=prompt.dtype,
+                                   device="meta")}
+    t0 = time.perf_counter()
+    _, ana = analysis.analyze(step, batch, roots=list(meta.parameters()))
+    count_s = time.perf_counter() - t0
+    del meta, step
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cache, _ = make_prefill_step(model, cfg, max_seq=LM_MAX_SEQ)(
+        {"tokens": prompt})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del cache
+    torch.cuda.empty_cache()
+    other = held - _param_bytes(model) - prompt.numel() * prompt.element_size()
+    predicted = ana["peak_live_bytes"]
+    model_flops = 2.0 * cfg.active_param_count() * prompt.numel()
+    terms = analysis.roofline_terms(ana)
+    log(f"  {arch} prefill {tuple(prompt.shape)} with room for {LM_MAX_SEQ} "
+        f"({CARD}): launch.analysis on meta tensors ({count_s:.2f} s) "
+        f"predicts a peak of {predicted / 1e9:.3f} GB of live tensors "
+        f"(weights and prompt included); max_memory_allocated "
+        f"{peak / 1e9:.3f} GB, of it {other / 1e9:.3f} GB held before "
+        f"the model from earlier phases: predicted + held "
+        f"{(predicted + other) / 1e9:.3f} GB, "
+        f"{(peak - predicted - other) / 1e9:+.3f} GB off; counted "
+        f"{ana['dot_flops']:.4e} matrix-product FLOPs against model FLOPs "
+        f"2 N T = {model_flops:.4e} "
+        f"({model_flops / ana['dot_flops']:.4f}); roofline "
+        f"{terms['step_time_lower_bound_s']:.4f} s ({terms['bottleneck']}-"
+        f"bound, the eager ops' bytes)")
+    if not peak > 0 or not predicted > 0:
+        raise AssertionError(f"{arch}: no peak measured or predicted")
+
+
 def lm_serving_phase(rows):
     """The LM configurations at full width, bf16 weights and compute,
     random weights from a seeded generator: batch 16, 1024-token prompts,
@@ -2929,7 +3035,12 @@ def lm_serving_phase(rows):
               "jamba-1.5-large-398b": (
                   "decode_attn", {"decode": "decode_attn[jamba,bf16]"}),
               "seamless-m4t-large-v2": (
-                  "decode_attn", {"decode": "decode_attn[seamless,bf16]"})}
+                  "decode_attn", {"decode": "decode_attn[seamless,bf16]"}),
+              "yi-34b": ("decode_attn", {"decode": "decode_attn[yi,int8]"}),
+              # llama-vision's self layers' shape: their row, launches
+              # added
+              "qwen1.5-110b": (
+                  "decode_attn", {"decode": "decode_attn[llama-vision,int8]"})}
     # the cross caches' kernels-line row
     cross_row = {"llama-3.2-vision-90b": "decode_attn[llama-vision-xattn,int8]",
                  "seamless-m4t-large-v2": "decode_attn[seamless-xattn,bf16]"}
@@ -2979,6 +3090,8 @@ def lm_serving_phase(rows):
             f"{LM_STEPS} greedy steps")
         # loads cuBLAS and the kernels
         _serve(model, prompt[:, :8], 16, 2, extras=extras)
+        if arch in PREDICTED_PEAK_ARCHS:
+            _predicted_prefill(arch, cfg, model, prompt)
 
         kernel, row_of = stages[arch]
         per_step = cfg.n_layers if cfg.attn_free else n_self + n_cross
@@ -3006,8 +3119,7 @@ def lm_serving_phase(rows):
         if not finite or tokens.shape != (LM_BATCH, LM_STEPS + 1):
             raise AssertionError(f"{arch}: non-finite logits or malformed "
                                  f"tokens {tuple(tokens.shape)}")
-        for stage, name in row_of.items():
-            rows[name]["launches"] = split[stage]
+        by_row = {name: split[stage] for stage, name in row_of.items()}
         if n_cross:  # the decode steps' launches, self and cross caches
             by_length = {LM_MAX_SEQ: n_self * LM_STEPS,
                          _context_len(cfg): n_cross * LM_STEPS}
@@ -3016,9 +3128,10 @@ def lm_serving_phase(rows):
             if dict(lengths) != by_length:
                 raise AssertionError(f"{arch}: decode_attn read caches of "
                                      f"{dict(lengths)}")
-            rows[row_of["decode"]]["launches"] = by_length[LM_MAX_SEQ]
-            rows[cross_row[arch]]["launches"] = \
-                by_length[_context_len(cfg)]
+            by_row[row_of["decode"]] = by_length[LM_MAX_SEQ]
+            by_row[cross_row[arch]] = by_length[_context_len(cfg)]
+        for name, n in by_row.items():  # a shape two models run: summed
+            rows[name]["launches"] = rows[name].get("launches", 0) + n
 
         # the graph: the launcher's loop, audited over the prefill, the
         # warm-up, the capture and the replays (which dispatch no op)
@@ -3513,12 +3626,78 @@ def lm_training_phase(rows):
     log(f"  training checks: {time.perf_counter() - t0:.2f} s")
 
 
+def start_dryrun():
+    """Start ``python -m repro_torch.launch.dryrun --in-process`` on the
+    card (its name and memory from ``torch.cuda``; every cell on meta
+    tensors, so it allocates nothing there) into DRYRUN_OUT: a process of
+    one CPU thread for each group of DRYRUN_GROUPS, beside the kernels'
+    build and nothing else."""
+    from repro_torch.configs.base import all_arch_ids
+
+    if sorted(a for g in DRYRUN_GROUPS for a in g) != sorted(all_arch_ids()):
+        raise AssertionError(f"DRYRUN_GROUPS {DRYRUN_GROUPS} are not the "
+                             f"archs {all_arch_ids()}")
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    DRYRUN_OUT.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for i, archs in enumerate(DRYRUN_GROUPS):
+        log_file = open(DRYRUN_OUT / f"sweep{i}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             "--in-process", "--device", "cuda", "--out", str(DRYRUN_OUT),
+             "--arch", *archs], cwd=ROOT, env=env, stdout=log_file,
+            stderr=subprocess.STDOUT)
+        proc.log_file = log_file
+        procs.append(proc)
+    return procs
+
+
+def dryrun_phase(procs):
+    """Wait for the dry-run sweep (:func:`start_dryrun`) and check its
+    records: all 40 (arch x shape) cells, each ``ok`` (a positive step
+    bound, FLOPs and peak) or ``skipped`` with a reason; logs each cell's
+    line."""
+    from repro_torch.configs.base import SHAPES, all_arch_ids
+
+    rcs = []
+    for i, proc in enumerate(procs):
+        try:
+            rcs.append(proc.wait(timeout=DRYRUN_TIMEOUT_S))
+        finally:
+            proc.log_file.close()
+        for line in (DRYRUN_OUT / f"sweep{i}.log").read_text().splitlines():
+            log(f"  {line}")
+    rc = max(rcs, key=abs)
+    if rc != 0:
+        raise AssertionError(f"the dry-run sweep exited with {rc}")
+    counts = collections.Counter()
+    for arch in all_arch_ids():
+        for shape in SHAPES:
+            rec = json.loads((DRYRUN_OUT / f"{arch}__{shape}__single.json")
+                             .read_text())
+            st = rec["status"]
+            counts[st] += 1
+            if st == "skipped" and rec["skip_reason"]:
+                continue
+            if st != "ok" or not (
+                    rec["roofline"]["step_time_lower_bound_s"] > 0
+                    and rec["analysis"]["dot_flops"] > 0
+                    and rec["memory"]["peak_live_bytes"] > 0):
+                raise AssertionError(f"dry-run cell {arch} {shape}: {rec}")
+            counts["fits"] += rec["fits"]
+    log(f"dry-run ({CARD}): {sum(counts[k] for k in ('ok', 'skipped'))} "
+        f"cells: {counts['ok']} ok ({counts['fits']} of them fit the "
+        f"card), {counts['skipped']} skipped with a reason")
+    if counts["ok"] + counts["skipped"] != len(all_arch_ids()) * len(SHAPES):
+        raise AssertionError(f"dry-run: {dict(counts)}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
                  "script runs on a CUDA card")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.data.video import make_scene
     from repro_torch.kernels import build
 
     # what deterministic cuBLAS calls need (the detector's training):
@@ -3537,9 +3716,23 @@ def main():
         f"{torch.cuda.get_device_name(0)}; TF32 off for matmul and cuDNN, "
         f"float32 matmul precision 'highest'")
 
-    t0 = time.perf_counter()
-    built = build.build()
-    log(f"build: {time.perf_counter() - t0:.2f} s")
+    # the dry-run sweep (host work on meta tensors) runs beside the build
+    # only, and ends before the first phase on the card
+    sweep = start_dryrun()
+    try:
+        t0 = time.perf_counter()
+        built = build.build()
+        log(f"build: {time.perf_counter() - t0:.2f} s (beside the dry-run "
+            f"sweep)")
+        t0 = time.perf_counter()
+        dryrun_phase(sweep)
+        log(f"dry-run: waited {time.perf_counter() - t0:.2f} s for the "
+            f"sweep after the build")
+    finally:
+        for proc in sweep:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     reports = {"mbcodec": mbcodec_build_report, "wkv6": wkv6_build_report,
                "decode_attn": decode_attn_build_report}
     for name in reports:
@@ -3555,6 +3748,12 @@ def main():
                 log(f"    {line.strip()}")
     mbcodec_sass_report()
     decode_attn_sass_report()
+    phases()
+
+
+def phases():
+    """Every phase after the build."""
+    from repro_torch.data.video import make_scene
 
     t0 = time.perf_counter()
     scene = make_scene("dashcam", seed=33, T=SCENE_FRAMES, H=HEIGHT,

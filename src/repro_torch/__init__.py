@@ -29,3 +29,31 @@ def synchronize(device: torch.device):
     host clock read after it measures the work and not its enqueue."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+#: the counting pass of ``repro_torch.launch.analysis`` that is running, if
+#: any (it sets and clears this)
+COUNTING: list = []
+
+
+def loop(body, items, carry=None):
+    """``body(item, carry) -> (out, carry)`` over ``items`` in order ->
+    (the list of outs, the last carry): a Python loop whose passes all
+    have the same shapes (a sequence's chunks, a scan's positions).
+    Under a counting pass of ``repro_torch.launch.analysis`` (meta
+    tensors) it runs three passes of a longer loop, one of them counted
+    for all the passes between the first and the last, as the reference's
+    analysis counts a loop body by its trip count; what it returns then
+    stands for shapes only."""
+    items = list(items)
+    if COUNTING:
+        return COUNTING[-1].repeated(body, items, carry)
+    return _loop(body, items, carry)
+
+
+def _loop(body, items, carry):
+    outs = []
+    for item in items:
+        out, carry = body(item, carry)
+        outs.append(out)
+    return outs, carry

@@ -1,11 +1,11 @@
 """Architecture configurations (port of ``repro.configs.base``).
 
 ``ArchConfig`` is copied as data, field for field, so that a
-configuration reads the same in both packages. Only the archs whose
-serving path the port runs load here (:data:`PORTED`); the others raise
-``NotImplementedError`` until their slice lands (ROADMAP, module 9). The
-reference's workload shapes (``SHAPES``, ``cell_applicable``) wait for
-a slice that runs them.
+configuration reads the same in both packages; every arch of the
+reference has its module here. The analytic parameter counts
+(``param_count``, ``active_param_count``) and the workload shapes
+(``SHAPES``, ``cell_applicable``) are the reference's arithmetic and
+data, copied; ``repro_torch.launch.dryrun`` runs them.
 """
 from __future__ import annotations
 
@@ -119,6 +119,108 @@ class ArchConfig:
         attention)."""
         return self.family in ("ssm", "hybrid")
 
+    def param_count(self) -> int:
+        """Analytic parameter count (used for MODEL_FLOPS and sanity
+        tests)."""
+        return _param_count(self)
+
+    def active_param_count(self) -> int:
+        return _param_count(self, active_only=True)
+
+
+def _ffn_params(cfg: ArchConfig, kind: str, active_only: bool) -> int:
+    if kind == NOFF:
+        return 0
+    if kind == MOE:
+        per_expert = 3 * cfg.d_model * cfg.d_ff  # gate, up, down (swiglu)
+        router = cfg.d_model * cfg.n_experts
+        n_e = cfg.top_k if active_only else cfg.n_experts
+        return n_e * per_expert + router
+    mult = 3 if cfg.act == "swiglu" else 2
+    return mult * cfg.d_model * cfg.d_ff
+
+
+def _mixer_params(cfg: ArchConfig, kind: str) -> int:
+    d, hd = cfg.d_model, cfg.hd
+    if kind in (ATTN, XATTN):
+        q = d * cfg.n_heads * hd
+        kv = 2 * d * cfg.n_kv_heads * hd
+        o = cfg.n_heads * hd * d
+        b = (cfg.n_heads * hd + 2 * cfg.n_kv_heads * hd) if cfg.qkv_bias \
+            else 0
+        return q + kv + o + b
+    if kind == MAMBA:
+        din, n, dtr = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.dt_rank
+        return (
+            d * 2 * din  # in_proj
+            + din * cfg.mamba_d_conv  # depthwise conv
+            + din * (dtr + 2 * n)  # x_proj
+            + dtr * din  # dt_proj
+            + din * n  # A_log
+            + din  # D
+            + din * d  # out_proj
+        )
+    if kind == RWKV:
+        lora = d * cfg.rwkv_decay_lora * 2 + d * cfg.rwkv_gate_lora * 2
+        # time-mix: W_r, W_k, W_v, W_g, W_o (5 square) + decay lora + mus + u
+        tm = 5 * d * d + lora + 7 * d
+        cm = d * cfg.d_ff + cfg.d_ff * d + d * d + 2 * d  # channel mix
+        return tm + cm
+    raise ValueError(kind)
+
+
+def _param_count(cfg: ArchConfig, active_only: bool = False) -> int:
+    per_block = 0
+    for mixer, ffn in cfg.block_pattern:
+        per_block += _mixer_params(cfg, mixer)
+        per_block += _ffn_params(cfg, ffn, active_only)
+        per_block += 2 * cfg.d_model  # two norms per sublayer (pre-norm)
+    total = cfg.n_blocks * per_block
+    stacks = 2 if cfg.enc_dec else 1
+    total *= stacks
+    if cfg.enc_dec:  # decoder cross-attention over encoder output
+        total += cfg.n_layers * (_mixer_params(cfg, ATTN) + cfg.d_model)
+    total += cfg.vocab_size * cfg.d_model  # embedding
+    if not cfg.tie_embeddings:
+        total += cfg.vocab_size * cfg.d_model  # lm head
+    total += cfg.d_model  # final norm
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Workload shapes (the assignment's per-arch input-shape set).
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def cell_applicable(cfg: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether an (arch x shape) cell runs, with the reason when
+    skipped."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, (
+            "long_500k needs sub-quadratic sequence mixing; "
+            f"{cfg.name} is pure full-attention (skip per brief, see "
+            "DESIGN.md)"
+        )
+    return True, ""
+
 
 ARCH_IDS = [
     "rwkv6_1b6",
@@ -146,20 +248,11 @@ PUBLIC_IDS = {
     "jamba-1.5-large-398b": "jamba1_5_large_398b",
 }
 
-#: the archs whose configuration module the port carries
-PORTED = ("smollm_360m", "rwkv6_1b6", "stablelm_3b", "olmoe_1b_7b",
-          "moonshot_v1_16b_a3b", "llama3_2_vision_90b",
-          "jamba1_5_large_398b", "seamless_m4t_large_v2")
-
 
 def _module(arch: str):
     arch = PUBLIC_IDS.get(arch, arch)
     if arch not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported yet; the port carries {PORTED} "
-            f"(ROADMAP, module 9, queues the rest)")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 
@@ -169,3 +262,7 @@ def get_config(arch: str) -> ArchConfig:
 
 def get_reduced_config(arch: str) -> ArchConfig:
     return _module(arch).REDUCED
+
+
+def all_arch_ids() -> list:
+    return list(ARCH_IDS)

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import loop
+
 WKV_CHUNK = 32  # the reference model's chunk
 # the CUDA kernel's decomposition (csrc/wkv6.cu: C, SB, TS, MAX_SEG)
 SEG_CHUNK = 16     # tokens per chunk
@@ -74,9 +76,9 @@ def wkv_chunked(r, k, v, log_decay, u, s0, chunk: int = WKV_CHUNK):
     u = u.to(f32)
     tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
                      diagonal=-1)
-    s = s0.to(f32)
-    outs = []
-    for rb, kb, vb, lb in zip(rc, kc, vc, ldc):  # (B, c, H, hd)
+
+    def one(chunk, s):
+        rb, kb, vb, lb = chunk  # (B, c, H, hd)
         L = torch.cumsum(lb, dim=1)  # inclusive
         Lx = L - lb  # exclusive
         expo = torch.where(tri[None, :, :, None, None],
@@ -92,7 +94,9 @@ def wkv_chunked(r, k, v, log_decay, u, s0, chunk: int = WKV_CHUNK):
         kd = kb * torch.exp(Lc[:, None] - L)
         s = s * torch.exp(Lc)[..., None] + torch.einsum("bshd,bshe->bhde",
                                                         kd, vb)
-        outs.append(o)
+        return o, s
+
+    outs, s = loop(one, zip(rc, kc, vc, ldc), s0.to(f32))
     o = torch.stack(outs, dim=1).reshape(B, S, H, hd)
     return o, s
 

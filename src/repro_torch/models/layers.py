@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch import resolve_device
+from repro_torch import loop, resolve_device
 from repro_torch.kernels.decode_attn.ops import decode_attn
 
 
@@ -246,8 +246,8 @@ def chunked_attention(q, k, v, causal: bool = True,
     kf = k.float().transpose(1, 2).contiguous()
     vh = v.transpose(1, 2).contiguous()
     cols = torch.arange(Sk, device=q.device)
-    outs = []
-    for idx in range(S // c):
+
+    def one(idx, _):
         qb = q[:, idx * c:(idx + 1) * c].float().transpose(1, 2)
         s = (qb.reshape(B, KV, G * c, hd) @ kf.transpose(-1, -2)) * scale
         if causal:
@@ -256,8 +256,9 @@ def chunked_attention(q, k, v, causal: bool = True,
             s.view(B, KV, G, c, Sk).masked_fill_(~mask, -1e30)
         p = torch.softmax(s, dim=-1)
         o = (p.to(v.dtype) @ vh).reshape(B, H, c, hd)
-        outs.append(o.transpose(1, 2))
-    return torch.cat(outs, dim=1)
+        return o.transpose(1, 2), None
+
+    return torch.cat(loop(one, range(S // c))[0], dim=1)
 
 
 class Attention(nn.Module):

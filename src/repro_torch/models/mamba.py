@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import loop
 from repro_torch.models.layers import _param, draw_normal
 
 SSM_CHUNK = 32
@@ -38,15 +39,16 @@ def _scan_chunk(x_b, d_b, b_b, c_b, A, h, in_place: bool):
     a = torch.exp(d_b[..., None] * A)                    # (cs, B, din, N)
     hs = (d_b * x_b)[..., None] * b_b[:, :, None, :]     # then the states
     if in_place:
-        hs[0].addcmul_(a[0], h)
-        for t in range(1, cs):
-            hs[t].addcmul_(a[t], hs[t - 1])
+        loop(lambda t, prev: (None, hs[t].addcmul_(a[t], prev)), range(cs),
+             h)
         h = hs[-1].clone()
     else:
-        states = [torch.addcmul(hs[0], a[0], h)]
-        for t in range(1, cs):
-            states.append(torch.addcmul(hs[t], a[t], states[-1]))
-        hs, h = torch.stack(states), states[-1]
+        def step(t, prev):
+            state = torch.addcmul(hs[t], a[t], prev)
+            return state, state
+
+        states, h = loop(step, range(cs), h)
+        hs = torch.stack(states)
     return torch.einsum("tbdn,tbn->btd", hs, c_b), h
 
 
@@ -69,17 +71,17 @@ def selective_scan_chunked(x, delta, A, b, c, h0, chunk: int = SSM_CHUNK):
         cs -= 1
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, delta, A, b, c, h0))
-    ys, h = [], h0
-    for s0 in range(0, S, cs):
+
+    def one(s0, h):
         # (cs, B, ...) so that one position's slice is contiguous
         x_b, d_b, b_b, c_b = (t[:, s0:s0 + cs].transpose(0, 1)
                               for t in (x, delta, b, c))
         if grad:
-            y, h = checkpoint(_scan_chunk, x_b, d_b, b_b, c_b, A, h, False,
+            return checkpoint(_scan_chunk, x_b, d_b, b_b, c_b, A, h, False,
                               use_reentrant=False, preserve_rng_state=False)
-        else:
-            y, h = _scan_chunk(x_b, d_b, b_b, c_b, A, h, True)
-        ys.append(y)
+        return _scan_chunk(x_b, d_b, b_b, c_b, A, h, True)
+
+    ys, h = loop(one, range(0, S, cs), h0)
     return torch.cat(ys, dim=1), h
 
 

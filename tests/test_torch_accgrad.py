@@ -14,6 +14,8 @@ as in ``tests/test_torch_engine.py``, the heads' last layers are scaled
 (x100) to spread their logits to a trained net's range, and both packages
 get the same scaled weights.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -89,8 +91,18 @@ def test_kernel_wrapper_refuses_cpu_and_malformed_tensors():
     g, hq, lq = map(torch.from_numpy, _inputs((32, 48, 3), 8, batch=2))
     with pytest.raises(ValueError, match="CUDA tensor"):
         tk.accgrad_reduce_cuda(g, hq, lq)
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        accgrad_reduce(g.to("meta"), hq.to("meta"), lq.to("meta"))
+    # a tensor on any device but CUDA, the CPU and meta raises (a stand-in:
+    # this host makes tensors on no other device)
+    with pytest.raises(ValueError, match="CUDA, CPU or meta"):
+        accgrad_reduce(types.SimpleNamespace(device=torch.device("xpu")),
+                       hq, lq)
+    # meta tensors (the dry-run's counting pass) take the plain version:
+    # its shapes, and no launch
+    before = dict(tk.LAUNCHES)
+    out = accgrad_reduce(g.to("meta"), hq.to("meta"), lq.to("meta"))
+    assert out.device.type == "meta"
+    assert out.shape == accgrad_reduce_ref(g, hq, lq).shape
+    assert dict(tk.LAUNCHES) == before
 
 
 def test_library_is_registered_for_the_build():

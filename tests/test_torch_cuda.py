@@ -956,11 +956,12 @@ def test_decode_attn_head_dim_128_graph_replays_at_device_positions(cuda,
 
 
 # the int8 body on the tensor cores (walk_int8_mma; bf16 q at hd 64 and
-# 128): moonshot-v1-16b-a3b's hd 128, G 1, yi-34b's G 2, smollm's hd 64,
-# G 3, and past G 4, where p.v runs as O += P V, llama-3.2-vision-90b's
-# hd 128, G 8, G 5 and hd 64 at G 8
+# 128): moonshot-v1-16b-a3b's hd 128, G 1, G 2 (two query heads a KV
+# head), smollm's hd 64, G 3, and past G 4, where p.v runs as O += P V,
+# llama-3.2-vision-90b's and qwen1.5-110b's hd 128, G 8, G 5, hd 64 at G
+# 8, and yi-34b's hd 128, G 7 (56 heads over 8)
 @pytest.mark.parametrize("hd,G", [(128, 1), (128, 2), (64, 3), (128, 8),
-                                  (128, 5), (64, 8)])
+                                  (128, 5), (64, 8), (128, 7)])
 def test_decode_attn_tensor_core_int8_body(cuda, hd, G):
     """Over many splits (2 row groups of 4 KV heads, or past G 4 one KV
     head a block and one row: ~130 splits of 4500 positions) against the
@@ -1231,6 +1232,111 @@ def test_decode_attn_int8_at_moonshot_decode_shape(cuda):
         atol=1e-5, rtol=1e-4)
 
 
+def test_decode_attn_int8_at_yi_decode_shape(cuda):
+    """yi-34b's decode shape (B 16, S 2048, KV 8, G 7, hd 128, pos 1087) on
+    its int8 cache takes the tensor-core body (P V past G 4) and matches
+    the plain version."""
+    from repro_torch.kernels.decode_attn import kernel as dk
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    assert dk.mma_body(torch.bfloat16, True, 128, 7)
+    q, k, v = _int8_attn_inputs(cuda, 16, 2048, 8, 7, 128, torch.bfloat16,
+                                seed=17)
+    got = dk.decode_attn_cuda(q, k, v, 1087)
+    assert got.shape == (16, 8, 7, 128)
+    np.testing.assert_allclose(
+        got.cpu().numpy(), decode_attn_ref(q, k, v, 1087).cpu().numpy(),
+        atol=1e-5, rtol=1e-4)
+
+
+# (arch, the reduced config's widening): yi-reduced at yi-34b's G 7 and
+# hd 128 (7 heads over 1), qwen-reduced at qwen1.5-110b's G 8 and hd 128
+# (8 over 1, its qkv biases), both on the int8 cache their full configs
+# serve with
+DENSE_ON_CARD = {"yi_34b": dict(n_heads=7, n_kv_heads=1, head_dim=128),
+                 "qwen1_5_110b": dict(n_heads=8, n_kv_heads=1,
+                                      head_dim=128)}
+
+
+def _dense_serving_logits(cfg, models, prompt, steps_to_take=8):
+    """The prefill's last logits and each decode step's of ``models``
+    ({device: model}, the CPU's first), every model fed the CPU's greedy
+    tokens -> {device: ((steps + 1, B, V) logits, (steps + 1, B) greedy
+    tokens)} on the host."""
+    from repro_torch.serve import steps
+
+    outs, fed = {}, None
+    P = prompt.shape[1]
+    for dev, model in models.items():
+        pre = steps.make_prefill_step(model, cfg, max_seq=P + steps_to_take)
+        dec = steps.make_decode_step(model, cfg)
+        cache, last = pre({"tokens": prompt.to(dev)})
+        tok = torch.argmax(last[:, -1], -1).to(torch.int32)
+        logits, toks = [last[:, -1]], [tok]
+        for i in range(steps_to_take):
+            given = tok if fed is None else fed[i].to(dev)
+            cache, tok, lg = dec(cache, given[:, None], P + i)
+            logits.append(lg[:, -1])
+            toks.append(tok)
+        outs[dev] = (torch.stack(logits).float().cpu(),
+                     torch.stack(toks).cpu())
+        fed = outs[dev][1]
+    return outs
+
+
+@pytest.mark.parametrize("arch", sorted(DENSE_ON_CARD))
+def test_dense_serving_on_the_card_matches_the_cpu(cuda, arch):
+    """The serving steps of yi- and qwen-reduced (widened to their full
+    configs' decode_attn shapes) on the card against the same weights on
+    the CPU, both fed the CPU's greedy tokens, in fp32: on an fp32 cache
+    the prefill's last logits and 8 decode steps' logits within 1e-4 of
+    the largest |logit| (the CPU tests' bound), the same greedy token
+    wherever the CPU's top two logits lie further apart than twice that;
+    on the int8 cache (the full configs') within 5e-3, about eight times
+    the worst seen on an H100 (6.06e-4: a K or V value whose fp32
+    projections on the two devices straddle a rounding boundary quantizes
+    one step apart), so that a quantize or dequantize fault on either
+    device shows. Then in bf16
+    on the int8 cache the decode steps launch the kernel at the full
+    configs' G, on the tensor-core body, once a layer a step."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels.decode_attn import kernel as dk
+    from repro_torch.models import DecoderLM
+
+    prompt = None
+    for cache_dtype, rel in (("bfloat16", 1e-4), ("int8", 5e-3)):
+        # "bfloat16" names the cache of the compute type: fp32 here
+        cfg = dataclasses.replace(get_reduced_config(arch),
+                                  kv_cache_dtype=cache_dtype,
+                                  **DENSE_ON_CARD[arch])
+        cpu = DecoderLM(cfg, torch.float32, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+        card = DecoderLM(cfg, torch.float32, device=cuda, init=False)
+        card.load_state_dict(cpu.state_dict())
+        if prompt is None:
+            prompt = torch.from_numpy(np.random.default_rng(3).integers(
+                0, cfg.vocab_size, (4, 24)).astype(np.int32))
+        outs = _dense_serving_logits(cfg, {"cpu": cpu, cuda: card}, prompt)
+        (want, want_tok), (got, got_tok) = outs["cpu"], outs[cuda]
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= rel * scale, cache_dtype
+        if cache_dtype == "bfloat16":
+            top2 = torch.topk(want, 2).values
+            clear = (top2[..., 0] - top2[..., 1]) > 2e-4 * scale
+            assert bool(clear.any())
+            assert torch.equal(got_tok[clear], want_tok[clear])
+    G = cfg.n_heads // cfg.n_kv_heads
+    assert dk.mma_body(torch.bfloat16, True, 128, G)
+    bf16 = DecoderLM(cfg, torch.bfloat16, torch.bfloat16, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(0))
+    before = dk.LAUNCHES.get("decode_attn", 0)
+    outs = _dense_serving_logits(cfg, {cuda: bf16}, prompt, 4)
+    assert dk.LAUNCHES["decode_attn"] - before == 4 * cfg.n_layers
+    assert bool(torch.isfinite(outs[cuda][0]).all())
+
+
 @pytest.mark.parametrize("S,pos", [(2048, 1087), (1024, 1023)])
 def test_decode_attn_at_seamless_decode_shapes(cuda, S, pos):
     """seamless-m4t-large-v2's two decode shapes on its bf16 caches (B 16,
@@ -1375,14 +1481,17 @@ def test_moe_on_the_card_keeps_tied_tokens_as_the_cpu(cuda):
                                        ("llama3_2_vision_90b", False),
                                        ("llama3_2_vision_90b", True),
                                        ("jamba1_5_large_398b", False),
-                                       ("seamless_m4t_large_v2", False)])
+                                       ("seamless_m4t_large_v2", False),
+                                       ("yi_34b", True),
+                                       ("qwen1_5_110b", True)])
 def test_graph_decode_equals_eager_decode(cuda, arch, int8):
     """The serving launcher's captured step replayed at every position gives
     the eager loop's tokens (reduced configs, bf16, random weights); the
     capture records one kernel launch per attention or RWKV layer, a
     VLM's cross layer's too (llama-vision-reduced at head dim 32: the
     kernel has no 16), two per decoder layer of an encoder-decoder (self
-    and cross), and none for jamba's Mamba layers."""
+    and cross), and none for jamba's Mamba layers. qwen-reduced's head
+    dim 16 is widened to 32 as llama-vision-reduced's."""
     import dataclasses
 
     from repro_torch.configs import get_reduced_config
@@ -1394,8 +1503,9 @@ def test_graph_decode_equals_eager_decode(cuda, arch, int8):
     if int8:
         cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
     extras = {}
-    if cfg.cross_attn_every:
+    if cfg.hd < 32:
         cfg = dataclasses.replace(cfg, head_dim=32)
+    if cfg.cross_attn_every:
         extras["context"] = 0.3 * torch.randn(
             4, cfg.n_frontend_tokens, cfg.d_model, device=cuda,
             generator=torch.Generator(cuda).manual_seed(1)).to(torch.bfloat16)

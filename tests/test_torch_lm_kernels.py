@@ -150,13 +150,13 @@ def test_decode_attn_mma_split_plan_fills_one_wave(rows, slots):
 
 @pytest.mark.parametrize("dtype,int8,hd,G,want", [
     (torch.bfloat16, True, 128, 1, True),   # moonshot-v1-16b-a3b
-    (torch.bfloat16, True, 128, 2, True),   # yi-34b's KV 8
+    (torch.bfloat16, True, 128, 2, True),   # two query heads a KV head
     (torch.bfloat16, True, 64, 3, True),    # smollm's int8 shape
     (torch.bfloat16, True, 80, 1, False),   # stablelm-3b: walk_int8
     (torch.bfloat16, True, 128, 8, True),   # llama-3.2-vision-90b's G 8
     (torch.bfloat16, True, 128, 5, True),   # past G 4: p.v as O += P V
     (torch.bfloat16, True, 128, 6, True),
-    (torch.bfloat16, True, 128, 7, True),
+    (torch.bfloat16, True, 128, 7, True),   # yi-34b's 56 heads over 8
     (torch.bfloat16, True, 64, 8, True),    # the same code at hd 64
     (torch.float32, True, 128, 1, False),   # fp32 q: not bf16 operands
     (torch.float32, True, 128, 8, False),   # walk_int8 (TIGHT)

@@ -19,6 +19,7 @@ from repro_torch.control import (ControlKnobs, ControlledAccMPEGPolicy,
 from repro_torch.core.accmodel import AccModel
 from repro_torch.core.training import accmodel_init
 from repro_torch.engine import EngineConfig, StreamingEngine
+from repro_torch.launch import contrib, dryrun
 from repro_torch.launch import train as train_launch
 from repro_torch.models import DecoderLM, EncDecLM, Stack
 from repro_torch.models import layers as L
@@ -82,7 +83,10 @@ def test_port_files_exist():
                    "configs/jamba1_5_large_398b.py",
                    "configs/seamless_m4t_large_v2.py", "models/mamba.py",
                    "models/encdec.py", "data/tokens.py", "optim/adamw.py",
-                   "train/loss.py", "train/steps.py", "launch/train.py"):
+                   "train/loss.py", "train/steps.py", "launch/train.py",
+                   "configs/yi_34b.py", "configs/qwen1_5_110b.py",
+                   "launch/specs.py", "launch/analysis.py",
+                   "launch/dryrun.py", "launch/contrib.py"):
         assert f"src/repro_torch/{module}" in names
     assert "chip_smoke.py" in names
     for source in ("mbcodec/csrc/mbcodec.cu",
@@ -157,6 +161,9 @@ def test_lm_defaults_to_cuda_and_refuses_without_it():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DecoderLM(cfg, device="cuda")
     assert DecoderLM(cfg, device="cpu").device.type == "cpu"
+    for main in (dryrun.main, contrib.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(["--arch", "smollm_360m", "--shape", "decode_32k"])
 
 
 def test_training_entry_points_default_to_cuda_and_refuse_without_it():
@@ -218,12 +225,21 @@ def test_lm_modules_default_to_cuda_and_refuse_without_it(name):
 
 
 def test_lm_rejects_unported_archs_and_layers():
-    """yi-34b and qwen1.5-110b wait for their slice, and a mixer or FFN
-    kind the reference does not know raises; an encoder-decoder config is
-    refused by the decoder-only LM, and the other way round."""
+    """Every arch of the reference loads, yi-34b and qwen1.5-110b (the last
+    two ported) equal to the reference's configs field for field; an
+    unknown arch and a mixer or FFN kind the reference does not know
+    raise; an encoder-decoder config is refused by the decoder-only LM,
+    and the other way round."""
+    from repro.configs import base as ref_base
+
+    for arch in ref_base.ARCH_IDS:
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(ref_base.get_config(arch))
     for arch in ("yi-34b", "qwen1.5-110b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
+        for mine, ref in ((get_config(arch), ref_base.get_config(arch)),
+                          (get_reduced_config(arch),
+                           ref_base.get_reduced_config(arch))):
+            assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt-5")
     cfg = get_reduced_config("smollm_360m")
